@@ -1,0 +1,202 @@
+"""Layer math of the dense decoder families, as plain functions on tensors.
+
+The PyTorch counterpart of the dense subset of the JAX package's
+``models/layers.py``: norms, RoPE, softcap, the masked GQA attention core,
+the q/k/v and output projections, and the four MLP kinds.  Parameters are
+plain dicts of tensors; every weight matmul can be routed through an
+injected ``linear(x, name)`` callable (the backend seam).  Norm statistics
+and attention scores are computed in fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            plus_one: bool = False) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    w = scale.float()
+    if plus_one:
+        w = w + 1.0
+    return (y * w).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm_kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rmsnorm(x, p["scale"], cfg.norm_eps,
+                   plus_one=cfg.post_norm)   # gemma-style (1+w) rmsnorm
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Apply RoPE to ``x`` of shape (..., S, H, D) at ``positions`` (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=x.device) / half))
+    ang = positions[..., None].float() * freq                  # (..., S, half)
+    ang = ang[..., None, :]                                    # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Attention core (the dense-cache branch; paged caches go through kernels)
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+               window: Optional[int], kv_len=None) -> torch.Tensor:
+    """(B, Sq, Skv) additive bias from position/validity constraints."""
+    qp = q_pos[..., :, None].long()
+    kp = kv_pos[..., None, :].long()
+    ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                    dtype=torch.bool, device=qp.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=qp.device).long()
+        ok &= kp < kl[..., None, None]
+    ok &= kp >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=qp.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_positions: torch.Tensor, kv_positions: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              attn_softcap: Optional[float] = None, kv_len=None,
+              kv_format: str = "bthd") -> torch.Tensor:
+    """Masked multi-head attention with GQA, windows and softcap.
+
+    q (B,Sq,Hq,D); k/v (B,Skv,Hkv,D) ["bthd"] or (B,Hkv,Skv,D) ["bhtd"]
+    -> (B,Sq,Hq,D).
+    """
+    b, sq, hq, d = q.shape
+    skv = k.shape[1] if kv_format == "bthd" else k.shape[2]
+    hkv = k.shape[2] if kv_format == "bthd" else k.shape[1]
+    bias = _mask_bias(q_positions.expand(b, sq), kv_positions.expand(b, skv),
+                      causal=causal, window=window, kv_len=kv_len)
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    kspec = "btkd" if kv_format == "bthd" else "bktd"
+    scores = torch.einsum(f"bskgd,{kspec}->bkgst", qg, k.float())
+    scores = scores * (1.0 / math.sqrt(d))
+    scores = softcap(scores, attn_softcap)
+    scores = scores + bias[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum(f"bkgst,{kspec}->bskgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (qkv projections + rope + out projection)
+# ---------------------------------------------------------------------------
+
+def gqa_qkv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
+            linear=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project to q/k/v (with optional bias, qk-norm, rope).
+
+    ``linear(x, "wq")`` must return ``x @ W_q`` with the bias applied;
+    ``None`` uses the weights in ``p`` directly.
+    """
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    if linear is not None:
+        q = linear(x, "wq").reshape(b, s, hq, hd)
+        k = linear(x, "wk").reshape(b, s, hkv, hd)
+        v = linear(x, "wv").reshape(b, s, hkv, hd)
+    else:
+        q = (x @ p["wq"]).reshape(b, s, hq, hd)
+        k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+        v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+        if cfg.attn_bias:
+            q = q + p["bq"].reshape(hq, hd)
+            k = k + p["bk"].reshape(hkv, hd)
+            v = v + p["bv"].reshape(hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.pos_emb == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(cfg, p: Dict, o: torch.Tensor, linear=None) -> torch.Tensor:
+    b, s, hq, hd = o.shape
+    if linear is not None:
+        return linear(o.reshape(b, s, hq * hd), "wo")
+    y = o.reshape(b, s, hq * hd) @ p["wo"]
+    if cfg.attn_bias:
+        y = y + p["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; match it
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(cfg, p: Dict, x: torch.Tensor, linear=None) -> torch.Tensor:
+    kind = cfg.mlp_kind
+    if linear is None:
+        def linear(h, nm):
+            y = h @ p[nm]
+            bias = {"w_in": "b_in", "w_down": "b_down"}.get(nm)
+            if cfg.attn_bias and bias is not None and bias in p:
+                y = y + p[bias]
+            return y
+    if kind.startswith("gated"):
+        act = F.silu if kind == "gated_silu" else _gelu
+        h = act(linear(x, "w_gate")) * linear(x, "w_up")
+    else:
+        h = linear(x, "w_in")
+        if kind == "relu2":
+            h = torch.square(torch.relu(h))
+        elif kind == "gelu":
+            h = _gelu(h)
+        else:
+            h = torch.relu(h)
+    return linear(h, "w_down")

@@ -1,0 +1,330 @@
+"""Pluggable linear backends — one layer-math core, two executions.
+
+The decoder math is written once (:func:`repro_torch.models.model.decoder_layer`
+/ :func:`repro_torch.models.model.backend_prefill`) with every weight
+matmul routed through an injected ``linear(x, name)`` callable.  This
+module provides the concrete executions of that seam:
+
+    ResidentBackend   weights live in device memory; the forward runs
+                      eagerly layer by layer.
+    HeteGenBackend    weights live in host memory; linears execute through
+                      :class:`repro_torch.core.engine.HeteGenEngine` under a
+                      batch- and phase-aware placement plan (resident /
+                      alpha-split / streamed).
+
+Both expose the same serving surface — ``init_cache`` / ``init_paged_cache``
+/ ``prefill`` / ``decode`` / ``linear`` — so
+:class:`repro_torch.serving.batcher.ContinuousBatcher` schedules over
+either one interchangeably.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.alpha import resolve_phase_tokens
+from repro_torch.core.engine import HeteGenEngine, ModulePlan, StreamStats
+from repro_torch.core.hw import H100_HOST, HardwareSpec
+from repro_torch.core.policy import LinearSpec, PolicyResult, build_policy
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.telemetry.tracer import NULL_TRACER, Tracer
+
+
+def enumerate_linears(cfg: ModelConfig,
+                      wstream: str = "fp") -> List[LinearSpec]:
+    """The model's offloadable linears with size groups (paper §4.3).
+
+    ``wstream`` stamps the streamed wire format on every spec so the
+    policy layer prices the link in wire bytes while compute stays in fp
+    bytes."""
+    by = cfg.dtype_bytes()
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    d, f = cfg.d_model, cfg.d_ff
+
+    def spec(name, n_in, n_out, group):
+        return LinearSpec(name, n_in, n_out, group, by, wire=wstream)
+
+    out = []
+    for l in range(cfg.n_layers):
+        out += [
+            spec(f"blk{l}.wq", d, hq * hd, "attn"),
+            spec(f"blk{l}.wk", d, hkv * hd, "attn_kv"),
+            spec(f"blk{l}.wv", d, hkv * hd, "attn_kv"),
+            spec(f"blk{l}.wo", hq * hd, d, "attn"),
+        ]
+        if cfg.mlp_kind.startswith("gated"):
+            out += [spec(f"blk{l}.w_gate", d, f, "mlp"),
+                    spec(f"blk{l}.w_up", d, f, "mlp"),
+                    spec(f"blk{l}.w_down", f, d, "mlp_down")]
+        else:
+            out += [spec(f"blk{l}.w_in", d, f, "mlp"),
+                    spec(f"blk{l}.w_down", f, d, "mlp_down")]
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu").numpy()
+
+
+class ResidentBackend:
+    """Device-resident weights; the shared forward runs eagerly."""
+
+    cache_batch_axis = 0
+
+    def __init__(self, cfg: ModelConfig, params: Dict, *, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        shared, weights, biases = M.extract_backend_params(cfg, params)
+        self.shared = M.tree_to(shared, self.device)
+        self.weights = {k: v.to(self.device) for k, v in weights.items()}
+        self.biases = {k: v.to(self.device) for k, v in biases.items()}
+        self._ops = M.make_backend_ops(cfg)
+
+    # -- LinearBackend surface -----------------------------------------
+    def linear(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        y = x @ self.weights[name]
+        b = self.biases.get(name)
+        return y if b is None else y + b
+
+    def init_cache(self, batch: int, max_len: int) -> Dict:
+        return M.init_backend_cache(self.cfg, batch, max_len,
+                                    device=self.device)
+
+    def init_paged_cache(self, batch: int, max_len: int, *,
+                         page_size: int = 16,
+                         n_pages: Optional[int] = None,
+                         kv_dtype: Optional[str] = None,
+                         check: bool = False) -> PagedKVCache:
+        return PagedKVCache(self.cfg, batch, max_len, page_size=page_size,
+                            n_pages=n_pages, kv_dtype=kv_dtype, check=check,
+                            device=self.device)
+
+    def prefill(self, batch: Dict, cache: Dict
+                ) -> Tuple[Dict, torch.Tensor]:
+        return M.backend_prefill(self.cfg, self.shared, batch, cache,
+                                 linear=self.linear, ops=self._ops)
+
+    def decode(self, token: torch.Tensor, cache: Dict
+               ) -> Tuple[Dict, torch.Tensor]:
+        return M.backend_decode(self.cfg, self.shared, token, cache,
+                                linear=self.linear, ops=self._ops)
+
+    def close(self) -> None:
+        pass
+
+
+class HeteGenBackend:
+    """HeteGen-scheduled offloaded execution of the shared layer math.
+
+    Weights live in host memory; every ``linear`` runs through a threaded
+    :class:`HeteGenEngine` under a placement plan built for the real
+    workload, one plan and engine partition per serving phase: decode
+    moves every weight byte to produce ``batch`` tokens (small alpha),
+    prefill computes ``batch * prompt`` positions against the same traffic
+    (alpha -> 1).  The prefill plan is (re)tuned lazily from the observed
+    prompt shape, with a multiplicative hysteresis
+    (``prefill_retune_factor``).  Engines share device-resident module
+    copies through a common ``resident_store``.
+
+    ``hw`` defaults to :data:`repro_torch.core.hw.H100_HOST`.  Trace-driven
+    recalibration (``recalibrate=``) is not ported yet and raises.
+    """
+
+    cache_batch_axis = 0
+
+    def __init__(self, cfg: ModelConfig, params: Dict, *,
+                 hw: HardwareSpec = H100_HOST,
+                 budget_bytes: Optional[float] = None,
+                 batch: int = 1,
+                 use_alpha_benchmark: bool = True,
+                 use_module_scheduler: bool = True,
+                 alpha_override: Optional[float] = None,
+                 phase_plans: bool = True,
+                 prefill_retune_factor: float = 2.0,
+                 tracer: Tracer = NULL_TRACER,
+                 recalibrate: Optional[float] = None,
+                 wstream: str = "fp",
+                 device=None):
+        if wstream not in ("fp", "q8"):
+            raise ValueError(f"unknown wire format {wstream!r} "
+                             "(expected 'fp' or 'q8')")
+        if recalibrate is not None:
+            raise NotImplementedError(
+                "trace-driven recalibration is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        shared, weights, biases = M.extract_backend_params(cfg, params)
+        self.shared = M.tree_to(shared, self.device)
+        self._host_weights = {k: _host(v) for k, v in weights.items()}
+        self._host_biases = {k: _host(v) for k, v in biases.items()}
+        self._ops = M.make_backend_ops(cfg)
+        self.wstream = wstream
+        self.linears = enumerate_linears(cfg, wstream=wstream)
+        self.hw = hw
+        self.budget_bytes = budget_bytes
+        self.use_alpha_benchmark = use_alpha_benchmark
+        self.use_module_scheduler = use_module_scheduler
+        self.alpha_override = alpha_override
+        self.phase_plans = phase_plans
+        self.prefill_retune_factor = max(float(prefill_retune_factor), 1.0)
+        self.batch: Optional[int] = None
+        self.policies: Dict[str, PolicyResult] = {}
+        self.engines: Dict[str, HeteGenEngine] = {}
+        self._resident_store: Dict[str, torch.Tensor] = {}
+        self._stats_tally = StreamStats()   # closed engines' busy seconds
+        self._phase = "decode"
+        self.step_prefetches = 0            # cross-step prefetch nudges
+        self.tracer = tracer
+        self.retune(batch)
+
+    # -- phase/batch-aware planning ------------------------------------
+    @property
+    def policy(self) -> Optional[PolicyResult]:
+        """The decode-phase plan."""
+        return self.policies.get("decode")
+
+    @property
+    def engine(self) -> Optional[HeteGenEngine]:
+        """The decode-phase engine."""
+        return self.engines.get("decode")
+
+    def retune(self, batch: int, phase: str = "decode", *,
+               tokens_per_seq: Optional[int] = None) -> PolicyResult:
+        """(Re)build ``phase``'s placement plan and engine for ``batch``.
+        No-op when the phase already holds a plan for exactly this
+        (batch, tokens_per_seq)."""
+        batch = max(int(batch), 1)
+        tokens_per_seq = resolve_phase_tokens(phase, tokens_per_seq)
+        cur = self.policies.get(phase)
+        if cur is not None and cur.batch == batch \
+                and cur.tokens_per_seq == tokens_per_seq:
+            return cur
+        pol = build_policy(
+            self.linears, self.hw, budget_bytes=self.budget_bytes,
+            batch=batch, phase=phase, tokens_per_seq=tokens_per_seq,
+            use_alpha_benchmark=self.use_alpha_benchmark,
+            use_module_scheduler=self.use_module_scheduler)
+        if self.alpha_override is not None:
+            pol.plan = [
+                ModulePlan(p.name, p.group, p.mode,
+                           self.alpha_override if p.mode == "hetegen"
+                           else p.alpha)
+                for p in pol.plan]
+        old = self.engines.pop(phase, None)
+        if old is not None:
+            # a replaced partition's busy seconds still happened
+            self._stats_tally = self._stats_tally + old.finish_stats()
+            old.close()
+        self.policies[phase] = pol
+        keep = {p.name for r in self.policies.values()
+                for p in r.plan if p.mode == "resident"}
+        for name in list(self._resident_store):
+            if name not in keep:
+                del self._resident_store[name]
+        eng = HeteGenEngine(self._host_weights, pol.plan,
+                            biases=self._host_biases,
+                            device=self.device,
+                            resident_store=self._resident_store,
+                            tracer=self.tracer, trace_phase=phase,
+                            wstream=self.wstream)
+        eng.warm_prefetch()
+        self.engines[phase] = eng
+        if phase == "decode":
+            self.batch = batch
+        return pol
+
+    def _ensure_prefill_plan(self, batch: int, seq: int) -> None:
+        """Tune the prefill plan to the observed prompt shape; rebuild only
+        when the intensity leaves [cur/f, cur*f]."""
+        cur = self.policies.get("prefill")
+        intensity = max(batch, 1) * max(seq, 1)
+        if cur is not None:
+            f = self.prefill_retune_factor
+            if cur.intensity / f <= intensity <= cur.intensity * f:
+                return
+        self.retune(batch, phase="prefill", tokens_per_seq=seq)
+
+    def set_tracer(self, tracer: Tracer) -> None:
+        self.tracer = tracer
+        for phase, eng in self.engines.items():
+            eng.set_tracer(tracer, trace_phase=phase)
+
+    # -- LinearBackend surface -----------------------------------------
+    def linear(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        eng = self.engines.get(self._phase) or self.engines["decode"]
+        return eng.linear(x, name)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict:
+        return M.init_backend_cache(self.cfg, batch, max_len,
+                                    device=self.device)
+
+    def init_paged_cache(self, batch: int, max_len: int, *,
+                         page_size: int = 16,
+                         n_pages: Optional[int] = None,
+                         kv_dtype: Optional[str] = None,
+                         check: bool = False) -> PagedKVCache:
+        return PagedKVCache(self.cfg, batch, max_len, page_size=page_size,
+                            n_pages=n_pages, kv_dtype=kv_dtype, check=check,
+                            device=self.device)
+
+    def prefill(self, batch: Dict, cache: Dict
+                ) -> Tuple[Dict, torch.Tensor]:
+        if self.phase_plans:
+            b, s = batch["tokens"].shape
+            self._ensure_prefill_plan(b, s)
+            self._phase = "prefill"
+        try:
+            return M.backend_prefill(self.cfg, self.shared, batch, cache,
+                                     linear=self.linear, ops=self._ops)
+        finally:
+            self._phase = "decode"
+
+    def decode(self, token: torch.Tensor, cache: Dict
+               ) -> Tuple[Dict, torch.Tensor]:
+        return M.backend_decode(self.cfg, self.shared, token, cache,
+                                linear=self.linear, ops=self._ops)
+
+    def prefetch_next_step(self) -> None:
+        """Drive step N+1's pins while step N's host tail drains: by the
+        time the batcher calls this every slot has been released, so
+        re-issuing the first-of-each-group prefetch lands.  Idempotent
+        and non-blocking."""
+        eng = self.engines.get("decode")
+        if eng is not None:
+            eng.warm_prefetch()
+            self.step_prefetches += 1
+
+    # -- stats over all phase engines ----------------------------------
+    def reset_stats(self) -> None:
+        self._stats_tally = StreamStats()
+        for eng in self.engines.values():
+            eng.reset_stats()
+
+    def finish_stats(self) -> StreamStats:
+        out = self._stats_tally
+        for eng in self.engines.values():
+            out = out + eng.finish_stats()
+        return out
+
+    def device_resident_bytes(self) -> int:
+        seen: Dict[str, int] = {}
+        for eng in self.engines.values():
+            for name, t in eng._resident.items():
+                seen[name] = t.numel() * t.element_size()
+        return sum(seen.values())
+
+    def pinned_overhead_bytes(self) -> int:
+        return sum(eng.pinned_overhead_bytes()
+                   for eng in self.engines.values())
+
+    def close(self) -> None:
+        for eng in self.engines.values():
+            eng.close()
+        self.engines.clear()
+        self._resident_store.clear()

@@ -1,0 +1,56 @@
+"""The port never imports JAX or the JAX package: in a subprocess whose
+``sys.meta_path`` refuses ``jax`` and ``repro`` (and their submodules),
+every ``repro_torch`` module imports and ``chip_smoke.py`` parses and
+imports only what it may."""
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"refused import of {name}")
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in ("jax", "jaxlib", "repro"):
+        del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25          # every module was walked
+
+
+def test_chip_smoke_imports_only_torch_numpy_and_the_port():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            tops.add(node.module.split(".")[0])
+    assert "jax" not in tops and "repro" not in tops
+    assert tops <= {"__future__", "argparse", "dataclasses", "json", "math",
+                    "os", "subprocess", "sys", "time", "numpy", "torch",
+                    "repro_torch"}
