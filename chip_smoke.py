@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--layers 32]
+    python3 chip_smoke.py [--layers 32] [--mistral-layers 40]
 
 Phases (any failure exits non-zero; no phase's exception is caught):
 
@@ -17,12 +17,34 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    Kernel launch counters are zeroed just before and read just after each
    run.  The fp run's prefill logits are held against the port's
    ``ResidentBackend`` on the card;
+3b. resident one-shot generation of Mistral-NeMo-12B at full width and
+   (``--mistral-layers``) full depth, bf16, random weights made on the
+   card from a seed: ``LLM(cfg, params).generate`` of four 512-token
+   prompts, 16 new tokens each, on the stacked cache — once bf16, once
+   ``kv_dtype="int8"``.  The counters must show exactly one
+   flash-attention launch per layer, one flash-decode launch per layer
+   and decode step, two RMSNorm launches per layer plus the final norm
+   per forward, and no plain dense attention.  The whole model's prefill
+   logits are held against ``ResidentBackend`` on a dense backend cache,
+   and a reduced Mistral's greedy tokens on the card against the CPU's;
+3c. offloaded one-shot generation of OPT-6.7B (``--layers``, fp32) through
+   ``LLM(cfg, backend=HeteGenBackend(...)).generate``: four 64-token
+   prompts, 8 new tokens, over the dense backend cache (one
+   flash-attention launch per layer, seven flash-decode launches per
+   layer).  Its dense-cache prefill logits are held against
+   ``ResidentBackend`` (checked in phase 3, while the weights are on the
+   card);
 4. every kernel against its plain PyTorch version on the same card
    inputs at the main path's shapes (these launches come after the
    counters were read, so they do not count), with CUDA-event times of kernel,
    plain version and (where one exists) a single PyTorch library call,
    beside the least time the card could take (bytes over 3.35 TB/s or
-   fp32 FLOPs over 67 TFLOP/s, whichever is larger);
+   FLOPs over the peak for the dtype — 67 TFLOP/s fp32, 989 TFLOP/s bf16 —
+   whichever is larger);
+4b. the same for the dense-cache kernels (flash-decode, flash attention,
+   RMSNorm) at the shapes of 3b and 3c, both cache layouts, plus a ragged
+   ``kv_len`` [512, 1100, 2048, 3001] at T = 4096; the library yardsticks
+   are ``F.scaled_dot_product_attention`` and ``F.rms_norm``;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -32,6 +54,7 @@ Exits non-zero without a result when no CUDA device is visible.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,20 +63,24 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.alpha import split_columns  # noqa: E402
 from repro_torch.core.hw import H100_HOST  # noqa: E402
 from repro_torch.core.policy import build_policy  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
+from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as k_decode  # noqa: E402
 from repro_torch.kernels import paged_prefill as k_prefill  # noqa: E402
 from repro_torch.kernels import q8_matmul as k_q8  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as k_rms  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
@@ -62,11 +89,17 @@ from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM data sheet, fp32 without TC
+BF16_FLOPS = 989e12                # H100 SXM data sheet, dense bf16 TC
 PAGE_SIZE = 16
 MAX_NEW = 8                        # new tokens per request
 CHUNK = 32                         # chunk_tokens of the chunked prefill
 SEED = 0
 LOGIT_TOL = 2e-3                   # relative to the logits' max |value|
+BF16_LOGIT_TOL = 2e-2              # two bf16 steps (2^-7) of the max |logit|
+ONESHOT_PROMPT = 512               # 3b: prompt tokens per row
+ONESHOT_NEW = 16                   # 3b: new tokens per row
+OFFLOAD_PROMPT = 64                # 3c: prompt tokens per row
+OFFLOAD_NEW = 8                    # 3c: new tokens per row
 
 
 def log(msg: str) -> None:
@@ -98,9 +131,9 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -215,12 +248,12 @@ def kv_bytes(lens, hkv, d, q8):
 
 
 def kernel_entry(name, source, replaces, launches, err, tol, kernel_fn,
-                 plain_fn, library_fn, nbytes, flops):
+                 plain_fn, library_fn, nbytes, flops, peak=FP32_FLOPS):
     check(err <= tol, f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
     ms = time_ms(kernel_fn)
     plain_ms = time_ms(plain_fn)
     library_ms = None if library_fn is None else time_ms(library_fn)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak)
     log(f"kernel {name}: max_abs_err={err:.3e} (tol {tol:.1e}) "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={'none' if library_ms is None else f'{library_ms:.4f}'} "
@@ -331,11 +364,349 @@ def library_q8(x, qw, sc):
 
 
 # ---------------------------------------------------------------------------
+# phases 3b and 3c: one-shot generation over the dense KV cache
+# ---------------------------------------------------------------------------
+
+def expected_oneshot_launches(cfg, new_tokens):
+    """What the route rule predicts for one rectangular one-shot run: one
+    flash-attention launch per layer (the prefill from position 0), one
+    flash-decode launch per layer and decode step, and, for an RMSNorm
+    model, two norms per layer plus the final one per forward."""
+    n = {"flash_attention": cfg.n_layers,
+         "decode_attention": cfg.n_layers * (new_tokens - 1),
+         "plain_dense_attention": 0}
+    if cfg.norm_kind == "rmsnorm":
+        n["rmsnorm"] = (2 * cfg.n_layers + 1) * new_tokens
+    return n
+
+
+def check_launches(run, launches, want):
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{run}: {name} launched {launches[name]} times, want {n}")
+
+
+def run_oneshot(run, llm_fn, prompts, new_tokens, cfg):
+    """One ``LLM.generate`` of a rectangular batch with the counters zeroed
+    just before and read just after; returns tokens and launches."""
+    llm = llm_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, max_new=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(llm.last_executor == "generator",
+          f"{run}: executor {llm.last_executor}, want generator")
+    toks = [o.tokens for o in outs]
+    check(all(len(t) == new_tokens for t in toks), f"{run}: short outputs")
+    check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+          f"{run}: token out of vocab")
+    m = llm.last_metrics
+    log(f"{run}: {len(prompts)} x {len(prompts[0])} prompt tokens, "
+        f"{new_tokens} new each: wall {wall:.3f} s, prefill "
+        f"{m['prefill_s']:.4f} s, decode {m['decode_s']:.4f} s "
+        f"({m['tokens_per_s']:.3f} tok/s), peak_device_mem="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches={launches}")
+    return toks, launches, llm
+
+
+def check_small_reference(cfg, seed):
+    """A reduced model of the same family on the card (every attention and
+    norm through a kernel) and on the CPU (the plain versions): identical
+    greedy tokens from one-shot generation."""
+    small = reduced(cfg)                                   # fp32
+    params = M.init_params(small, seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    prompts = [list(rng.integers(0, small.vocab_size, 24)) for _ in range(3)]
+    with LLM(small, params, device="cpu") as llm:
+        want = [o.tokens for o in llm.generate(prompts, max_new=8)]
+    with LLM(small, M.tree_to(params, "cuda")) as llm:
+        got = [o.tokens for o in llm.generate(prompts, max_new=8)]
+        check(llm.last_executor == "generator", "small: executor")
+    log(f"small reference {small.name}: card tokens == CPU tokens: "
+        f"{got == want}")
+    check(got == want, f"{small.name}: card tokens differ from the CPU's")
+
+
+def compare_whole_model_logits(cfg, params, prompts):
+    """The stacked whole model's prefill logits against ResidentBackend's
+    on a dense backend cache, both on the card over the same tensors."""
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    b, s = toks.shape
+    _, want = M.prefill(cfg, params, {"tokens": toks},
+                        M.init_cache(cfg, b, s, device="cuda"))
+    be = ResidentBackend(cfg, params, device="cuda")
+    _, got = be.prefill({"tokens": toks}, be.init_cache(b, s))
+    check(bool(torch.isfinite(got).all()), "non-finite prefill logits")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    log(f"3b prefill logits whole model vs ResidentBackend: "
+        f"max_abs_err={err:.3e} max|logit|={scale:.3e} "
+        f"tol={BF16_LOGIT_TOL:.0e} relative")
+    check(err <= BF16_LOGIT_TOL * max(scale, 1.0), "3b logits disagree")
+    return torch.argmax(want, dim=-1).tolist()
+
+
+def run_mistral(layers, seed):
+    """Phase 3b: Mistral-NeMo-12B resident, bf16, one-shot; returns the
+    launch counts of the bf16 and int8 runs."""
+    full = get_config("mistral-nemo-12b")
+    check(1 <= layers <= full.n_layers, "bad --mistral-layers")
+    cfg = dataclasses.replace(full, n_layers=layers)
+    log(f"3b model: mistral-nemo-12b at full width, {cfg.n_layers} of "
+        f"{full.n_layers} layers, d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.hd} ffn={cfg.d_ff} vocab="
+        f"{cfg.vocab_size} dtype={cfg.dtype}")
+    check_small_reference(full, seed)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"3b init: {time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} B "
+        f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+        f"card")
+    rng = np.random.default_rng(seed)
+    prompts = [list(rng.integers(0, cfg.vocab_size, ONESHOT_PROMPT))
+               for _ in range(4)]
+    first = compare_whole_model_logits(cfg, params, prompts)
+    want = expected_oneshot_launches(cfg, ONESHOT_NEW)
+    counts = {}
+    for kv_dtype in (None, "int8"):
+        run_cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+        run = f"3b mistral kv={kv_dtype or 'bf16'}"
+        toks, launches, llm = run_oneshot(
+            run, lambda: LLM(run_cfg, params), prompts, ONESHOT_NEW, cfg)
+        llm.close()
+        check_launches(run, launches, want)
+        if kv_dtype is None:
+            check([t[0] for t in toks] == first,
+                  "3b: first tokens differ from the prefill logits' argmax")
+        counts[kv_dtype or "bf16"] = launches
+    del params, llm
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def offload_prompts(vocab, seed):
+    rng = np.random.default_rng(seed + 1)
+    return [list(rng.integers(0, vocab, OFFLOAD_PROMPT)) for _ in range(4)]
+
+
+def compare_dense_prefill_logits(cfg, params, host_params, prompts):
+    """3c's check: HeteGen(fp) prefill logits over the dense backend cache
+    against ResidentBackend's (run while the weights are on the card)."""
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    b, s = toks.shape
+
+    def prefill(be):
+        return be.prefill({"tokens": toks}, be.init_cache(b, s))[1]
+
+    want = prefill(ResidentBackend(cfg, params, device="cuda"))
+    hb = HeteGenBackend(cfg, host_params, batch=b, device="cuda")
+    try:
+        got = prefill(hb)
+    finally:
+        hb.close()
+    check(bool(torch.isfinite(got).all()), "non-finite prefill logits")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"3c dense-cache prefill logits HeteGen(fp) vs Resident: "
+        f"max_abs_err={err:.3e} max|logit|={scale:.3e} "
+        f"tol={LOGIT_TOL:.0e} relative")
+    check(err <= LOGIT_TOL * max(scale, 1.0), "3c prefill logits disagree")
+
+
+def run_offload_oneshot(cfg, host_params, prompts):
+    """Phase 3c: OPT offloaded one-shot over the dense backend cache."""
+    t0 = time.perf_counter()
+    be = HeteGenBackend(cfg, host_params, batch=len(prompts), device="cuda")
+    be.retune(len(prompts), phase="prefill", tokens_per_seq=len(prompts[0]))
+    log(f"3c load: {time.perf_counter() - t0:.3f} s")
+    toks, launches, llm = run_oneshot(
+        "3c opt offloaded", lambda: LLM(cfg, backend=be, own_backend=True),
+        prompts, OFFLOAD_NEW, cfg)
+    st = be.finish_stats()
+    log(f"3c stream busy_s cpu={st.cpu:.3f} pin={st.pin:.3f} "
+        f"trans={st.trans:.3f} dev={st.dev:.3f} wall={st.wall:.3f}, "
+        f"alpha decode={be.policies['decode'].alpha} "
+        f"prefill={be.policies['prefill'].alpha}")
+    llm.close()
+    check_launches("3c", launches, expected_oneshot_launches(cfg,
+                                                             OFFLOAD_NEW))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the dense-cache kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def dense_cache(gen, b, hkv, t, d, dtype, layout):
+    """K/V (+ int8 scales) as the stacked cache's layer slice (B, Hkv, T,
+    D), or the backend's (B, T, Hkv, D) buffer through transpose(1, 2)."""
+    shape = (b, hkv, t, d) if layout == "bhtd" else (b, t, hkv, d)
+    if dtype == torch.int8:
+        k = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:3], generator=gen, device="cuda") * 0.02
+        vs = torch.rand(shape[:3], generator=gen, device="cuda") * 0.02
+    else:
+        k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        ks = vs = None
+    if layout == "bthd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        if ks is not None:
+            ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+    return k, v, ks, vs
+
+
+def sdpa(q, k, v, **kw):
+    """One PyTorch attention call (GQA through ``enable_gqa``) as the
+    library yardstick."""
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+
+
+def dense_tol(dtype, q8, want):
+    """fp32: 2e-5 (2e-4 with int8 K/V), different summation orders; bf16:
+    2e-2 of the largest |output| (about two bf16 steps: the kernel rounds
+    p to bf16 before the PV product, the plain version does not)."""
+    if dtype == torch.bfloat16:
+        return 2e-2 * max(1.0, float(want.float().abs().max()))
+    return 2e-4 if q8 else 2e-5
+
+
+def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
+    """Each dense-cache kernel against its plain version at the main
+    paths' shapes, timed beside the plain version, one library call and
+    the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    entries = []
+    src = "src/repro_torch/csrc/"
+    b = 4
+
+    def decode_entry(name, cfg, dtype, kv_dt, layout, t, lens, launches):
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q8 = kv_dt == torch.int8
+        k, v, ks, vs = dense_cache(gen, b, hkv, t, d, kv_dt, layout)
+        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kw = dict(k_scale=ks, v_scale=vs)
+        got = k_dense.decode_attention(q, k, v, kl, **kw)
+        want = ref.decode_attention(q, k, v, kl, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        lib = None
+        if not q8:
+            mask = (torch.arange(t, device="cuda")[None, :]
+                    < kl[:, None].long())[:, None, None, :]
+            lib = sdpa(q[:, :, None], k, v, attn_mask=mask)
+        el = q.element_size()
+        kvb = (1 if q8 else el) * 2 * hkv * d * sum(lens) \
+            + (8 * hkv * sum(lens) if q8 else 0)
+        entries.append(kernel_entry(
+            name, src + "decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:151", launches, err,
+            dense_tol(dtype, q8, want),
+            lambda: k_dense.decode_attention(q, k, v, kl, **kw),
+            lambda: ref.decode_attention(q, k, v, kl, **kw), lib,
+            2 * q.numel() * el + kvb + 4 * b, 4 * hq * d * sum(lens),
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS))
+
+    def flash_entry(name, cfg, dtype, layout, s, t, launches):
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        k, v, _, _ = dense_cache(gen, b, hkv, t, d, dtype, layout)
+        k, v = k[:, :, :s], v[:, :, :s]
+        q = torch.randn((b, s, hq, d), generator=gen, device="cuda") \
+            .to(dtype).transpose(1, 2)
+        got = k_flash.flash_attention(q, k, v)
+        want = ref.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        el = q.element_size()
+        entries.append(kernel_entry(
+            name, src + "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:106", launches, err,
+            dense_tol(dtype, False, want),
+            lambda: k_flash.flash_attention(q, k, v),
+            lambda: ref.flash_attention(q, k, v),
+            sdpa(q, k, v, is_causal=True),
+            (2 * q.numel() + 2 * k.numel()) * el,
+            4 * b * hq * d * s * (s + 1) // 2,
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS))
+
+    def rms_entry(name, rows, launches):
+        d = mcfg.d_model
+        x = torch.randn((rows, d), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        w = torch.randn(d, generator=gen, device="cuda").to(torch.bfloat16)
+        eps = mcfg.norm_eps
+        got = k_rms.rmsnorm(x, w, eps=eps)
+        want = ref.rmsnorm(x, w, eps=eps)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 7.8e-3 * float(want.float().abs().max())     # one bf16 step
+        entries.append(kernel_entry(
+            name, src + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:41",
+            launches, err, tol, lambda: k_rms.rmsnorm(x, w, eps=eps),
+            lambda: ref.rmsnorm(x, w, eps=eps),
+            lambda: F.rms_norm(x, (d,), w, eps),
+            (2 * x.numel() + d) * 2, 4 * x.numel(), BF16_FLOPS))
+
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    t3b = ONESHOT_PROMPT + ONESHOT_NEW
+    full = [t3b - 1] * b                    # the last decode step's kv_len
+    ragged = [512, 1100, 2048, 3001]
+    dec_bf = counts_3b["bf16"]["decode_attention"]
+    dec_q8 = counts_3b["int8"]["decode_attention"]
+    decode_entry("decode_attention_bf16", mcfg, bf, bf, "bhtd", t3b, full,
+                 dec_bf)
+    decode_entry("decode_attention_q8", mcfg, bf, i8, "bhtd", t3b, full,
+                 dec_q8)
+    decode_entry("decode_attention_bf16_ragged_bhtd", mcfg, bf, bf, "bhtd",
+                 4096, ragged, dec_bf)
+    decode_entry("decode_attention_bf16_ragged_bthd", mcfg, bf, bf, "bthd",
+                 4096, ragged, dec_bf)
+    decode_entry("decode_attention_q8_ragged_bhtd", mcfg, bf, i8, "bhtd",
+                 4096, ragged, dec_q8)
+    t3c = OFFLOAD_PROMPT + OFFLOAD_NEW
+    decode_entry("decode_attention_f32", ocfg, f32, f32, "bthd", t3c,
+                 [t3c - 1] * b, counts_3c["decode_attention"])
+    flash_entry("flash_attention_bf16", mcfg, bf, "bhtd", ONESHOT_PROMPT,
+                t3b, counts_3b["bf16"]["flash_attention"])
+    flash_entry("flash_attention_f32", ocfg, f32, "bthd", OFFLOAD_PROMPT,
+                t3c, counts_3c["flash_attention"])
+    rms_entry("rmsnorm_prefill", b * ONESHOT_PROMPT,
+              counts_3b["bf16"]["rmsnorm"])
+    rms_entry("rmsnorm_decode", b, counts_3b["bf16"]["rmsnorm"])
+    return entries
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="decoder layers of OPT-6.7B to run (of 32)")
+                    help="decoder layers of OPT-6.7B to run (of 32), "
+                         "phases 3 and 3c")
+    ap.add_argument("--mistral-layers", type=int, default=40,
+                    help="decoder layers of Mistral-NeMo-12B to run (of "
+                         "40), phase 3b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -362,7 +733,6 @@ def main() -> int:
 
     full = get_config("opt-6.7b")
     check(1 <= args.layers <= full.n_layers, "bad --layers")
-    import dataclasses
     cfg = dataclasses.replace(full, n_layers=args.layers)
     log(f"model: opt-6.7b at full width, {cfg.n_layers} of "
         f"{full.n_layers} layers, d={cfg.d_model} heads={cfg.n_heads} "
@@ -376,6 +746,8 @@ def main() -> int:
     prompts = make_prompts(cfg.vocab_size, SEED)
 
     compare_prefill_logits(cfg, params, host_params, prompts)
+    oprompts = offload_prompts(cfg.vocab_size, SEED)
+    compare_dense_prefill_logits(cfg, params, host_params, oprompts)
     del params
     torch.cuda.empty_cache()
 
@@ -397,10 +769,15 @@ def main() -> int:
         "q8_matmul": l_q8["q8_matmul"],
     }
 
+    counts_3b = run_mistral(args.mistral_layers, SEED)
+    counts_3c = run_offload_oneshot(cfg, host_params, oprompts)
+
     pol = build_policy(enumerate_linears(cfg, "q8"), H100_HOST, batch=4,
                        phase="decode")
     q8_cols = split_columns(pol.alpha, cfg.d_ff)
     entries = check_kernels(cfg, launches, q8_cols)
+    entries += check_dense_kernels(get_config("mistral-nemo-12b"), cfg,
+                                   counts_3b, counts_3c)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

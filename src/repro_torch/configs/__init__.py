@@ -1,7 +1,8 @@
 """Architecture registry of the port.
 
-Carries the configurations the port serves today: the paper's OPT family
-and the ``tiny`` test model.  ``get_config(name)`` returns the full-size
+Carries the configurations the port serves today: the paper's OPT family,
+Mistral-NeMo-12B (the Llama-style GQA decoder: RMSNorm, gated SiLU, RoPE,
+bf16) and the ``tiny`` test model.  ``get_config(name)`` returns the full-size
 config; ``reduced(cfg)`` returns a smoke-test-scale config of the same
 family/pattern (small widths, tiny vocab) used by the CPU tests.
 """
@@ -36,7 +37,7 @@ def list_archs() -> List[str]:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from repro_torch.configs import opt, tiny  # noqa: F401
+    from repro_torch.configs import mistral_nemo_12b, opt, tiny  # noqa: F401
 
 
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:

@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("paged_decode_attention", "paged_prefill_attention", "q8_matmul")
+KERNELS = ("paged_decode_attention", "paged_prefill_attention", "q8_matmul",
+           "decode_attention", "flash_attention", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,114 @@
+"""Dense flash-decode on the card: the wrapper of
+``csrc/decode_attention.cu``.
+
+One query token per (batch, q-head) attends over the first ``kv_len[b]``
+rows of a dense cache laid out (B, Hkv, T, D) — the stacked cache's
+layer slice as it is, or the backend's (B, T, Hkv, D) buffer through
+``transpose(1, 2)``: the kernel takes K/V strides, so neither layout is
+copied.  With ``k_scale`` / ``v_scale`` (B, Hkv, T) the cache is int8 and
+is dequantized inside the kernel.  The plain version is
+:func:`repro_torch.kernels.ref.decode_attention`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_LL = ctypes.c_longlong
+_ARGTYPES = ([ctypes.c_void_p, _LL, _LL, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, _LL, _LL, _LL, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, _LL, _LL, _LL,
+              ctypes.c_void_p, ctypes.c_void_p, _LL, _LL]
+             + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+# dtype codes of the C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def check_device(*tensors) -> torch.device:
+    """The one CUDA device every tensor lies on; raises otherwise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("all operands must lie on one CUDA device")
+    return dev
+
+
+def check_rows(name: str, t: torch.Tensor) -> None:
+    """The kernels read rows through strides; the last dim must be dense."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a unit stride in its last dim")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, *,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """q (B, Hq, D) fp32 or bf16; k/v (B, Hkv, T, D) of q's dtype, or int8
+    with ``k_scale``/``v_scale`` (B, Hkv, T) fp32; kv_len (B,) int32
+    -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current
+    stream; every call counts in ``decode_attention.launches``."""
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"q must be (B, Hq, D) and k/v (B, Hkv, T, D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    q8 = k_scale is not None or v_scale is not None
+    tensors = [q, k, v, kv_len] + ([k_scale, v_scale] if q8 else [])
+    if q8 and (k_scale is None or v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    dev = check_device(*tensors)
+    b, hq, d = q.shape
+    _, hkv, t, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if d > 256 or hq % hkv:
+        raise ValueError(f"head dim {d} must be <= 256 and {hq} q-heads a "
+                         f"multiple of {hkv} kv-heads")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    want = torch.int8 if q8 else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise TypeError(f"k/v must be {want}, got {k.dtype}/{v.dtype}")
+    if k.stride() != v.stride():
+        raise ValueError("k and v must share one layout (strides)")
+    if q8:
+        if (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                or k_scale.shape != (b, hkv, t)
+                or v_scale.shape != (b, hkv, t)
+                or k_scale.stride() != v_scale.stride()):
+            raise ValueError("scales must be float32 (B, Hkv, T) with one "
+                             "layout")
+    if kv_len.dtype != torch.int32 or kv_len.shape != (b,) \
+            or not kv_len.is_contiguous():
+        raise TypeError("kv_len must be a contiguous (B,) int32 tensor")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        check_rows(name, x)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if b == 0 or hq == 0:
+        return out
+    sst = k_scale.stride() if q8 else (0, 0, 0)
+    fn = build.c_function("decode_attention", "decode_attention", _ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), q.stride(0), q.stride(1), DTYPE_CODES[q.dtype],
+                 k.data_ptr(), v.data_ptr(), *k.stride()[:3],
+                 DTYPE_CODES[k.dtype],
+                 k_scale.data_ptr() if q8 else None,
+                 v_scale.data_ptr() if q8 else None, *sst,
+                 kv_len.data_ptr(), out.data_ptr(), out.stride(0),
+                 out.stride(1), b, hq, hkv, t, d, 1.0 / math.sqrt(d),
+                 float(softcap or 0.0),
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention launch failed (cudaError {err})")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -22,21 +22,75 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor,
     return (y * scale.float()[None, :]).to(x.dtype)
 
 
-def decode_attention(q, k, v, kv_len, *, softcap=None):
-    """q (B,Hq,D); k/v (B,Hkv,S,D); kv_len (B,)."""
+def _zero_past(x: torch.Tensor, n_live: torch.Tensor) -> torch.Tensor:
+    """Zero every position of (B, H, T, D) ``x`` at or past ``n_live[b]``:
+    those are masked anyway, and the rows behind them (the trash page,
+    stale cache rows) may hold anything, NaN included, which must not
+    reach the PV sum as 0 * NaN."""
+    live = (torch.arange(x.shape[2], device=x.device)[None, :]
+            < n_live.long()[:, None])[:, None, :, None]
+    return torch.where(live, x, 0.0)
+
+
+def decode_attention(q, k, v, kv_len, *, k_scale=None, v_scale=None,
+                     softcap=None):
+    """q (B,Hq,D); k/v (B,Hkv,S,D); kv_len (B,).  With ``k_scale`` /
+    ``v_scale`` (B,Hkv,S) the cache is int8 and is dequantized in fp32.
+    Positions at or past ``kv_len`` never reach the result, NaN included."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     g = hq // hkv
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+        vf = vf * v_scale.float()[..., None]
+    kf, vf = _zero_past(kf, kv_len), _zero_past(vf, kv_len)
     qf = q.reshape(b, hkv, g, d).float()
-    sc = torch.einsum("bkgd,bktd->bkgt", qf, k.float())
+    sc = torch.einsum("bkgd,bktd->bkgt", qf, kf)
     sc = sc / math.sqrt(d)
     if softcap is not None:
         sc = softcap * torch.tanh(sc / softcap)
-    mask = torch.arange(s, device=q.device)[None, :] < kv_len[:, None]
+    mask = torch.arange(s, device=q.device)[None, :] \
+        < kv_len.to(q.device).long()[:, None]
     sc = torch.where(mask[:, None, None], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
+    o = torch.einsum("bkgt,bktd->bkgd", p, vf)
     return o.reshape(b, hq, d).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
+    """q (B,Hq,Sq,D); k/v (B,Hkv,Skv,D); query i at position i, key j at
+    position j."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.reshape(b, hkv, g, sq, d).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qf, k.float())
+    s = s / math.sqrt(d)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    s = torch.where(ok[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def rmsnorm(x, scale, *, eps=1e-6, plus_one=False):
+    """x (..., D) -> x * rsqrt(mean(x^2) + eps) * w (``w + 1`` with
+    ``plus_one``), statistics in fp32."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    w = scale.float()
+    if plus_one:
+        w = w + 1.0
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
 
 
 def gather_pages(pages: torch.Tensor,
@@ -57,18 +111,13 @@ def gather_page_scales(scales: torch.Tensor,
 
 def _gather_kv(k_pages, v_pages, block_tables, k_scale, v_scale, n_live):
     """Gather the pages of each row, dequantize int8 pages, and zero every
-    position at or past ``n_live[b]``: those are masked anyway, and the
-    pages behind them (the trash page, stale pool rows) may hold anything,
-    NaN included, which must not reach the PV sum as 0 * NaN."""
+    position at or past ``n_live[b]`` (see :func:`_zero_past`)."""
     k = gather_pages(k_pages, block_tables)
     v = gather_pages(v_pages, block_tables)
     if k_scale is not None:
         k = k.float() * gather_page_scales(k_scale, block_tables)[..., None]
         v = v.float() * gather_page_scales(v_scale, block_tables)[..., None]
-    t = k.shape[2]
-    live = (torch.arange(t, device=k.device)[None, :]
-            < n_live.long()[:, None])[:, None, :, None]
-    return torch.where(live, k, 0.0), torch.where(live, v, 0.0)
+    return _zero_past(k, n_live), _zero_past(v, n_live)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len, *,

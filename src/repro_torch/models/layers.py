@@ -5,7 +5,9 @@ The PyTorch counterpart of the dense subset of the JAX package's
 the q/k/v and output projections, and the four MLP kinds.  Parameters are
 plain dicts of tensors; every weight matmul can be routed through an
 injected ``linear(x, name)`` callable (the backend seam).  Norm statistics
-and attention scores are computed in fp32.
+and attention scores are computed in fp32.  On a CUDA tensor every RMSNorm
+(the block norms and the qk-norms) runs the hand-written kernel
+(:func:`repro_torch.kernels.ops.rmsnorm`); the CPU keeps :func:`rmsnorm`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops as K
 
 NEG_INF = -2.0e38
 
@@ -43,11 +47,18 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def _rmsnorm_routed(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                    plus_one: bool = False) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return K.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
+    return rmsnorm(x, scale, eps, plus_one=plus_one)
+
+
 def apply_norm(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm_kind == "layernorm":
         return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
-    return rmsnorm(x, p["scale"], cfg.norm_eps,
-                   plus_one=cfg.post_norm)   # gemma-style (1+w) rmsnorm
+    return _rmsnorm_routed(x, p["scale"], cfg.norm_eps,
+                           plus_one=cfg.post_norm)  # gemma-style (1+w)
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +163,8 @@ def gqa_qkv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
             k = k + p["bk"].reshape(hkv, hd)
             v = v + p["bv"].reshape(hkv, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = _rmsnorm_routed(q, p["q_norm"], cfg.norm_eps)
+        k = _rmsnorm_routed(k, p["k_norm"], cfg.norm_eps)
     if cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

@@ -1,20 +1,35 @@
-"""Model assembly for the backend path of the dense decoder families.
+"""Model assembly for the dense decoder families.
 
-The PyTorch counterpart of the backend half of the JAX package's
-``models/model.py``: parameter init, the embedding / head, the per-layer
-KV cache (dense or paged), and the decoder layer with every weight matmul
-routed through an injected ``linear(x, name)`` callable — the seam that
-lets :mod:`repro_torch.serving.backends` run the same math resident or
-HeteGen-offloaded.
+The PyTorch counterpart of the JAX package's ``models/model.py`` for the
+dense GQA families: parameter init, the embedding / head, and two
+executions of the same layer math —
+
+* the resident whole model (:func:`prefill` / :func:`decode_step` over the
+  stacked (n_super, B, Hkv, T, hd) cache of :func:`init_cache`, fp or
+  int8), which the one-shot :class:`repro_torch.serving.engine.Generator`
+  runs;
+* the backend path (:func:`backend_prefill` / :func:`backend_decode` over
+  the per-layer KV cache, dense or paged), with every weight matmul
+  routed through an injected ``linear(x, name)`` callable — the seam that
+  lets :mod:`repro_torch.serving.backends` run it resident or
+  HeteGen-offloaded.
+
+Dense-cache attention picks its route once per forward
+(:func:`attention_route`): decode runs the flash-decode kernel, a prefill
+from position 0 the flash-attention kernel, and anything else the plain
+:func:`repro_torch.models.layers.attention` (counted on the card as
+``plain_dense_attention``).  Paged caches always run the paged kernels.
 
 Parameters are plain nested dicts with the JAX package's layout
 (per-super-block leaves stacked on a leading axis), so
 :func:`params_from_numpy` converts a JAX param tree leaf by leaf.
 
-Caches are updated **in place**: the dense buffers and the page pools are
-device tensors that the layer writes into (``copy_`` / ``index_put_``),
-where the JAX package rebuilds them functionally.  The returned cache
-dict holds the same tensors.
+Caches are updated **in place**: the dense buffers, the stacked caches and
+the page pools are device tensors that the layer writes into
+(``index_copy_`` / ``index_put_``), where the JAX package rebuilds them
+functionally.  The returned cache dict holds the same tensors.  No cache
+write or route decision of a decode step reads a device value on the
+host.
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -136,13 +152,20 @@ def _stack(trees):
 
 def params_from_numpy(tree, device=None):
     """A param tree of numpy arrays (e.g. the JAX package's params through
-    ``np.asarray``) -> the same tree of tensors on ``device``."""
+    ``np.asarray``, bfloat16 leaves included) -> the same tree of tensors
+    on ``device``."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, dev) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(dev)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 extension type has no torch counterpart; the
+        # round trip through float32 is exact
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return torch.from_numpy(arr).to(dev)
 
 
 def tree_to(tree, device):
@@ -189,22 +212,47 @@ def _scatter_pos(cur_len: torch.Tensor, b: int, s: int) -> torch.Tensor:
         + torch.arange(s, device=cur_len.device)[None]
 
 
+def _start_positions(cur_len: torch.Tensor, s: int, t: int) -> torch.Tensor:
+    """(s,) device positions of a write starting at scalar ``cur_len``,
+    the start clamped into [0, t - s] like ``lax.dynamic_update_slice``
+    (no host sync)."""
+    start = cur_len.long().clamp(0, max(t - s, 0))
+    return start + torch.arange(s, device=cur_len.device)
+
+
 def _update_kv(buf: torch.Tensor, new: torch.Tensor,
-               cur_len: torch.Tensor) -> torch.Tensor:
-    """Write ``new`` (B, s, H, D) into a (B, T, H, D) buffer at ``cur_len``
-    (scalar, or a (B,) per-slot vector), in place.  A scalar start clamps
-    like ``lax.dynamic_update_slice``; per-slot tails past the buffer are
-    dropped."""
+               cur_len: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Write ``new`` (B, s, H, ...) into ``buf`` at ``cur_len`` along its
+    position axis ``dim`` (1: (B, T, H, ...); 2: (B, H, T, ...)), in
+    place.  ``cur_len`` is a scalar (clamped like
+    ``lax.dynamic_update_slice``) or a (B,) per-slot vector (positions past
+    the buffer are dropped)."""
     b, s = new.shape[:2]
-    t = buf.shape[1]
+    t = buf.shape[dim]
+    new = new.to(buf.dtype)
     if cur_len.dim() == 0:
-        start = max(0, min(int(cur_len), t - s))
-        buf[:, start:start + s] = new.to(buf.dtype)
+        src = new if dim == 1 else new.transpose(1, 2)
+        buf.index_copy_(dim, _start_positions(cur_len, s, t), src)
         return buf
     pos = _scatter_pos(cur_len, b, s)
     rows = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+
+    def put(r, p, val):
+        if dim == 1:
+            buf[r, p] = val
+        else:
+            buf[r, :, p] = val
+
+    if s == 1:
+        # one position per row: a dropped write rewrites the row's last
+        # value instead of going through a boolean mask (a host sync)
+        keep = (pos < t).reshape((b, 1) + (1,) * (new.dim() - 2))
+        pc = pos.clamp(max=t - 1)
+        old = buf[rows, pc] if dim == 1 else buf[rows, :, pc]
+        put(rows, pc, torch.where(keep, new, old))
+        return buf
     keep = pos < t
-    buf[rows[keep], pos[keep]] = new[keep].to(buf.dtype)
+    put(rows[keep], pos[keep], new[keep])
     return buf
 
 
@@ -264,8 +312,6 @@ def _paged_attend(cfg, q, k_pages, v_pages, block_tables, q_positions,
     at any offset, and windowed layers — runs the paged flash-prefill
     kernel.  Both read K/V through the block table; the cache is never
     gathered into a dense buffer on the card."""
-    from repro_torch.kernels import ops as K
-
     b, s = q.shape[:2]
     lens = torch.as_tensor(kv_len, device=q.device).to(torch.int32) \
         .expand(b).contiguous()
@@ -298,13 +344,15 @@ def _positions_from(cur_len: torch.Tensor, b: int, s: int) -> torch.Tensor:
 
 def _apply_attn_layer(cfg, p, x, positions, *, kind: str, kv_cache,
                       cur_len, linear=None, norm_fn=None, attend_fn=None,
-                      block_tables=None, paged_attend_fn=None):
+                      block_tables=None, paged_attend_fn=None,
+                      route: str):
     """Pre-norm attention + residual over a per-layer cache.  Returns
     (x, new_kv_cache).
 
     ``kv_cache`` is (k, v) dense buffers (B, T, Hkv, hd) written at
-    ``cur_len``; with ``block_tables`` (B, nb) it holds page pools
-    instead — (k_pages, v_pages) in (P, Hkv, ps, hd) layout, or
+    ``cur_len`` and attended along ``route`` (:func:`attention_route`);
+    with ``block_tables`` (B, nb) it holds page pools instead —
+    (k_pages, v_pages) in (P, Hkv, ps, hd) layout, or
     (k, v, k_scale, v_scale) for int8 pages."""
     window = cfg.window if kind == "local" else None
     norm = norm_fn or (lambda pp, h: L.apply_norm(cfg, pp, h))
@@ -329,12 +377,9 @@ def _apply_attn_layer(cfg, p, x, positions, *, kind: str, kv_cache,
         k_buf, v_buf = kv_cache
         _update_kv(k_buf, k, cur_len)
         _update_kv(v_buf, v, cur_len)
-        if attend_fn is not None:
-            out = attend_fn(q, k_buf, v_buf, positions,
-                            cur_len + k.shape[1], window)
-        else:
-            out = _dense_attend(cfg, q, k_buf, v_buf, positions,
-                                cur_len + k.shape[1], window)
+        attend = attend_fn or (lambda *a: _dense_attend(cfg, *a))
+        out = attend(q, k_buf, v_buf, positions, cur_len + k.shape[1],
+                     window, route)
         new_cache = (k_buf, v_buf)
     out = L.attn_out(cfg, p["attn"], out, linear=linear)
     if cfg.post_norm:
@@ -342,12 +387,63 @@ def _apply_attn_layer(cfg, p, x, positions, *, kind: str, kv_cache,
     return x + out, new_cache
 
 
-def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window):
-    kvpos = torch.arange(k_buf.shape[1], device=q.device)
-    return L.attention(q, k_buf, v_buf, q_positions=q_positions,
-                       kv_positions=kvpos[None], kv_len=kv_len,
-                       causal=True, window=window,
-                       attn_softcap=cfg.attn_softcap, kv_format="bthd")
+def attention_route(cur_len: torch.Tensor, s: int) -> str:
+    """How a forward of ``s`` new tokens at ``cur_len`` attends over a
+    dense cache, decided once per forward (not per layer):
+
+    * ``"decode"`` (s == 1): the flash-decode kernel; no host sync;
+    * ``"prefill"`` (s > 1 into an empty cache, ``cur_len`` all 0): the
+      flash-attention kernel over the first s positions — equal to the
+      masked attention over the whole buffer, since the positions past s
+      add nothing;
+    * ``"plain"`` (a chunk at an offset above 0): the plain attention.
+
+    Decode in a windowed layer also stays plain (:func:`_dense_attend`).
+    The rule reads shapes and lengths only: a kernel that fails to build
+    or launch raises rather than falling back."""
+    if s == 1:
+        return "decode"
+    return "prefill" if bool((cur_len == 0).all()) else "plain"
+
+
+def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
+                  *, layout: str = "bthd", k_scale=None, v_scale=None):
+    """Attention of q (B, s, Hq, D) over a dense cache along ``route``.
+
+    ``layout`` "bthd": k/v (B, T, Hkv, D) (the backend's per-layer
+    buffers); "bhtd": (B, Hkv, T, D) (a stacked cache's layer slice).
+    ``k_scale``/``v_scale`` (B, Hkv, T) mark an int8 cache.  The kernels
+    read either layout through strides; nothing is copied into the other
+    one."""
+    b, s = q.shape[:2]
+    kh = k_buf.transpose(1, 2) if layout == "bthd" else k_buf
+    vh = v_buf.transpose(1, 2) if layout == "bthd" else v_buf
+    dt = q.dtype
+    if route == "decode" and window is None:
+        lens = torch.as_tensor(kv_len, device=q.device).to(torch.int32) \
+            .expand(b).contiguous()
+        out = K.decode_attention(q[:, 0], kh, vh, lens, k_scale=k_scale,
+                                 v_scale=v_scale, softcap=cfg.attn_softcap)
+        return out[:, None]
+    if route == "prefill":
+        kh, vh = kh[:, :, :s], vh[:, :, :s]
+        if k_scale is not None:
+            # no int8 form of the kernel: dequantize the s positions in
+            # the model dtype, as the stacked path does
+            kh = kh.to(dt) * k_scale[:, :, :s, None].to(dt)
+            vh = vh.to(dt) * v_scale[:, :, :s, None].to(dt)
+        out = K.flash_attention(q.transpose(1, 2), kh, vh, causal=True,
+                                window=window, softcap=cfg.attn_softcap)
+        return out.transpose(1, 2)
+    if k_scale is not None:
+        kh = kh.to(dt) * k_scale[..., None].to(dt)
+        vh = vh.to(dt) * v_scale[..., None].to(dt)
+    kvpos = torch.arange(kh.shape[2], device=q.device)
+    return K.plain_dense_attention(q, kh, vh, q_positions=q_positions,
+                                   kv_positions=kvpos[None], kv_len=kv_len,
+                                   causal=True, window=window,
+                                   attn_softcap=cfg.attn_softcap,
+                                   kv_format="bhtd")
 
 
 def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None):
@@ -361,7 +457,7 @@ def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None):
 
 def decoder_layer(cfg, p, x, positions, *, kv_cache, cur_len, linear,
                   kind: str = "dense", ops: Optional[Dict] = None,
-                  block_tables=None):
+                  block_tables=None, route: str):
     """One full decoder layer (attention + FFN), backend-parameterized.
     Returns (x, new_kv_cache); see :func:`_apply_attn_layer`."""
     ops = ops or {}
@@ -370,14 +466,15 @@ def decoder_layer(cfg, p, x, positions, *, kv_cache, cur_len, linear,
                                   linear=linear, norm_fn=ops.get("norm"),
                                   attend_fn=ops.get("attend"),
                                   block_tables=block_tables,
-                                  paged_attend_fn=ops.get("paged_attend"))
+                                  paged_attend_fn=ops.get("paged_attend"),
+                                  route=route)
     x = _apply_ffn(cfg, p, x, kind, linear=linear, norm_fn=ops.get("norm"))
     return x, new_kv
 
 
 def make_backend_ops(cfg: ModelConfig) -> Dict:
     """The device pieces between the engine's linears: norms, the dense
-    attention core, the paged attention kernels, and the lm head.  PyTorch
+    attention route, the paged attention kernels, and the lm head.  PyTorch
     runs them eagerly, so these are the plain functions bound to ``cfg``
     (the JAX package jits the same pieces)."""
     def _paged(q, k_pages, v_pages, block_tables, q_positions, kv_len,
@@ -480,6 +577,7 @@ def backend_prefill(cfg: ModelConfig, shared: Dict, batch: Dict, cache: Dict,
     paged = "pages_k0" in cache
     bt = cache.get("block_tables")
     q8 = "pages_ks0" in cache
+    route = "paged" if paged else attention_route(cur_len, s)
     for l in range(cfg.n_layers):
         lin = (lambda h, nm, _l=l: linear(h, f"blk{_l}.{nm}"))
         if paged:
@@ -491,7 +589,8 @@ def backend_prefill(cfg: ModelConfig, shared: Dict, batch: Dict, cache: Dict,
         x, _ = decoder_layer(cfg, shared["layers"][l], x, positions,
                              kv_cache=kvc, cur_len=cur_len, linear=lin,
                              kind=kinds[l], ops=ops,
-                             block_tables=bt if paged else None)
+                             block_tables=bt if paged else None,
+                             route=route)
     new_cache["len"] = cur_len + s
     norm = ops.get("norm") or (lambda pp, h: L.apply_norm(cfg, pp, h))
     x = norm(shared["final_norm"], x if all_logits else x[:, -1:])
@@ -508,3 +607,133 @@ def backend_decode(cfg: ModelConfig, shared: Dict, token: torch.Tensor,
     """One decode step through the backend seam: token (B,) -> logits."""
     return backend_prefill(cfg, shared, {"tokens": token[:, None]}, cache,
                            linear=linear, ops=ops)
+
+
+# ---------------------------------------------------------------------------
+# Resident whole model over the stacked cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> Dict:
+    """The whole model's KV cache: per pattern position j, "k{j}"/"v{j}"
+    stacked over super-blocks as (n_super, B, Hkv, T, hd) — each layer's
+    slice is the flash-decode kernel's (B, Hkv, T, D) operand as it is —
+    plus a scalar "len".  With ``cfg.kv_dtype == "int8"`` the stacks are
+    int8 with fp32 per-(token, head) scales "ks{j}"/"vs{j}"
+    (n_super, B, Hkv, T)."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg)
+    period = _pattern_period(cfg)
+    n_super = cfg.n_layers // period
+    shape = (n_super, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    cache: Dict = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
+    for j in range(period):
+        if cfg.kv_dtype == "int8":
+            for nm in (f"k{j}", f"v{j}"):
+                cache[nm] = torch.zeros(shape, dtype=torch.int8, device=dev)
+            for nm in (f"ks{j}", f"vs{j}"):
+                cache[nm] = torch.zeros(shape[:4], dtype=torch.float32,
+                                        device=dev)
+        else:
+            for nm in (f"k{j}", f"v{j}"):
+                cache[nm] = torch.zeros(shape, dtype=dt, device=dev)
+    return cache
+
+
+def _stack_write(stack, new, li, cur_len):
+    """Write ``new`` (B, s, H, D) into layer ``li`` of a (L, B, H, T, D)
+    stack at ``cur_len`` (scalar or (B,)), in place."""
+    return _update_kv(stack[li], new, cur_len, dim=2)
+
+
+def _stack_write_q8(stack, scale_stack, new, li, cur_len):
+    """Quantize ``new`` (B, s, H, D) and write the int8 values and their
+    per-(token, head) scales into layer ``li``, in place."""
+    q, m = _quantize_kv(new)
+    _stack_write(stack, q, li, cur_len)
+    _update_kv(scale_stack[li], m, cur_len, dim=2)
+
+
+def _apply_attn_layer_stacked(cfg, p, x, positions, *, kind: str, stacks,
+                              li: int, cur_len, route: str):
+    """Pre-norm attention + residual against layer ``li`` of the stacked
+    cache: the new rows are written in place and the layer's slice is
+    attended along ``route`` (:func:`attention_route`).  ``stacks`` is
+    (k, v) or, for an int8 cache, (k, v, k_scale, v_scale)."""
+    window = cfg.window if kind == "local" else None
+    h = L.apply_norm(cfg, p["ln1"], x)
+    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions)
+    if len(stacks) == 4:
+        k_st, v_st, ks_st, vs_st = stacks
+        _stack_write_q8(k_st, ks_st, k, li, cur_len)
+        _stack_write_q8(v_st, vs_st, v, li, cur_len)
+        scales = dict(k_scale=ks_st[li], v_scale=vs_st[li])
+    else:
+        k_st, v_st = stacks
+        _stack_write(k_st, k, li, cur_len)
+        _stack_write(v_st, v, li, cur_len)
+        scales = {}
+    out = _dense_attend(cfg, q, k_st[li], v_st[li], positions,
+                        cur_len + k.shape[1], window, route, layout="bhtd",
+                        **scales)
+    out = L.attn_out(cfg, p["attn"], out)
+    if cfg.post_norm:
+        out = L.apply_norm(cfg, p["ln1_post"], out)
+    return x + out
+
+
+def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
+                       route: str):
+    """The decoder stack as a loop over super-blocks and their pattern
+    positions (the JAX package scans it), updating the stacked cache in
+    place."""
+    kinds = cfg.layer_kinds()
+    period = _pattern_period(cfg)
+    keys = ("k", "v", "ks", "vs") if cfg.kv_dtype == "int8" else ("k", "v")
+    blocks = params["blocks"]
+
+    def pick(tree, g):
+        if isinstance(tree, dict):
+            return {k: pick(v, g) for k, v in tree.items()}
+        return tree[g]
+
+    for g in range(cfg.n_layers // period):
+        p_blk = pick(blocks, g)
+        for j in range(period):
+            stacks = tuple(cache[f"{nm}{j}"] for nm in keys)
+            x = _apply_attn_layer_stacked(cfg, p_blk[f"pos{j}"], x,
+                                          positions, kind=kinds[j],
+                                          stacks=stacks, li=g,
+                                          cur_len=cur_len, route=route)
+            x = _apply_ffn(cfg, p_blk[f"pos{j}"], x, kinds[j])
+    return x
+
+
+def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
+            all_logits: bool = False) -> Tuple[Dict, torch.Tensor]:
+    """Process ``batch["tokens"]`` (B, S) at ``cache["len"]``, writing the
+    stacked cache in place.  Returns (cache, logits): (B, V) for the last
+    position, or (B, S, V) with ``all_logits``."""
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    cur_len = cache["len"]
+    positions = _positions_from(cur_len, b, s)
+    x = _add_learned_pos(cfg, params, x, positions)
+    x = _transformer_trunk(cfg, params, x, positions, cache=cache,
+                           cur_len=cur_len,
+                           route=attention_route(cur_len, s))
+    new_cache = dict(cache)
+    new_cache["len"] = cur_len + s
+    x = L.apply_norm(cfg, params["final_norm"],
+                     x if all_logits else x[:, -1:])
+    logits = lm_logits(cfg, params, x)
+    return new_cache, (logits if all_logits else logits[:, 0])
+
+
+def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
+                cache: Dict) -> Tuple[Dict, torch.Tensor]:
+    """One decode step: token (B,) -> (cache, logits (B, V))."""
+    return prefill(cfg, params, {"tokens": token[:, None]}, cache)

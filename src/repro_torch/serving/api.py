@@ -10,15 +10,21 @@ batcher (:class:`repro_torch.serving.batcher.ContinuousBatcher`)::
 
 Requests are the unit: each carries its prompt, budget, stop token and
 :class:`repro_torch.serving.sampling.SamplingParams`.  ``backend=None``
-serves resident weights from ``params`` through
-:class:`repro_torch.serving.backends.ResidentBackend`.  Scheduling knobs
-(``policy``, ``optimistic``, ``preempt_mode``, ``chunk_tokens``,
-``prefix_dedupe``) are facade-level, as in the JAX package.
+serves resident weights from ``params``: the batcher through
+:class:`repro_torch.serving.backends.ResidentBackend`, the one-shot
+generator through the stacked whole model.  Scheduling knobs (``policy``,
+``optimistic``, ``preempt_mode``, ``chunk_tokens``, ``prefix_dedupe``)
+are facade-level, as in the JAX package.
 
-Not ported yet, and raising when asked for: the one-shot generator
-(``generate`` on a rectangular batch with nothing in flight), stochastic
-sampling and logprobs, speculative decoding (``spec=``), tracing export
-(``trace=``), tokenizers, and ``AsyncLLM``.
+``generate`` picks the executor as the JAX facade does: a rectangular
+batch (one prompt length, one budget) with nothing else in flight runs
+one-shot on :class:`repro_torch.serving.engine.Generator`
+(``last_executor == "generator"``); anything else runs through the
+batcher.  Both give the same greedy tokens.
+
+Not ported yet, and raising when asked for: stochastic sampling and
+logprobs, speculative decoding (``spec=``), tracing export (``trace=``),
+tokenizers, and ``AsyncLLM``.
 """
 
 from __future__ import annotations
@@ -30,8 +36,11 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch import resolve_device
+from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.batcher import ContinuousBatcher
+from repro_torch.serving.engine import Generator
 from repro_torch.serving.sampling import SamplingParams, require_greedy
 from repro_torch.serving.scheduler import SchedulerPolicy
 
@@ -109,10 +118,16 @@ class LLM:
                     f"wire format {be_ws!r}")
         self.wstream = wstream
         self.cfg = cfg
+        # without a backend the one-shot generator runs the stacked whole
+        # model over these params (moved to the device only if they are
+        # elsewhere); the batcher wraps the same tensors in a
+        # ResidentBackend, whose per-layer weights are views of them
+        self._params = None
         built_here = False
         if backend is None:
             from repro_torch.serving.backends import ResidentBackend
-            backend = ResidentBackend(cfg, params, device=device)
+            self._params = M.tree_to(params, resolve_device(device))
+            backend = ResidentBackend(cfg, self._params, device=device)
             built_here = True
         self._backend = backend
         self._own_backend = built_here if own_backend is None \
@@ -127,6 +142,7 @@ class LLM:
             selfcheck=selfcheck, sampling=sampling)
         self._ids = itertools.count()
         self._batcher: Optional[ContinuousBatcher] = None
+        self._generator: Optional[Generator] = None
         self._closed = False
         self.last_executor: Optional[str] = None
         self.last_metrics: Dict[str, float] = {}
@@ -139,6 +155,14 @@ class LLM:
                 self.cfg, backend=self._backend, own_backend=False,
                 **self._batcher_kw)
         return self._batcher
+
+    def _ensure_generator(self) -> Generator:
+        if self._generator is None:
+            if self._params is not None:
+                self._generator = Generator(self.cfg, self._params)
+            else:
+                self._generator = Generator(self.cfg, backend=self._backend)
+        return self._generator
 
     # -- request normalization -----------------------------------------
     def _as_requests(self, prompts, max_new, eos, sampling
@@ -168,11 +192,12 @@ class LLM:
     def generate(self, prompts, max_new: Optional[int] = None, *,
                  eos: Optional[int] = None,
                  sampling=None) -> List[RequestOutput]:
-        """Run a batch of requests to completion through the batcher.
+        """Run a batch of requests to completion and return their outputs.
 
-        The JAX facade runs a rectangular batch with nothing else in
-        flight on its one-shot generator; that executor is not ported
-        yet, so such a call raises — ``submit`` + ``drain`` serve it."""
+        A rectangular batch with nothing else in flight runs one-shot
+        (one prefill + the greedy decode loop); ragged prompts,
+        per-request budgets, or overlap with submitted work run through
+        the continuous batcher.  Either way the tokens are the same."""
         reqs = self._as_requests(prompts, max_new, eos, sampling)
         if not reqs:
             return []
@@ -181,9 +206,29 @@ class LLM:
         rect = (len({len(r.prompt) for r in reqs}) == 1
                 and len({r.max_new for r in reqs}) == 1)
         if rect and not busy:
-            raise NotImplementedError(
-                "the one-shot generator is not ported yet; use "
-                "submit() + drain()")
+            return self._generate_oneshot(reqs)
+        return self._generate_batched(reqs)
+
+    def _generate_oneshot(self, reqs: List[GenRequest]
+                          ) -> List[RequestOutput]:
+        g = self._ensure_generator()
+        toks = np.asarray([r.prompt for r in reqs], dtype=np.int32)
+        res = g.generate({"tokens": toks}, reqs[0].max_new,
+                         sampling=[r.sampling for r in reqs])
+        self.last_executor = "generator"
+        self.last_metrics = {"prefill_s": res.prefill_s,
+                             "decode_s": res.decode_s,
+                             "tokens_per_s": res.tokens_per_s}
+        outs = []
+        for req, row in zip(reqs, res.tokens):
+            if req.eos is not None and req.eos in row:
+                row = row[:row.index(req.eos) + 1]
+            outs.append(RequestOutput(req.rid, req.prompt, list(row),
+                                      _finish_reason(row, req.eos)))
+        return outs
+
+    def _generate_batched(self, reqs: List[GenRequest]
+                          ) -> List[RequestOutput]:
         b = self._ensure_batcher()
         for req in reqs:
             self._submit_req(req)

@@ -1,0 +1,151 @@
+"""One-shot generation over the dense KV cache.
+
+:class:`Generator` runs a rectangular batch to completion: one prefill,
+then a greedy decode loop.  It has two executions of the same layer
+math, as in the JAX package:
+
+* **resident whole model** (``Generator(cfg, params)``):
+  :func:`repro_torch.models.model.prefill` /
+  :func:`~repro_torch.models.model.decode_step` over the stacked cache of
+  :func:`~repro_torch.models.model.init_cache` (fp or int8);
+* **through a backend** (``Generator(cfg, backend=...)``): the backend's
+  ``prefill`` / ``decode`` over its per-layer dense cache —
+  :class:`repro_torch.serving.backends.ResidentBackend` or the offloaded
+  :class:`~repro_torch.serving.backends.HeteGenBackend`, whose placement
+  plan is retuned to the real batch first.
+
+On the card the prefill attends through the flash-attention kernel and
+every decode step through the flash-decode kernel
+(:func:`repro_torch.models.model.attention_route`).  Sampling is greedy,
+the port's only sampler so far: the loop moves (B,) token ids per step
+and reads nothing back to the host until the batch is done (an offload
+backend's own host share aside).  Request-level ``sampling`` raises
+unless every row is greedy.
+
+Request-level serving fronts this class through
+:class:`repro_torch.serving.api.LLM`, which uses it as the one-shot
+executor for rectangular batches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.sampling import (SamplingParams, greedy,
+                                          require_greedy)
+
+
+@dataclasses.dataclass
+class GenerateResult:
+    tokens: list                        # (B, n_new) python ints
+    prefill_s: float
+    decode_s: float
+    tokens_per_s: float
+
+
+def wait_for(t: torch.Tensor) -> None:
+    """Wait for the device work behind ``t`` (host timing needs it)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+class Generator:
+    """Batched greedy generation over the stacked resident model or a
+    backend (see the module docstring)."""
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 backend=None):
+        if backend is None and params is None:
+            raise ValueError("Generator needs params or a backend")
+        self.cfg = cfg
+        self.params = params
+        self.backend = backend
+
+    def _device(self) -> torch.device:
+        if self.backend is not None:
+            return self.backend.device
+        return self.params["embed"].device
+
+    # ------------------------------------------------------------------
+    def generate(self, batch: Dict, max_new_tokens: int, *,
+                 max_len: Optional[int] = None,
+                 sampling: Optional[List[SamplingParams]] = None
+                 ) -> GenerateResult:
+        """Generate ``max_new_tokens`` greedy tokens per row of
+        ``batch["tokens"]`` (B, S).  ``sampling`` (one
+        :class:`SamplingParams` per row) must be all greedy."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        if sampling is not None:
+            if len(sampling) != b:
+                raise ValueError(f"{len(sampling)} SamplingParams for "
+                                 f"batch {b}")
+            for sp in sampling:
+                require_greedy(sp)
+        total = max_len or (s + max_new_tokens)
+        be = self.backend
+        dev = self._device()
+        tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+        if be is not None and hasattr(be, "retune"):
+            be.retune(b)       # plan follows the real decode batch
+        cache = M.init_cache(cfg, b, total, device=dev) if be is None \
+            else be.init_cache(b, total)
+
+        t0 = time.perf_counter()
+        if be is None:
+            cache, logits = M.prefill(cfg, self.params, {"tokens": tokens},
+                                      cache)
+        else:
+            cache, logits = be.prefill({"tokens": tokens}, cache)
+        tok = greedy(logits)
+        wait_for(tok)
+        t1 = time.perf_counter()
+
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            if be is None:
+                cache, logits = M.decode_step(cfg, self.params, tok, cache)
+            else:
+                cache, logits = be.decode(tok, cache)
+            tok = greedy(logits)
+            out.append(tok)
+        wait_for(tok)
+        t2 = time.perf_counter()
+
+        dec = max(t2 - t1, 1e-9)
+        return GenerateResult(
+            tokens=torch.stack(out, dim=1).tolist(),
+            prefill_s=t1 - t0,
+            decode_s=dec,
+            tokens_per_s=b * max(max_new_tokens - 1, 1) / dec,
+        )
+
+
+# ---------------------------------------------------------------------------
+# serve_step / prefill_step entry points
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: (params, token (B,), cache) -> (cache, next (B,)),
+    greedy, with nothing read back to the host."""
+
+    def serve_step(params, token, cache):
+        cache, logits = M.decode_step(cfg, params, token, cache)
+        return cache, greedy(logits)
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, batch, cache):
+        cache, logits = M.prefill(cfg, params, batch, cache)
+        return cache, greedy(logits)
+
+    return prefill_step

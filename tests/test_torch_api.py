@@ -72,15 +72,21 @@ def test_greedy_tokens_identical_to_jax(setup, wstream, kw):
 
 
 def test_unported_features_raise(setup):
-    cfg, _, tp, prompts = setup
+    cfg, jp, tp, prompts = setup
+    with JLLM(cfg, jp, max_slots=2, max_len=32) as jllm:
+        want = [o.tokens for o in jllm.generate([prompts[0], prompts[2]],
+                                                max_new=3)]
     with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32) as llm:
         with pytest.raises(NotImplementedError):
             llm.submit(prompts[0], 3,
                        sampling=SamplingParams(kind="topp", top_p=0.9))
-        with pytest.raises(NotImplementedError):
-            llm.generate([prompts[0], prompts[0]], max_new=3)
+        # a rectangular batch runs one-shot, token-identical to JAX's
+        one = llm.generate([prompts[0], prompts[2]], max_new=3)
+        assert llm.last_executor == "generator"
+        assert [o.tokens for o in one] == want
         # a ragged batch runs through the batcher
         outs = llm.generate(prompts[:2], max_new=3)
+        assert llm.last_executor == "batcher"
         assert [len(o.tokens) for o in outs] == [3, 3]
     for bad in (dict(spec=object()), dict(trace=True)):
         with pytest.raises(NotImplementedError):

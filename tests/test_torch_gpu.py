@@ -7,7 +7,11 @@ port is installed:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: 2e-5 for fp32 pages, 2e-4 for int8 pages, 1e-5 relative for
-the int8-weight matmul (fp32 arithmetic; different summation orders).
+the int8-weight matmul (fp32 arithmetic; different summation orders);
+for the dense-cache kernels 2e-5 in fp32, 2e-4 for int8 caches with an
+fp32 query, and 2e-2 in bf16 (about two bf16 steps: the kernels round p to
+bf16 before the PV product, the plain versions do not); RMSNorm 1e-5 in
+fp32 and one bf16 step (7.8e-3 relative) in bf16.
 """
 import numpy as np
 import pytest
@@ -119,7 +123,8 @@ def test_q8_matmul_kernel(cuda, m, k, n):
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
-    from repro_torch.kernels import q8_matmul
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_attention, q8_matmul, rmsnorm)
     x = torch.zeros((2, 4), device=cuda)
     with pytest.raises(TypeError):
         q8_matmul.q8_matmul(x, torch.zeros((4, 3), device=cuda),
@@ -128,6 +133,168 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         q8_matmul.q8_matmul(x.t(), torch.zeros((2, 3), dtype=torch.int8,
                                                device=cuda),
                             torch.ones(3, device=cuda))
+    # the paged kernels take fp32 only: a bf16 q raises (a known limit)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    kp, vp, _, _, bt = _pool(gen, 2, 2, 2, 16, 64, False, cuda)
+    with pytest.raises(TypeError):
+        paged_attention.paged_decode_attention(
+            torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=cuda),
+            kp, vp, bt, torch.ones(2, dtype=torch.int32, device=cuda))
+    # dense kernels: a wrong dtype or layout raises
+    q = torch.zeros((2, 4, 64), device=cuda)
+    k = torch.zeros((2, 2, 8, 64), device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention.decode_attention(q, k.bfloat16(), k.bfloat16(),
+                                          lens)
+    with pytest.raises(TypeError):
+        decode_attention.decode_attention(q, k, k, lens.long())
+    with pytest.raises(ValueError):
+        decode_attention.decode_attention(q, k.transpose(2, 3),
+                                          k.transpose(2, 3), lens)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(k.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(k, k, k.transpose(1, 2))
+    with pytest.raises(TypeError):
+        rmsnorm.rmsnorm(q, torch.ones(64, device=cuda, dtype=torch.bfloat16))
+
+
+def _dense_cache(gen, b, hkv, t, d, dtype, layout, dev):
+    """K/V (and int8 scales) in the stacked (B, Hkv, T, D) layout, or as
+    the backend's (B, T, Hkv, D) buffer seen through transpose(1, 2)."""
+    shape = (b, hkv, t, d) if layout == "bhtd" else (b, t, hkv, d)
+    if dtype == torch.int8:
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        sshape = shape[:3]
+        ks = torch.rand(sshape, generator=gen, device=dev) * 0.02
+        vs = torch.rand(sshape, generator=gen, device=dev) * 0.02
+    else:
+        k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        ks = vs = None
+    if layout == "bthd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        if ks is not None:
+            ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+    return k, v, ks, vs
+
+
+def _tol(qdt, kvdt):
+    if qdt == torch.bfloat16:
+        return 2e-2
+    return 2e-4 if kvdt == torch.int8 else 2e-5
+
+
+@pytest.mark.parametrize("qdt,kvdt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.int8), (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+@pytest.mark.parametrize("hq,hkv,d,softcap", [
+    (8, 2, 128, None), (4, 4, 64, 30.0), (4, 1, 16, None)])
+def test_decode_attention_kernel(cuda, qdt, kvdt, layout, hq, hkv, d,
+                                 softcap):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, t = 4, 300
+    k, v, ks, vs = _dense_cache(gen, b, hkv, t, d, kvdt, layout, cuda)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).to(qdt)
+    lens = torch.tensor([1, 37, 256, t], dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs, softcap=softcap)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, lens, **kw)
+    want = ref.decode_attention(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and got.shape == (b, hq, d)
+    tol = _tol(qdt, kvdt)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    if kvdt != torch.int8:
+        # rows at or past kv_len may hold NaN: never read
+        for i in range(b):
+            k[i, :, int(lens[i]):] = float("nan")
+            v[i, :, int(lens[i]):] = float("nan")
+        again = ops.decode_attention(q, k, v, lens, **kw)
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+@pytest.mark.parametrize("hq,hkv,d,s,causal,window,softcap", [
+    (8, 2, 128, 77, True, None, None), (4, 4, 64, 64, True, 9, 25.0),
+    (4, 2, 32, 37, False, None, None), (4, 1, 16, 50, False, 7, 20.0)])
+def test_flash_attention_kernel(cuda, dtype, layout, hq, hkv, d, s, causal,
+                                window, softcap):
+    """The first s positions of a longer cache (a strided view), ragged s,
+    output written straight into the (B, S, Hq, D) layout."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, t = 2, s + 19
+    k, v, _, _ = _dense_cache(gen, b, hkv, t, d, dtype, layout, cuda)
+    k, v = k[:, :, :s], v[:, :, :s]
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(dtype) \
+        .transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    tol = _tol(dtype, dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if layout == "bhtd":
+        # positions past s (outside the view) may hold NaN: never read
+        kfull = k.as_strided((b, hkv, t, d), k.stride())
+        kfull[:, :, s:] = float("nan")
+        again = ops.flash_attention(q, k, v, **kw)
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,plus_one,sliced", [
+    ((4, 5120), False, False), ((3, 7, 100), True, False),
+    ((4, 9, 5120), False, True), ((2, 6, 4, 128), False, False)])
+def test_rmsnorm_kernel(cuda, dtype, shape, plus_one, sliced):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    if sliced:
+        x = x[:, -1:]                     # rows with a stride of 9 rows
+    w = torch.randn(shape[-1], generator=gen, device=cuda).to(dtype)
+    got = ops.rmsnorm(x, w, eps=1e-5, plus_one=plus_one)
+    want = ref.rmsnorm(x, w, eps=1e-5, plus_one=plus_one)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 7.8e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_oneshot_on_card_matches_cpu(cuda, kv_dtype):
+    """The tiny model's one-shot generation on the card (every attention
+    and RMSNorm through a kernel) gives the CPU run's greedy tokens, with
+    the launch counts the route rule predicts and no plain attention."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Generator
+    cfg = dataclasses.replace(get_config("tiny"), kv_dtype=kv_dtype)
+    params = M.init_params(cfg, 0, device="cpu")
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (3, 20)).astype(np.int32)
+    want = Generator(cfg, params).generate({"tokens": prompts}, 6)
+    ops.reset_launch_counts()
+    got = Generator(cfg, M.tree_to(params, cuda)).generate(
+        {"tokens": prompts}, 6)
+    n = ops.launch_counts()
+    assert got.tokens == want.tokens
+    assert n["flash_attention"] == cfg.n_layers
+    assert n["decode_attention"] == cfg.n_layers * 5
+    assert n["rmsnorm"] == (2 * cfg.n_layers + 1) * 6
+    assert n["plain_dense_attention"] == 0
 
 
 @pytest.mark.parametrize("wstream", ["fp", "q8"])

@@ -193,7 +193,9 @@ def test_ops_cpu_route_is_plain_version():
                                torch.from_numpy(s)).numpy())
     assert K.launch_counts() == {"paged_decode_attention": 0,
                                  "paged_prefill_attention": 0,
-                                 "q8_matmul": 0}
+                                 "q8_matmul": 0, "decode_attention": 0,
+                                 "flash_attention": 0, "rmsnorm": 0,
+                                 "plain_dense_attention": 0}
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
