@@ -3,7 +3,8 @@
 Each function mirrors one kernel's contract exactly (and the JAX
 package's pure-jnp oracle of the same name).  They are what a CPU tensor
 runs through :mod:`repro_torch.kernels.ops`, and what ``chip_smoke.py``
-holds every CUDA kernel against on the card.  All arithmetic is fp32.
+holds every CUDA kernel against on the card, within the per-element
+limits of the ``*_limit`` functions.  All arithmetic is fp32.
 """
 
 from __future__ import annotations
@@ -91,6 +92,68 @@ def rmsnorm(x, scale, *, eps=1e-6, plus_one=False):
     if plus_one:
         w = w + 1.0
     return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# How far a kernel may lie from its plain version, element by element
+# ---------------------------------------------------------------------------
+
+_HALF = (torch.bfloat16, torch.float16)
+_SLACK = 1.01          # second-order terms of the rounding bounds below
+
+
+def _attention_limit(want, abs_out, p_dtype, *, int8):
+    """|kernel - plain| limit per element of an attention output ``want``:
+
+    * fp32 arithmetic in a different order: 2e-5 (2e-4 over an int8
+      cache, whose dequantized values are larger);
+    * both outputs rounded to ``want``'s dtype: up to one step apart,
+      ``eps * |want|`` (2^-7 in bf16);
+    * the kernels round p to a 16-bit value dtype before the PV product
+      (as the Pallas kernels and ``layers.attention`` do; l sums the
+      unrounded p, the plain version rounds nothing).  Each p moves by at
+      most ``eps / 2`` of itself, so the output by at most ``eps / 2 *
+      sum(p |v|) / sum(p)``: ``abs_out`` is that attention over |v| and
+      ``p_dtype`` the value dtype, or both None where p is not rounded
+      (fp32 and int8 caches).
+    """
+    lim = (2e-4 if int8 else 2e-5) \
+        + _SLACK * torch.finfo(want.dtype).eps * want.float().abs()
+    if abs_out is not None:
+        lim = lim + _SLACK * torch.finfo(p_dtype).eps / 2 * abs_out
+    return lim
+
+
+def decode_attention_limit(q, k, v, kv_len, want, *, k_scale=None,
+                           v_scale=None, softcap=None):
+    """Per-element limit on |kernel - :func:`decode_attention`| (``want``)
+    on these inputs; see :func:`_attention_limit`."""
+    abs_out = p_dtype = None
+    if v.dtype in _HALF:
+        abs_out = decode_attention(q.float(), k, v.abs(), kv_len,
+                                   softcap=softcap)
+        p_dtype = v.dtype
+    return _attention_limit(want, abs_out, p_dtype, int8=k_scale is not None)
+
+
+def flash_attention_limit(q, k, v, want, *, causal=True, window=None,
+                          softcap=None):
+    """Per-element limit on |kernel - :func:`flash_attention`| (``want``)
+    on these inputs; see :func:`_attention_limit`."""
+    abs_out = p_dtype = None
+    if v.dtype in _HALF:
+        abs_out = flash_attention(q.float(), k, v.abs(), causal=causal,
+                                  window=window, softcap=softcap)
+        p_dtype = v.dtype
+    return _attention_limit(want, abs_out, p_dtype, int8=False)
+
+
+def rmsnorm_limit(want):
+    """Per-element limit on |kernel - :func:`rmsnorm`| (``want``): 1e-5
+    relative for fp32 statistics in a different order (and ``rsqrt``'s
+    own error), plus one step of ``want``'s dtype where both round it."""
+    w = want.float().abs()
+    return 1e-6 + (1e-5 + _SLACK * torch.finfo(want.dtype).eps) * w
 
 
 def gather_pages(pages: torch.Tensor,

@@ -5,9 +5,10 @@ The PyTorch counterpart of the dense subset of the JAX package's
 the q/k/v and output projections, and the four MLP kinds.  Parameters are
 plain dicts of tensors; every weight matmul can be routed through an
 injected ``linear(x, name)`` callable (the backend seam).  Norm statistics
-and attention scores are computed in fp32.  On a CUDA tensor every RMSNorm
-(the block norms and the qk-norms) runs the hand-written kernel
-(:func:`repro_torch.kernels.ops.rmsnorm`); the CPU keeps :func:`rmsnorm`.
+and attention scores are computed in fp32.  Every RMSNorm (the block
+norms and the qk-norms) goes through
+:func:`repro_torch.kernels.ops.rmsnorm`: the hand-written kernel on a
+CUDA tensor, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -27,17 +28,6 @@ NEG_INF = -2.0e38
 # Norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-            plus_one: bool = False) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    w = scale.float()
-    if plus_one:
-        w = w + 1.0
-    return (y * w).to(x.dtype)
-
-
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
@@ -47,18 +37,11 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def _rmsnorm_routed(x: torch.Tensor, scale: torch.Tensor, eps: float,
-                    plus_one: bool = False) -> torch.Tensor:
-    if x.device.type == "cuda":
-        return K.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
-    return rmsnorm(x, scale, eps, plus_one=plus_one)
-
-
 def apply_norm(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm_kind == "layernorm":
         return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
-    return _rmsnorm_routed(x, p["scale"], cfg.norm_eps,
-                           plus_one=cfg.post_norm)  # gemma-style (1+w)
+    return K.rmsnorm(x, p["scale"], eps=cfg.norm_eps,
+                     plus_one=cfg.post_norm)       # gemma-style (1+w)
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +146,8 @@ def gqa_qkv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
             k = k + p["bk"].reshape(hkv, hd)
             v = v + p["bv"].reshape(hkv, hd)
     if cfg.qk_norm:
-        q = _rmsnorm_routed(q, p["q_norm"], cfg.norm_eps)
-        k = _rmsnorm_routed(k, p["k_norm"], cfg.norm_eps)
+        q = K.rmsnorm(q, p["q_norm"], eps=cfg.norm_eps)
+        k = K.rmsnorm(k, p["k_norm"], eps=cfg.norm_eps)
     if cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

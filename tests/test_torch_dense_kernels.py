@@ -6,9 +6,10 @@ window, softcap) and RMSNorm (with and without ``plus_one``).  Inputs
 come from numpy with a seed and go to both sides.
 
 Tolerances: 2e-5 in fp32 and 2e-4 for int8 caches (fp32 arithmetic on
-both sides, different summation orders); 2e-2 in bf16, about two bf16
-steps at the outputs' magnitude (the Pallas kernels round p to bf16
-before the PV product, the plain versions do not).  The CPU route of
+both sides, different summation orders); in bf16, element by element,
+the ``ref.*_limit`` bounds: one bf16 step of the output, plus, for a bf16
+cache, the most that rounding p to bf16 before the PV product can move
+it (the Pallas kernels round p, the plain versions do not).  The CPU route of
 ``ops`` is the plain version and counts no launch; the CUDA wrappers
 raise on CPU tensors instead of falling back.
 """
@@ -26,7 +27,6 @@ from repro_torch.models import layers as L
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 Q8 = dict(rtol=2e-4, atol=2e-4)
-BF16 = dict(rtol=2e-2, atol=2e-2)
 
 
 def _t(x, dtype=None):
@@ -147,12 +147,16 @@ def test_rmsnorm_matches_pallas(plus_one):
                        interpret=True)
     got = R.rmsnorm(_t(x), _t(w), eps=1e-5, plus_one=plus_one)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
-    np.testing.assert_array_equal(
-        got.numpy(), L.rmsnorm(_t(x), _t(w), 1e-5, plus_one).numpy())
+
+
+def _within(kernel_out, limit, plain_out):
+    err = (torch.from_numpy(np.array(kernel_out.astype(jnp.float32)))
+           - plain_out.float()).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
 
 
 def test_bf16_cases_match_pallas():
-    """One bf16 case of each kernel, to two bf16 steps."""
+    """One bf16 case of each kernel, within the per-element limits."""
     rng = np.random.default_rng(3)
     bf = torch.bfloat16
     b, hq, hkv, s, d = 2, 4, 2, 32, 32
@@ -162,26 +166,25 @@ def test_bf16_cases_match_pallas():
     want = jdec.decode_attention(_j(q, jnp.bfloat16), _j(k, jnp.bfloat16),
                                  _j(v, jnp.bfloat16), _j(lens),
                                  interpret=True)
-    got = R.decode_attention(_t(q, bf), _t(k, bf), _t(v, bf), _t(lens))
+    args = (_t(q, bf), _t(k, bf), _t(v, bf), _t(lens))
+    got = R.decode_attention(*args)
     assert got.dtype == bf
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want.astype(jnp.float32)), **BF16)
+    _within(want, R.decode_attention_limit(*args, got), got)
 
     qs = rng.standard_normal((b, hq, s, d)).astype(np.float32)
     want = jfa.flash_attention(_j(qs, jnp.bfloat16), _j(k, jnp.bfloat16),
                                _j(v, jnp.bfloat16), window=12, block_q=16,
                                block_kv=16, interpret=True)
-    got = R.flash_attention(_t(qs, bf), _t(k, bf), _t(v, bf), window=12)
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want.astype(jnp.float32)), **BF16)
+    args = (_t(qs, bf), _t(k, bf), _t(v, bf))
+    got = R.flash_attention(*args, window=12)
+    _within(want, R.flash_attention_limit(*args, got, window=12), got)
 
     x = rng.standard_normal((6, 128)).astype(np.float32)
     w = rng.standard_normal(128).astype(np.float32)
     want = jrn.rmsnorm(_j(x, jnp.bfloat16), _j(w, jnp.bfloat16),
                        interpret=True)
     got = R.rmsnorm(_t(x, bf), _t(w, bf))
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want.astype(jnp.float32)), **BF16)
+    _within(want, R.rmsnorm_limit(got), got)
 
 
 def test_ops_cpu_route_counts_nothing():
@@ -220,3 +223,30 @@ def test_dense_wrappers_reject_cpu_tensors():
         flash_attention.flash_attention(k, k, k)
     with pytest.raises(ValueError):
         rmsnorm.rmsnorm(q, torch.ones(8))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_limits_reject_an_off_by_one(dtype):
+    """The per-element limits are tight enough to fail a kernel with an
+    off-by-one mask: decode that drops the last key, flash attention that
+    drops the diagonal.  The bf16 cache's bound on rounding p is the
+    loosest term; it still rejects both at the main path's sequence
+    lengths' order (here 200 keys)."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, t, d = 2, 8, 2, 200, 64
+    q = _t(rng.standard_normal((b, hq, d)).astype(np.float32), dtype)
+    k, v, _, _ = (_t(a, dtype) if a is not None else None
+                  for a in _cache(rng, b, hkv, t, d, False))
+    lens = torch.tensor([t - 3, t], dtype=torch.int32)
+    want = R.decode_attention(q, k, v, lens)
+    lim = R.decode_attention_limit(q, k, v, lens, want)
+    bad = R.decode_attention(q, k, v, lens - 1)
+    assert bool(((bad.float() - want.float()).abs() > lim).any())
+
+    qs = _t(rng.standard_normal((b, hq, t, d)).astype(np.float32), dtype)
+    want = R.flash_attention(qs, k, v)
+    lim = R.flash_attention_limit(qs, k, v, want)
+    bad = want.clone()
+    bad[:, :, 1:] = R.flash_attention(qs[:, :, 1:], k[:, :, :-1],
+                                      v[:, :, :-1])
+    assert bool(((bad.float() - want.float()).abs() > lim).any())

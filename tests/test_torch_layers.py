@@ -10,6 +10,7 @@ import torch
 
 from repro.configs import get_config, reduced
 from repro.models import layers as JL
+from repro_torch.kernels import ops as TK
 from repro_torch.models import layers as TL
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -37,7 +38,7 @@ def test_norms(plus_one):
     jx, tx = _pair(rng, 2, 5, 64)
     js, ts = _pair(rng, 64)
     jb, tb = _pair(rng, 64)
-    _close(TL.rmsnorm(tx, ts, 1e-6, plus_one),
+    _close(TK.rmsnorm(tx, ts, eps=1e-6, plus_one=plus_one),
            JL.rmsnorm(jx, js, 1e-6, plus_one))
     _close(TL.layernorm(tx, ts, tb, 1e-5), JL.layernorm(jx, js, jb, 1e-5))
     for name in ("tiny", "opt-125m"):
