@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 2. build every hand-written kernel from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together) and print the ``-Xptxas -v``
    register / shared-memory summary;
-3. the main path: OPT-6.7B at full width (d 4096, 32 heads, FFN 16384,
+3. the first main path: OPT-6.7B at full width (d 4096, 32 heads, FFN 16384,
    vocab 50272, fp32; ``--layers`` of 32, random weights from a seed)
    served by ``LLM(paged=True, backend=HeteGenBackend(...))`` with
    ``submit`` + ``drain``: four greedy requests with ``chunk_tokens`` set
@@ -38,13 +38,29 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    layer).  Its dense-cache prefill logits are held against
    ``ResidentBackend`` (checked in phase 3, while the weights are on the
    card);
+3d. resident one-shot generation of Mamba2-2.7B at full width and full
+   depth (64 layers), bf16, random weights made on the card from a seed:
+   ``LLM(cfg, params).generate`` of four 512-token prompts, 16 new tokens
+   each.  Every layer's prefill takes the chunked SSD form, so the
+   counters must show one ``ssd_chunk`` launch per layer, two RMSNorm
+   launches per layer plus the final norm per forward, and no plain scan.
+   A reduced Mamba2 runs on the card and on the CPU: greedy tokens
+   identical in fp32, bf16 logits within ``BF16_MODEL_TOL``;
+3e. the bf16 paged batcher: Mistral-NeMo-12B (3b's weights, still on the
+   card) through ``LLM(cfg, params, paged=True).generate`` of a ragged
+   batch (four prompts of 500-512 tokens, 8 new each), bf16 pages then
+   int8 pages, with one paged-prefill launch per layer and prefill call
+   and one paged-decode launch per layer and decode step.  A reduced bf16
+   Mistral over a paged cache runs on the card and on the CPU: prefill and
+   decode logits within ``BF16_MODEL_TOL``;
 4. every kernel against its plain PyTorch version on the same card
    inputs at the main path's shapes (these launches come after the
    counters were read, so they do not count), with CUDA-event times of kernel,
    plain version and (where one exists) a single PyTorch library call,
    beside the least time the card could take (bytes over 3.35 TB/s or
    FLOPs over the peak for the dtype — 67 TFLOP/s fp32, 989 TFLOP/s bf16 —
-   whichever is larger);
+   whichever is larger); the paged kernels also in bf16 at 3e's shapes,
+   within the ``ref.paged_*_limit`` bounds;
 4b. the same for the dense-cache kernels (flash-decode, flash attention,
    RMSNorm) at the shapes of 3b and 3c, held element by element within
    the ``ref.*_limit`` bounds (and each attention limit shown to reject
@@ -53,6 +69,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``kv_len`` [512, 1100, 2048, 3001] at T = 4096, in both cache layouts,
    is checked and timed too, but no main path runs that shape, so it is
    logged and left out of the ``kernels`` line;
+4c. the SSD intra-chunk kernel at 3d's shape and at the reduced model's,
+   held element by element within ``ref.ssd_chunk_limit`` (shown to
+   reject a y that drops each row's own term); no single PyTorch call
+   computes it, so it has no library time; the reduced shape is logged
+   and left out of the ``kernels`` line;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -89,6 +110,7 @@ from repro_torch.kernels import paged_prefill as k_prefill  # noqa: E402
 from repro_torch.kernels import q8_matmul as k_q8  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as k_rms  # noqa: E402
+from repro_torch.kernels import ssd_chunk as k_ssd  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
@@ -113,6 +135,10 @@ ONESHOT_PROMPT = 512               # 3b: prompt tokens per row
 ONESHOT_NEW = 16                   # 3b: new tokens per row
 OFFLOAD_PROMPT = 64                # 3c: prompt tokens per row
 OFFLOAD_NEW = 8                    # 3c: new tokens per row
+MAMBA_PROMPT = 512                 # 3d: prompt tokens per row (4 chunks)
+MAMBA_NEW = 16                     # 3d: new tokens per row
+PAGED_PROMPTS = (500, 504, 508, 512)   # 3e: ragged prompt lengths
+PAGED_NEW = 8                      # 3e: new tokens per row
 
 
 def log(msg: str) -> None:
@@ -122,6 +148,14 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {msg}")
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, logging the phase's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +269,7 @@ def compare_prefill_logits(cfg, params, host_params, prompts):
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def paged_inputs(gen, b, hq, hkv, d, lens, q8):
+def paged_inputs(gen, b, hq, hkv, d, lens, q8, dtype=torch.float32):
     nb = max(-(-n // PAGE_SIZE) for n in lens)
     n_pages = 1 + b * nb
     shape = (n_pages, hkv, PAGE_SIZE, d)
@@ -247,16 +281,16 @@ def paged_inputs(gen, b, hq, hkv, d, lens, q8):
         ks = torch.rand(shape[:3], generator=gen, device="cuda") * 0.02
         vs = torch.rand(shape[:3], generator=gen, device="cuda") * 0.02
     else:
-        kp = torch.randn(shape, generator=gen, device="cuda")
-        vp = torch.randn(shape, generator=gen, device="cuda")
+        kp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        vp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         ks = vs = None
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
     bt = perm.reshape(b, nb).to(torch.int32).contiguous()
     return kp, vp, ks, vs, bt
 
 
-def kv_bytes(lens, hkv, d, q8):
-    per_tok = hkv * (2 * d * (1 if q8 else 4) + (8 if q8 else 0))
+def kv_bytes(lens, hkv, d, q8, el=4):
+    per_tok = hkv * (2 * d * (1 if q8 else el) + (8 if q8 else 0))
     return sum(lens) * per_tok
 
 
@@ -345,6 +379,8 @@ def check_kernels(cfg, launches, q8_cols):
             lambda: ref.paged_prefill_attention(q, kp, vp, bt, ko, **kw),
             None, nbytes, flops))
 
+    entries += check_paged_bf16(launches)
+
     # q8 matmul: decode M = 4 and prefill M = 4 chunks x 32, K = d_model,
     # N = the decode plan's device columns of the widest linear
     k = cfg.d_model
@@ -364,6 +400,62 @@ def check_kernels(cfg, launches, q8_cols):
             want, tol, lambda: k_q8.q8_matmul(x, qw, sc),
             lambda: ref.q8_matmul(x, qw, sc), lib,
             m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * n * k))
+    return entries
+
+
+def check_paged_bf16(launches):
+    """The paged kernels under a bf16 q at 3e's shapes (Mistral's heads;
+    decode over the ragged batch at its last step, prefill of its longest
+    prompt), over bf16 pages and over int8 pages, each within its
+    per-element limit."""
+    cfg = get_config("mistral-nemo-12b")
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bf = torch.bfloat16
+    lens = [n + PAGED_NEW - 1 for n in PAGED_PROMPTS]
+    s = max(PAGED_PROMPTS)
+    entries = []
+    for q8 in (False, True):
+        tag = "_bf16" + ("_q8" if q8 else "")
+        kv = "int8" if q8 else "bf16"
+        kp, vp, ks, vs, bt = paged_inputs(gen, len(lens), hq, hkv, d, lens,
+                                          q8, bf)
+        q = torch.randn((len(lens), hq, d), generator=gen,
+                        device="cuda").to(bf)
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kw = dict(k_scale=ks, v_scale=vs)
+        got = k_decode.paged_decode_attention(q, kp, vp, bt, kl, **kw)
+        want = ref.paged_decode_attention(q, kp, vp, bt, kl, **kw)
+        entries.append(kernel_entry(
+            "paged_decode_attention" + tag,
+            "src/repro_torch/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/paged_attention.py:160",
+            launches["paged_decode_attention_3e"][kv], got, want,
+            ref.paged_decode_attention_limit(q, kp, vp, bt, kl, want, **kw),
+            lambda: k_decode.paged_decode_attention(q, kp, vp, bt, kl, **kw),
+            lambda: ref.paged_decode_attention(q, kp, vp, bt, kl, **kw),
+            None, 2 * q.numel() * 2 + kv_bytes(lens, hkv, d, q8, 2)
+            + bt.numel() * 4 + 4 * len(lens), 4 * hq * d * sum(lens),
+            BF16_FLOPS))
+
+        kp, vp, ks, vs, bt = paged_inputs(gen, 1, hq, hkv, d, [s], q8, bf)
+        q = torch.randn((1, hq, s, d), generator=gen, device="cuda").to(bf)
+        ko = torch.zeros(1, dtype=torch.int32, device="cuda")
+        kw = dict(k_scale=ks, v_scale=vs)
+        got = k_prefill.paged_prefill_attention(q, kp, vp, bt, ko, **kw)
+        want = ref.paged_prefill_attention(q, kp, vp, bt, ko, **kw)
+        entries.append(kernel_entry(
+            "paged_prefill_attention" + tag,
+            "src/repro_torch/csrc/paged_prefill_attention.cu",
+            "src/repro/kernels/paged_prefill.py:197",
+            launches["paged_prefill_attention_3e"][kv], got, want,
+            ref.paged_prefill_attention_limit(q, kp, vp, bt, ko, want, **kw),
+            lambda: k_prefill.paged_prefill_attention(q, kp, vp, bt, ko,
+                                                      **kw),
+            lambda: ref.paged_prefill_attention(q, kp, vp, bt, ko, **kw),
+            None, 2 * q.numel() * 2 + kv_bytes([s], hkv, d, q8, 2)
+            + bt.numel() * 4 + 4, 4 * hq * d * s * (s + 1) // 2,
+            BF16_FLOPS))
     return entries
 
 
@@ -438,18 +530,20 @@ def run_oneshot(run, llm_fn, prompts, new_tokens, cfg):
     return toks, launches, llm
 
 
-def check_small_reference(cfg, seed):
-    """A reduced model of the same family on the card (every attention and
-    norm through a kernel) and on the CPU (the plain versions).  In fp32
-    one-shot generation gives identical greedy tokens.  In bf16, with a
-    bf16 and an int8 stacked cache, prefill logits at every position and
-    one decode step's logits agree within ``BF16_MODEL_TOL`` of the
-    largest |logit|, with the same argmax wherever the CPU's top two
-    logits stand more than twice that apart."""
+def check_small_reference(cfg, seed, prompt_len=24):
+    """A reduced model of the same family on the card (every attention,
+    norm and SSD chunk through a kernel) and on the CPU (the plain
+    versions).  In fp32 one-shot generation gives identical greedy
+    tokens.  In bf16 (for an attention model with a bf16 and an int8
+    stacked cache) prefill logits at every position and one decode step's
+    logits agree within ``BF16_MODEL_TOL`` of the largest |logit|, with the
+    same argmax wherever the CPU's top two logits stand more than twice
+    that apart."""
     small = reduced(cfg)                                   # fp32
     params = M.init_params(small, seed, device="cpu")
     rng = np.random.default_rng(seed)
-    prompts = [list(rng.integers(0, small.vocab_size, 24)) for _ in range(3)]
+    prompts = [list(rng.integers(0, small.vocab_size, prompt_len))
+               for _ in range(3)]
     with LLM(small, params, device="cpu") as llm:
         want = [o.tokens for o in llm.generate(prompts, max_new=8)]
     with LLM(small, M.tree_to(params, "cuda")) as llm:
@@ -459,34 +553,42 @@ def check_small_reference(cfg, seed):
         f"{got == want}")
     check(got == want, f"{small.name}: card tokens differ from the CPU's")
 
-    toks = torch.tensor([list(rng.integers(0, small.vocab_size, 24))
+    toks = torch.tensor([list(rng.integers(0, small.vocab_size, prompt_len))
                          for _ in range(8)], dtype=torch.int32)
-    for kv_dtype in (None, "int8"):
+    kv_dtypes = (None, "int8") if small.family != "ssm" else (None,)
+    for kv_dtype in kv_dtypes:
         bf = dataclasses.replace(small, dtype="bfloat16", kv_dtype=kv_dtype)
-        f32 = dataclasses.replace(bf, dtype="float32")
-        p_bf = M.init_params(bf, seed, device="cpu")
-        runs = {"card": (bf, M.tree_to(p_bf, "cuda"), "cuda"),
-                "cpu": (bf, p_bf, "cpu"),
-                "cpu_fp32": (f32, _to_float(p_bf), "cpu")}
-        out = {name: _prefill_and_step(c, p, toks.to(dev), dev)
-               for name, (c, p, dev) in runs.items()}
-        run = f"small bf16 kv={kv_dtype or 'bf16'}"
-        for i, what in enumerate(("prefill logits", "decode-step logits")):
-            card, cpu, exact = (out[n][i] for n in
-                                ("card", "cpu", "cpu_fp32"))
-            scale = float(cpu.abs().max())
-            rel = float((card - cpu).abs().max()) / scale
-            own = float((cpu - exact).abs().max()) / scale
-            top = torch.topk(cpu, 2, dim=-1).values
-            stable = (top[..., 0] - top[..., 1]) > 2 * BF16_MODEL_TOL * scale
-            same = (card.argmax(-1) == cpu.argmax(-1))[stable]
-            log(f"{run} {what}: card vs CPU max_abs_err/max|logit|="
-                f"{rel:.3e} (tol {BF16_MODEL_TOL:.0e}); CPU bf16 vs fp32 "
-                f"{own:.3e}; argmax equal at {int(same.sum())} of "
-                f"{int(stable.sum())} stable positions")
-            check(rel <= BF16_MODEL_TOL, f"{run}: {what} disagree")
-            check(bool(same.all()) and int(stable.sum()) > 0,
-                  f"{run}: {what} argmax differs at a stable position")
+        check_small_bf16(f"small bf16 kv={kv_dtype or 'bf16'}", bf, seed,
+                         lambda c, p, dev: _prefill_and_step(
+                             c, p, toks.to(dev), dev))
+
+
+def check_small_bf16(run, bf, seed, forward):
+    """``forward(cfg, params, device)`` -> (prefill logits, decode-step
+    logits) of a bf16 config on the card and on the CPU, held within
+    ``BF16_MODEL_TOL`` of the largest |logit| (and beside the plain bf16
+    model's own distance from fp32)."""
+    f32 = dataclasses.replace(bf, dtype="float32")
+    p_bf = M.init_params(bf, seed, device="cpu")
+    runs = {"card": (bf, M.tree_to(p_bf, "cuda"), "cuda"),
+            "cpu": (bf, p_bf, "cpu"),
+            "cpu_fp32": (f32, _to_float(p_bf), "cpu")}
+    out = {name: forward(c, p, dev) for name, (c, p, dev) in runs.items()}
+    for i, what in enumerate(("prefill logits", "decode-step logits")):
+        card, cpu, exact = (out[n][i] for n in ("card", "cpu", "cpu_fp32"))
+        scale = float(cpu.abs().max())
+        rel = float((card - cpu).abs().max()) / scale
+        own = float((cpu - exact).abs().max()) / scale
+        top = torch.topk(cpu, 2, dim=-1).values
+        stable = (top[..., 0] - top[..., 1]) > 2 * BF16_MODEL_TOL * scale
+        same = (card.argmax(-1) == cpu.argmax(-1))[stable]
+        log(f"{run} {what}: card vs CPU max_abs_err/max|logit|="
+            f"{rel:.3e} (tol {BF16_MODEL_TOL:.0e}); CPU bf16 vs fp32 "
+            f"{own:.3e}; argmax equal at {int(same.sum())} of "
+            f"{int(stable.sum())} stable positions")
+        check(rel <= BF16_MODEL_TOL, f"{run}: {what} disagree")
+        check(bool(same.all()) and int(stable.sum()) > 0,
+              f"{run}: {what} argmax differs at a stable position")
 
 
 def _to_float(tree):
@@ -527,17 +629,17 @@ def compare_whole_model_logits(cfg, params, prompts):
 
 
 def tally_rmsnorm_rows(fn):
-    """Run ``fn()`` with the RMSNorm calls on CUDA tensors tallied by row
-    count (the model calls ``ops.rmsnorm``, which launches the kernel on
-    a CUDA tensor), so that each shape gets its own launches; returns
-    ``fn()``'s result and the tally."""
+    """Run ``fn()`` with the RMSNorm calls on CUDA tensors tallied by
+    shape, (rows, width) (the model calls ``ops.rmsnorm``, which launches
+    the kernel on a CUDA tensor), so that each shape gets its own
+    launches; returns ``fn()``'s result and the tally."""
     rows = {}
     inner = ops.rmsnorm
 
     def tallied(x, scale, **kw):
         if x.is_cuda:
-            n = x.numel() // x.shape[-1]
-            rows[n] = rows.get(n, 0) + 1
+            shape = (x.numel() // x.shape[-1], x.shape[-1])
+            rows[shape] = rows.get(shape, 0) + 1
         return inner(x, scale, **kw)
 
     ops.rmsnorm = tallied
@@ -581,15 +683,165 @@ def run_mistral(seed):
         check_launches(run, launches, want)
         check(sum(rows.values()) == launches["rmsnorm"],
               f"{run}: rmsnorm calls by shape do not add up to its launches")
-        log(f"{run}: rmsnorm launches by rows {dict(rows)}")
+        log(f"{run}: rmsnorm launches by (rows, width) {dict(rows)}")
         if kv_dtype is None:
             check([t[0] for t in toks] == first,
                   "3b: first tokens differ from the prefill logits' argmax")
         counts[kv_dtype or "bf16"] = launches
         counts[(kv_dtype or "bf16") + "_rmsnorm_rows"] = rows
-    del params, llm
+    del llm
+    counts["3e"] = run_paged_bf16(cfg, params, seed)
+    del params
     torch.cuda.empty_cache()
     return counts
+
+
+def count_calls(be):
+    """Count a backend's prefill and decode calls (the forwards the
+    batcher runs), by wrapping the two methods on the instance; the
+    caller deletes the two wrappers after the run (each holds the
+    backend, so they would keep its weights alive)."""
+    calls = {"prefill": 0, "decode": 0}
+
+    def counted(name):
+        inner = getattr(be, name)
+
+        def fn(*a, **kw):
+            calls[name] += 1
+            return inner(*a, **kw)
+        return fn
+
+    be.prefill = counted("prefill")
+    be.decode = counted("decode")
+    return calls
+
+
+def run_paged_bf16(cfg, params, seed):
+    """Phase 3e: the bf16 model through the paged batcher, bf16 pages
+    then int8 pages; returns each run's launch counts."""
+    rng = np.random.default_rng(seed + 2)
+    prompts = [list(rng.integers(0, cfg.vocab_size, n))
+               for n in PAGED_PROMPTS]
+    out = {}
+    for kv_dtype in (None, "int8"):
+        run = f"3e mistral paged kv={kv_dtype or 'bf16'}"
+        llm = LLM(cfg, params, paged=True, kv_dtype=kv_dtype, max_slots=4,
+                  max_len=max(PAGED_PROMPTS) + PAGED_NEW,
+                  page_size=PAGE_SIZE)
+        calls = count_calls(llm.backend)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, max_new=PAGED_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check(llm.last_executor == "batcher",
+              f"{run}: executor {llm.last_executor}, want batcher")
+        toks = [o.tokens for o in outs]
+        check(all(len(t) == PAGED_NEW for t in toks), f"{run}: short outputs")
+        check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+              f"{run}: token out of vocab")
+        st = llm.stats()
+        log(f"{run}: {len(prompts)} prompts of {PAGED_PROMPTS} tokens, "
+            f"{PAGED_NEW} new each: wall {wall:.3f} s "
+            f"({sum(map(len, toks)) / wall:.3f} tok/s), steps="
+            f"{st['steps']}, forwards {calls}, peak_device_mem="
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"launches={launches}")
+        del llm.backend.prefill, llm.backend.decode
+        llm.close()
+        n_fwd = calls["prefill"] + calls["decode"]
+        check_launches(run, launches, {
+            "paged_prefill_attention": cfg.n_layers * calls["prefill"],
+            "paged_decode_attention": cfg.n_layers * calls["decode"],
+            "rmsnorm": (2 * cfg.n_layers + 1) * n_fwd,
+            "flash_attention": 0, "decode_attention": 0,
+            "plain_dense_attention": 0})
+        check(calls["prefill"] > 0 and calls["decode"] > 0,
+              f"{run}: no prefill or no decode forward")
+        out[kv_dtype or "bf16"] = launches
+    small = dataclasses.replace(reduced(cfg), dtype="bfloat16")
+    toks = torch.tensor([list(rng.integers(0, small.vocab_size, 24))
+                         for _ in range(8)], dtype=torch.int32)
+    for kv_dtype in (None, "int8"):
+        check_small_bf16(f"3e small bf16 paged kv={kv_dtype or 'bf16'}",
+                         small, seed,
+                         lambda c, p, dev: _paged_prefill_and_step(
+                             c, p, toks.to(dev), dev, kv_dtype))
+    return out
+
+
+def _paged_prefill_and_step(cfg, params, toks, device, kv_dtype):
+    """Last-position prefill logits and one decode step's (fed each
+    prompt's first token) through ResidentBackend over a paged cache,
+    both as fp32 on the CPU."""
+    be = ResidentBackend(cfg, params, device=device)
+    b, s = toks.shape
+    kv = be.init_paged_cache(b, s + 1, page_size=PAGE_SIZE,
+                             kv_dtype=kv_dtype)
+    for i in range(b):
+        kv.alloc(i, s + 1)
+    cache = kv.init_cache()
+    cache["len"] = torch.zeros((), dtype=torch.int32, device=device)
+    cache, logits = be.prefill({"tokens": toks}, cache)
+    _, step = be.decode(toks[:, 0], cache)
+    return logits.float().cpu(), step.float().cpu()
+
+
+def run_mamba(seed):
+    """Phase 3d: Mamba2-2.7B resident at full depth, bf16, one-shot;
+    returns the run's launch counts and its RMSNorm launches by rows."""
+    cfg = get_config("mamba2-2.7b")
+    log(f"3d model: mamba2-2.7b at full width and depth, {cfg.n_layers} "
+        f"layers, d={cfg.d_model} d_inner={cfg.d_inner} heads="
+        f"{cfg.ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} "
+        f"groups={cfg.ssm_groups} chunk={cfg.ssm_chunk} vocab="
+        f"{cfg.vocab_size} dtype={cfg.dtype}")
+    check_small_reference(cfg, seed, prompt_len=48)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"3d init: {time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} B "
+        f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+        f"card")
+    rng = np.random.default_rng(seed + 3)
+    prompts = [list(rng.integers(0, cfg.vocab_size, MAMBA_PROMPT))
+               for _ in range(4)]
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    logits = M.prefill(cfg, params, {"tokens": toks},
+                       M.init_cache(cfg, len(prompts), MAMBA_PROMPT,
+                                    device="cuda"))[1]     # drop the state
+    check(bool(torch.isfinite(logits).all()), "3d: non-finite logits")
+    first = torch.argmax(logits, dim=-1).tolist()
+    (toks, launches, llm), rows = tally_rmsnorm_rows(
+        lambda: run_oneshot("3d mamba2", lambda: LLM(cfg, params), prompts,
+                            MAMBA_NEW, cfg))
+    llm.close()
+    check_launches("3d", launches, {
+        "ssd_chunk": cfg.n_layers, "plain_ssd_scan": 0,
+        "rmsnorm": (2 * cfg.n_layers + 1) * MAMBA_NEW,
+        "plain_dense_attention": 0, "flash_attention": 0,
+        "decode_attention": 0})
+    # per layer a pre-norm (width d_model) and a gated norm (d_inner):
+    # over B x L rows in the prefill, B rows in each decode step; the final
+    # norm (d_model) once per forward over each row's last position
+    b, steps = len(prompts), MAMBA_NEW - 1
+    want_rows = {(b * MAMBA_PROMPT, cfg.d_model): cfg.n_layers,
+                 (b * MAMBA_PROMPT, cfg.d_inner): cfg.n_layers,
+                 (b, cfg.d_model): 1 + steps * (cfg.n_layers + 1),
+                 (b, cfg.d_inner): steps * cfg.n_layers}
+    log(f"3d: rmsnorm launches by (rows, width) {dict(rows)}")
+    check(rows == want_rows, f"3d: rmsnorm launches by shape {rows}, "
+          f"want {want_rows}")
+    check([t[0] for t in toks] == first,
+          "3d: first tokens differ from the prefill logits' argmax")
+    del params, llm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rmsnorm_rows": rows}
 
 
 def _leaves(tree):
@@ -689,6 +941,24 @@ def rejects(bad, want, limit, what):
           f"the limit of {what} would pass an off-by-one mask")
 
 
+def rms_entry(name, gen, cfg, rows, d, launches):
+    """The RMSNorm kernel on a bf16 (rows, d) input against its plain
+    version, within ``ref.rmsnorm_limit``; timed beside ``F.rms_norm``."""
+    x = torch.randn((rows, d), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    w = torch.randn(d, generator=gen, device="cuda").to(torch.bfloat16)
+    eps = cfg.norm_eps
+    got = k_rms.rmsnorm(x, w, eps=eps)
+    want = ref.rmsnorm(x, w, eps=eps)
+    return kernel_entry(
+        name, "src/repro_torch/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:41", launches, got, want,
+        ref.rmsnorm_limit(want), lambda: k_rms.rmsnorm(x, w, eps=eps),
+        lambda: ref.rmsnorm(x, w, eps=eps),
+        lambda: F.rms_norm(x, (d,), w, eps),
+        (2 * x.numel() + d) * 2, 4 * x.numel(), BF16_FLOPS)
+
+
 def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
     """Each dense-cache kernel against its plain version at the main
     paths' shapes, element by element within the ``ref.*_limit`` bounds,
@@ -752,22 +1022,6 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
             4 * b * hq * d * s * (s + 1) // 2,
             BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
 
-    def rms_entry(name, rows, launches):
-        d = mcfg.d_model
-        x = torch.randn((rows, d), generator=gen, device="cuda") \
-            .to(torch.bfloat16)
-        w = torch.randn(d, generator=gen, device="cuda").to(torch.bfloat16)
-        eps = mcfg.norm_eps
-        got = k_rms.rmsnorm(x, w, eps=eps)
-        want = ref.rmsnorm(x, w, eps=eps)
-        return kernel_entry(
-            name, src + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:41",
-            launches, got, want, ref.rmsnorm_limit(want),
-            lambda: k_rms.rmsnorm(x, w, eps=eps),
-            lambda: ref.rmsnorm(x, w, eps=eps),
-            lambda: F.rms_norm(x, (d,), w, eps),
-            (2 * x.numel() + d) * 2, 4 * x.numel(), BF16_FLOPS)
-
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     t3b = ONESHOT_PROMPT + ONESHOT_NEW
     full = [t3b - 1] * b                    # the last decode step's kv_len
@@ -784,9 +1038,11 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
                     t3b, counts_3b["bf16"]["flash_attention"]),
         flash_entry("flash_attention_f32", ocfg, f32, "bthd", OFFLOAD_PROMPT,
                     t3c, counts_3c["flash_attention"]),
-        rms_entry("rmsnorm_prefill", b * ONESHOT_PROMPT,
-                  rows.get(b * ONESHOT_PROMPT, 0)),
-        rms_entry("rmsnorm_decode", b, rows.get(b, 0)),
+        rms_entry("rmsnorm_prefill", gen, mcfg, b * ONESHOT_PROMPT,
+                  mcfg.d_model, rows.get((b * ONESHOT_PROMPT, mcfg.d_model),
+                                         0)),
+        rms_entry("rmsnorm_decode", gen, mcfg, b, mcfg.d_model,
+                  rows.get((b, mcfg.d_model), 0)),
     ]
     # the ragged kv_len at T = 4096 in both layouts: not a main-path shape
     ragged = [512, 1100, 2048, 3001]
@@ -795,6 +1051,82 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
                                 ("q8_ragged_bhtd", i8, "bhtd")):
         decode_entry("decode_attention_" + name, mcfg, bf, kv_dt, layout,
                      4096, ragged, "none (not a main-path shape)")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the SSD intra-chunk kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(gen, bs, ln, cfg, dtype):
+    """The kernel's operands as the Mamba2 block makes them: x, and B/C
+    broadcast from their groups to the heads (a stride-0 view for one
+    group); dt after softplus over ``dt_bias`` = -1; a = -exp(A_log) =
+    -1 as initialized."""
+    from repro_torch.models.ssm import heads_of_groups
+    h, p, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_groups
+    x = torch.randn((bs, ln, h, p), generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn((bs, ln, h), generator=gen, device="cuda")
+                    - 1.0)
+    a = -torch.ones(h, device="cuda")
+    bc = torch.randn((bs, ln, 2 * g * n), generator=gen,
+                     device="cuda").to(dtype)
+    b = heads_of_groups(bc[..., :g * n].reshape(bs, ln, g, n), h)
+    c = heads_of_groups(bc[..., g * n:].reshape(bs, ln, g, n), h)
+    return x, dt, a, b, c, bc
+
+
+def ssd_entry(name, cfg, bs, ln, dtype, launches, gen):
+    """One shape of the SSD kernel: each output within its per-element
+    limit, the y limit shown to reject dropping each row's own term;
+    timed beside the plain version and the bound."""
+    chunk = cfg.ssm_chunk
+    x, dt, a, b, c, bc = ssd_inputs(gen, bs, ln, cfg, dtype)
+    got = k_ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    want = ref.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    limits = ref.ssd_chunk_limit(x, dt, a, b, c, chunk=chunk)
+    diag = torch.einsum("blhn,blhn->blh", c.float(), b.float())[..., None] \
+        * x.float() * dt[..., None]
+    rejects(want[0] - diag, want[0], limits[0], name)
+    errs = [excess(gi, wi, li) for gi, wi, li in zip(got, want, limits)]
+    for (err, ratio), what in zip(errs, ("y_intra", "state_c", "cum")):
+        log(f"kernel {name} {what}: max_abs_err={err:.3e} worst "
+            f"err/limit={ratio:.3f}")
+        check(ratio <= 1.0, f"{name} {what}: {ratio:.3f} x its limit")
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    k, nc = chunk, ln // chunk
+    el = x.element_size()
+    nbytes = (x.numel() * el + dt.numel() * 4 + a.numel() * 4
+              + bc.numel() * el                      # b/c once, per group
+              + 4 * (bs * ln * h * p + bs * nc * h * p * n + bs * ln * h))
+    tri = k * (k + 1) // 2
+    flops = bs * nc * h * (2 * tri * n + 2 * tri * p + 2 * k * p * n)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    entry = kernel_entry(
+        name, "src/repro_torch/csrc/ssd_chunk.cu",
+        "src/repro/kernels/ssd_chunk.py:84", launches, got[0], want[0],
+        limits[0], lambda: k_ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk),
+        lambda: ref.ssd_chunk(x, dt, a, b, c, chunk=chunk), None, nbytes,
+        flops, peak)
+    entry["max_abs_err"] = max(e for e, _ in errs)
+    return entry
+
+
+def check_ssd_kernel(counts_3d):
+    """Phase 4c: the SSD kernel at 3d's shape (in the line) and at the
+    reduced model's (logged only), and RMSNorm at 3d's four shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(777)
+    cfg = get_config("mamba2-2.7b")
+    entries = [ssd_entry("ssd_chunk_bf16", cfg, 4, MAMBA_PROMPT,
+                         torch.bfloat16, counts_3d["launches"]["ssd_chunk"],
+                         gen)]
+    ssd_entry("ssd_chunk_f32_reduced", reduced(cfg), 3, 48, torch.float32,
+              "none (not a main-path shape)", gen)
+    for (rows, d), n in sorted(counts_3d["rmsnorm_rows"].items()):
+        phase = "prefill" if rows == 4 * MAMBA_PROMPT else "decode"
+        entries.append(rms_entry(f"rmsnorm_mamba_{phase}_d{d}", gen, cfg,
+                                 rows, d, n))
     return entries
 
 
@@ -867,15 +1199,22 @@ def main() -> int:
         "q8_matmul": l_q8["q8_matmul"],
     }
 
-    counts_3b = run_mistral(SEED)
-    counts_3c = run_offload_oneshot(cfg, host_params, oprompts)
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    counts_3b = timed("3b+3e", run_mistral, SEED)
+    counts_3c = timed("3c", run_offload_oneshot, cfg, host_params, oprompts)
+    counts_3d = timed("3d", run_mamba, SEED)
+    for kind in ("paged_decode_attention", "paged_prefill_attention"):
+        launches[kind + "_3e"] = {kv: n[kind]
+                                  for kv, n in counts_3b["3e"].items()}
 
     pol = build_policy(enumerate_linears(cfg, "q8"), H100_HOST, batch=4,
                        phase="decode")
     q8_cols = split_columns(pol.alpha, cfg.d_ff)
-    entries = check_kernels(cfg, launches, q8_cols)
-    entries += check_dense_kernels(get_config("mistral-nemo-12b"), cfg,
-                                   counts_3b, counts_3c)
+    entries = timed("4", check_kernels, cfg, launches, q8_cols)
+    entries += timed("4b", check_dense_kernels,
+                     get_config("mistral-nemo-12b"), cfg, counts_3b,
+                     counts_3c)
+    entries += timed("4c", check_ssd_kernel, counts_3d)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

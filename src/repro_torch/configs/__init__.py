@@ -2,7 +2,8 @@
 
 Carries the configurations the port serves today: the paper's OPT family,
 Mistral-NeMo-12B (the Llama-style GQA decoder: RMSNorm, gated SiLU, RoPE,
-bf16) and the ``tiny`` test model.  ``get_config(name)`` returns the full-size
+bf16), Mamba2-2.7B (the attention-free SSD family) and the ``tiny`` test
+model.  ``get_config(name)`` returns the full-size
 config; ``reduced(cfg)`` returns a smoke-test-scale config of the same
 family/pattern (small widths, tiny vocab) used by the CPU tests.
 """
@@ -37,7 +38,8 @@ def list_archs() -> List[str]:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from repro_torch.configs import mistral_nemo_12b, opt, tiny  # noqa: F401
+    from repro_torch.configs import (mamba2_2_7b, mistral_nemo_12b,  # noqa: F401
+                                     opt, tiny)
 
 
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:

@@ -3,7 +3,9 @@
 //
 // Replaces: src/repro/kernels/decode_attention.py · decode_attention
 //   (_decode_body; fp and bf16 caches, and int8 caches with per-(b, head,
-//   token) fp32 scales dequantized inside the kernel).
+//   token) fp32 scales dequantized inside the kernel in q's dtype, as the
+//   JAX package's stacked whole model dequantizes its int8 cache before
+//   attending: in fp32 under an fp32 q, in bf16 under a bf16 q).
 //
 // What bounds it on the H100: bytes.  Each (batch, kv-head) row of kv_len
 //   tokens is read once per q-head of its group (2 * kv_len * D elements)
@@ -28,6 +30,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,6 +58,14 @@ template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
   return __bfloat162float(__float2bfloat16(p));
 }
 
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Q8: int8 K/V with per-row scales, dequantized in q's dtype (the JAX
+// package's stacked-cache rule, models/model.py:481-485).  Under a bf16 q
+// (DQ16) that is bf16(bf16(k) * bf16(scale)) and p rounds like a bf16
+// cache; under an fp32 q the scales apply in fp32.
 template <typename TQ, typename TKV, bool Q8>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
@@ -65,6 +77,7 @@ decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
               const int32_t* __restrict__ kv_len, TQ* __restrict__ out,
               long long o_sb, long long o_sh, int hq, int hkv, int t_max,
               int d, float scale, float softcap) {
+  constexpr bool DQ16 = Q8 && std::is_same<TQ, __nv_bfloat16>::value;
   __shared__ float m_s[kWarps];
   __shared__ float l_s[kWarps];
   __shared__ float acc_s[kWarps][kMaxD];
@@ -93,30 +106,39 @@ decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
   for (int t = warp; t < len; t += kWarps) {
     const TKV* kr = kb + t * kv_st;
     const TKV* vr = vb + t * kv_st;
+    float ksc = 1.f, vsc = 1.f;
+    if (Q8) {
+      const long long si = b * s_sb + kvh * s_sh + t * s_st;
+      ksc = k_scale[si];
+      vsc = v_scale[si];
+      if (DQ16) {
+        ksc = bf16r(ksc);
+        vsc = bf16r(vsc);
+      }
+    }
     float kv[kCols], vv[kCols];
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
       const int c = lane + 32 * i;
       kv[i] = c < d ? to_f(kr[c]) : 0.f;
       vv[i] = c < d ? to_f(vr[c]) : 0.f;
+      if (DQ16) {
+        kv[i] = bf16r(kv[i] * ksc);
+        vv[i] = bf16r(vv[i] * vsc);
+      }
     }
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) s += qr[i] * kv[i];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    float vsc = 1.f;
-    if (Q8) {
-      const long long si = b * s_sb + kvh * s_sh + t * s_st;
-      s *= k_scale[si];
-      vsc = v_scale[si];
-    }
+    if (Q8 && !DQ16) s *= ksc;
     if (softcap > 0.f) s = softcap * tanhf(s / softcap);
     const float m_new = fmaxf(m, s);
     const float alpha = expf(m - m_new);
     const float p = expf(s - m_new);
     l = l * alpha + p;
-    const float pv = round_p<TKV>(p) * vsc;
+    const float pv = DQ16 ? bf16r(p) : round_p<TKV>(p) * vsc;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) acc[i] = acc[i] * alpha + pv * vv[i];
     m = m_new;

@@ -4,8 +4,9 @@
 // sm_90a.
 //
 // Replaces: src/repro/kernels/paged_prefill.py · paged_prefill_attention
-//   (_prefill_body; fp32 pages, and int8 pages with per-(page, head, token)
-//   fp32 scales).
+//   (_prefill_body; fp32 q with fp32 pages, bf16 q with bf16 pages, and
+//   either q with int8 pages plus per-(page, head, token) fp32 scales,
+//   dequantized in fp32 as the Pallas kernel does).
 //
 // What bounds it on the H100: for the chunk lengths serving admits (tens to
 //   a few hundred tokens) the FLOPs, 4 * S * kv * D per (batch, q-head) on the
@@ -26,9 +27,12 @@
 //   row whose window has not started carries p = 1 until the first in-window
 //   page zeroes it through alpha); K/V entries past the tile's last
 //   diagonal are staged as zeros, so garbage there cannot leak in.  Ragged
-//   S is masked per row, no padding is needed.  Tensor-core (wgmma) tiles
+//   S is masked per row, no padding is needed.  Everything is staged and
+//   summed in fp32; over bf16 pages p is rounded to bf16 before the PV
+//   product (l sums the unrounded p), as the Pallas kernel does.  Tensor-core (wgmma) tiles
 //   and TMA page loads are left for a later change.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,18 +44,36 @@ constexpr int kMaxD = 256;
 constexpr int kMaxAcc = kBlockQ * kMaxD / kThreads;
 constexpr float kNegInf = -1.0e30f;
 
-template <bool Q8>
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// p as the PV product sees it: rounded to bf16 over bf16 pages; fp32 and
+// dequantized int8 values take it unrounded.
+template <typename TKV> __device__ __forceinline__ float round_p(float p) { return p; }
+template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const float* __restrict__ q,           // (B, Hq, S, D)
-                     const void* __restrict__ k_pages,      // (P, Hkv, ps, D)
-                     const void* __restrict__ v_pages,
+paged_prefill_kernel(const TQ* __restrict__ q,              // (B, Hq, S, D)
+                     const TKV* __restrict__ k_pages,       // (P, Hkv, ps, D)
+                     const TKV* __restrict__ v_pages,
                      const float* __restrict__ k_scale,     // (P, Hkv, ps)
                      const float* __restrict__ v_scale,
                      const int32_t* __restrict__ block_tables,  // (B, nb)
                      const int32_t* __restrict__ kv_offset,     // (B,)
-                     float* __restrict__ out,               // (B, Hq, S, D)
+                     TQ* __restrict__ out,                  // (B, Hq, S, D)
                      int hq, int hkv, int s_len, int ps, int d, int nb,
                      float scale, float softcap, int window) {
+  constexpr bool Q8 = sizeof(TKV) == 1;
   extern __shared__ float smem[];
   const int dk = d + 1;                      // padded K row stride
   float* qs = smem;                          // kBlockQ * d
@@ -73,7 +95,7 @@ paged_prefill_kernel(const float* __restrict__ q,           // (B, Hq, S, D)
 
   for (int i = tid; i < kBlockQ * d; i += kThreads) {
     const int r = i / d;
-    qs[i] = r < rows ? q[((size_t)bh * s_len + q0 + r) * d + (i % d)] * scale
+    qs[i] = r < rows ? to_f(q[((size_t)bh * s_len + q0 + r) * d + (i % d)]) * scale
                      : 0.f;
   }
   for (int r = tid; r < kBlockQ; r += kThreads) {
@@ -96,14 +118,11 @@ paged_prefill_kernel(const float* __restrict__ q,           // (B, Hq, S, D)
       const bool live = j * ps + t <= last_pos;
       float kv = 0.f, vv = 0.f;
       if (live) {
+        kv = to_f(k_pages[row0 * d + i]);
+        vv = to_f(v_pages[row0 * d + i]);
         if (Q8) {
-          kv = static_cast<float>(static_cast<const int8_t*>(k_pages)[row0 * d + i])
-               * k_scale[row0 + t];
-          vv = static_cast<float>(static_cast<const int8_t*>(v_pages)[row0 * d + i])
-               * v_scale[row0 + t];
-        } else {
-          kv = static_cast<const float*>(k_pages)[row0 * d + i];
-          vv = static_cast<const float*>(v_pages)[row0 * d + i];
+          kv *= k_scale[row0 + t];
+          vv *= v_scale[row0 + t];
         }
       }
       ks[t * dk + c] = kv;
@@ -133,7 +152,7 @@ paged_prefill_kernel(const float* __restrict__ q,           // (B, Hq, S, D)
       float sum = 0.f;
       for (int t = 0; t < ps; ++t) {
         const float p = expf(sc[r * ps + t] - m_new);
-        sc[r * ps + t] = p;
+        sc[r * ps + t] = round_p<TKV>(p);
         sum += p;
       }
       const float alpha = expf(m_prev - m_new);
@@ -164,46 +183,56 @@ paged_prefill_kernel(const float* __restrict__ q,           // (B, Hq, S, D)
       const int r = e / d;
       if (r < rows) {
         const float l = l_s[r] == 0.f ? 1.f : l_s[r];
-        out[((size_t)bh * s_len + q0 + r) * d + (e % d)] = acc[k] / l;
+        out[((size_t)bh * s_len + q0 + r) * d + (e % d)] = from_f<TQ>(acc[k] / l);
       }
     }
   }
 }
 
-}  // namespace
-
-extern "C" int paged_prefill_attention_f32(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* kv_offset, void* out, int b, int hq, int hkv, int s_len,
-    int ps, int d, int nb, float scale, float softcap, int window, int q8,
-    void* stream) {
-  if (d > kMaxD) return (int)cudaErrorInvalidValue;
+template <typename TQ, typename TKV>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* k_scale, const void* v_scale, const void* block_tables,
+           const void* kv_offset, void* out, int b, int hq, int hkv, int s_len,
+           int ps, int d, int nb, float scale, float softcap, int window,
+           cudaStream_t stream) {
   const dim3 grid(b * hq, (s_len + kBlockQ - 1) / kBlockQ);
   const size_t smem = sizeof(float) *
       ((size_t)kBlockQ * d + (size_t)ps * (d + 1) + (size_t)ps * d +
        (size_t)kBlockQ * ps + 3 * kBlockQ);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (q8) {
-    err = cudaFuncSetAttribute(paged_prefill_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    paged_prefill_kernel<true><<<grid, kThreads, smem, s>>>(
-        (const float*)q, k_pages, v_pages, (const float*)k_scale,
-        (const float*)v_scale, (const int32_t*)block_tables,
-        (const int32_t*)kv_offset, (float*)out, hq, hkv, s_len, ps, d, nb,
-        scale, softcap, window);
-  } else {
-    err = cudaFuncSetAttribute(paged_prefill_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    paged_prefill_kernel<false><<<grid, kThreads, smem, s>>>(
-        (const float*)q, k_pages, v_pages, nullptr, nullptr,
-        (const int32_t*)block_tables, (const int32_t*)kv_offset, (float*)out,
-        hq, hkv, s_len, ps, d, nb, scale, softcap, window);
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      paged_prefill_kernel<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  paged_prefill_kernel<TQ, TKV><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale),
+      static_cast<const int32_t*>(block_tables),
+      static_cast<const int32_t*>(kv_offset), static_cast<TQ*>(out), hq, hkv,
+      s_len, ps, d, nb, scale, softcap, window);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes: 0 float32, 1 bfloat16, 2 int8 (pages only, with scales).
+// q and out share q_dtype; fp32 and bf16 pages go with a q of their dtype.
+extern "C" int paged_prefill_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* kv_offset, void* out, int q_dtype, int kv_dtype, int b,
+    int hq, int hkv, int s_len, int ps, int d, int nb, float scale,
+    float softcap, int window, void* stream) {
+  if (d > kMaxD || hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_ARGS q, k_pages, v_pages, k_scale, v_scale, block_tables,      \
+    kv_offset, out, b, hq, hkv, s_len, ps, d, nb, scale, softcap, window, s
+  if (q_dtype == 0 && kv_dtype == 0) return launch<float, float>(PAGED_ARGS);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(PAGED_ARGS);
+  if (q_dtype == 0 && kv_dtype == 2) return launch<float, int8_t>(PAGED_ARGS);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return launch<__nv_bfloat16, int8_t>(PAGED_ARGS);
+#undef PAGED_ARGS
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,9 @@ rows of a dense cache laid out (B, Hkv, T, D) — the stacked cache's
 layer slice as it is, or the backend's (B, T, Hkv, D) buffer through
 ``transpose(1, 2)``: the kernel takes K/V strides, so neither layout is
 copied.  With ``k_scale`` / ``v_scale`` (B, Hkv, T) the cache is int8 and
-is dequantized inside the kernel.  The plain version is
-:func:`repro_torch.kernels.ref.decode_attention`.
+is dequantized inside the kernel in q's dtype, as the JAX package's
+stacked whole model dequantizes its int8 cache in the model dtype.  The
+plain version is :func:`repro_torch.kernels.ref.decode_attention`.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None,
                      softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, D) fp32 or bf16; k/v (B, Hkv, T, D) of q's dtype, or int8
-    with ``k_scale``/``v_scale`` (B, Hkv, T) fp32; kv_len (B,) int32
+    with ``k_scale``/``v_scale`` (B, Hkv, T) fp32 dequantized in q's
+    dtype; kv_len (B,) int32
     -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current
     stream; every call counts in ``decode_attention.launches``."""
     if q.dim() != 3 or k.dim() != 4:

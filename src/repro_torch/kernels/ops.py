@@ -7,11 +7,13 @@ kernel does not take).  There is no fallback and no mode switch.
 
 Each kernel wrapper counts its launches; :func:`launch_counts` reads the
 counts and :func:`reset_launch_counts` zeroes them, so a run can show
-that its main path went through the kernels.  Beside them,
-``plain_dense_attention`` counts the dense-cache attention calls on a
-CUDA tensor that take the plain path by design (a chunk at a cache offset
-above 0, decode in a windowed layer): a run that should reach only
-kernels reads it as 0.
+that its main path went through the kernels.  Beside them the model
+counts, through :func:`count_plain`, the calls on a CUDA tensor that take
+a plain branch by design: ``plain_dense_attention`` (dense-cache
+attention for a chunk at a cache offset above 0, or decode in a windowed
+layer) and ``plain_ssd_scan`` (a Mamba2 prefill whose length is not a
+multiple of the SSD chunk, or not above one chunk).  A run that should
+reach only kernels reads both as 0.
 """
 
 from __future__ import annotations
@@ -27,19 +29,19 @@ from repro_torch.kernels import paged_prefill as _prefill
 from repro_torch.kernels import q8_matmul as _q8
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssd_chunk as _ssd
 
 
-def plain_dense_attention(q, k, v, **kw):
-    """:func:`repro_torch.models.layers.attention` over a dense cache, for
-    the shapes no kernel takes; a call on a CUDA tensor counts in
-    ``plain_dense_attention.launches``."""
-    from repro_torch.models import layers
-    if _route(q) == "cuda":
-        plain_dense_attention.launches += 1
-    return layers.attention(q, k, v, **kw)
+# the plain branches the model takes by design, counted on CUDA tensors
+_PLAIN = {"plain_dense_attention": 0, "plain_ssd_scan": 0}
 
 
-plain_dense_attention.launches = 0
+def count_plain(name: str, t: torch.Tensor) -> None:
+    """Count one call of the plain branch ``name`` (a key of the counts
+    :func:`launch_counts` reads) when ``t`` lies on the card."""
+    if _route(t) == "cuda":
+        _PLAIN[name] += 1
+
 
 _WRAPPERS = {
     "paged_decode_attention": _decode.paged_decode_attention,
@@ -48,7 +50,7 @@ _WRAPPERS = {
     "decode_attention": _dense_decode.decode_attention,
     "flash_attention": _flash.flash_attention,
     "rmsnorm": _rms.rmsnorm,
-    "plain_dense_attention": plain_dense_attention,
+    "ssd_chunk": _ssd.ssd_chunk,
 }
 
 
@@ -59,12 +61,15 @@ def _route(t: torch.Tensor) -> str:
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    return {**{name: fn.launches for name, fn in _WRAPPERS.items()},
+            **_PLAIN}
 
 
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    for name in _PLAIN:
+        _PLAIN[name] = 0
 
 
 def q8_matmul(x, q, scale):
@@ -117,3 +122,9 @@ def rmsnorm(x, scale, *, eps=1e-6, plus_one=False):
     if _route(x) == "cpu":
         return _ref.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
     return _rms.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
+
+
+def ssd_chunk(x, dt, a, b, c, *, chunk):
+    if _route(x) == "cpu":
+        return _ref.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    return _ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk)

@@ -3,9 +3,10 @@
 
 One query token per (batch, q-head) attends over the pages named by
 ``block_tables[b]``; pools are laid out (n_pages, Hkv, page_size, hd) as
-:mod:`repro_torch.serving.kv_cache` mints them.  With ``k_scale`` /
-``v_scale`` (n_pages, Hkv, page_size) the pages are int8 and are
-dequantized inside the kernel.  The plain version is
+:mod:`repro_torch.serving.kv_cache` mints them, in the model dtype (fp32
+or bf16, with a q of that dtype).  With ``k_scale`` / ``v_scale``
+(n_pages, Hkv, page_size) the pages are int8 and are dequantized in fp32
+inside the kernel, under a q of either dtype.  The plain version is
 :func:`repro_torch.kernels.ref.paged_decode_attention`.
 """
 
@@ -18,9 +19,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import DTYPE_CODES
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -41,9 +43,9 @@ def check_operands(q, k_pages, v_pages, block_tables, lens, k_scale,
             raise ValueError("all operands must lie on one CUDA device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    if q.dtype != torch.float32:
-        raise TypeError(f"q must be float32, got {q.dtype}")
-    want = torch.int8 if k_scale is not None else torch.float32
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    want = torch.int8 if k_scale is not None else q.dtype
     if k_pages.dtype != want or v_pages.dtype != want:
         raise TypeError(f"pages must be {want}, got {k_pages.dtype}")
     if k_scale is not None and (k_scale.dtype != torch.float32
@@ -73,9 +75,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
                            softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, D) fp32; pages (P, Hkv, ps, D); block_tables (B, nb) int32;
-    kv_len (B,) int32 -> (B, Hq, D).  Launches the CUDA kernel on the
-    current stream; every call counts in ``paged_decode_attention.launches``."""
+    """q (B, Hq, D) fp32 or bf16; pages (P, Hkv, ps, D) of q's dtype, or
+    int8 with fp32 scales; block_tables (B, nb) int32; kv_len (B,) int32
+    -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current
+    stream; every call counts in ``paged_decode_attention.launches``."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, Hq, D), got {tuple(q.shape)}")
     check_operands(q, k_pages, v_pages, block_tables, kv_len, k_scale,
@@ -86,13 +89,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if b == 0:
         return out
     fn = build.c_function("paged_decode_attention",
-                          "paged_decode_attention_f32", _ARGTYPES)
+                          "paged_decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-                 kv_len.data_ptr(), out.data_ptr(), b, hq, hkv, ps, d,
+                 kv_len.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+                 DTYPE_CODES[k_pages.dtype], b, hq, hkv, ps, d,
                  block_tables.shape[1], 1.0 / math.sqrt(d),
-                 float(softcap or 0.0), int(k_scale is not None),
+                 float(softcap or 0.0),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention launch failed "

@@ -4,8 +4,9 @@
 A chunk of S queries starting at ``kv_offset[b]`` attends causally over
 the pages named by ``block_tables[b]`` (optionally within a sliding
 ``window``, optionally softcapped).  The chunk's own K/V must already be
-written to the pages.  With ``k_scale`` / ``v_scale`` the pages are int8
-and are dequantized inside the kernel.  The plain version is
+written to the pages.  Pages are fp32 or bf16 under a q of their dtype;
+with ``k_scale`` / ``v_scale`` they are int8 and are dequantized in fp32
+inside the kernel.  The plain version is
 :func:`repro_torch.kernels.ref.paged_prefill_attention`.
 """
 
@@ -18,10 +19,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import DTYPE_CODES
 from repro_torch.kernels.paged_attention import _ptr, check_operands
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
 
 
@@ -32,8 +34,9 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_scale: Optional[torch.Tensor] = None,
                             softcap: Optional[float] = None,
                             window: Optional[int] = None) -> torch.Tensor:
-    """q (B, Hq, S, D) fp32; pages (P, Hkv, ps, D); block_tables (B, nb)
-    int32; kv_offset (B,) int32 -> (B, Hq, S, D).  Launches the CUDA kernel
+    """q (B, Hq, S, D) fp32 or bf16; pages (P, Hkv, ps, D) of q's dtype, or
+    int8 with fp32 scales; block_tables (B, nb) int32; kv_offset (B,) int32
+    -> (B, Hq, S, D) in q's dtype.  Launches the CUDA kernel
     on the current stream; every call counts in
     ``paged_prefill_attention.launches``."""
     if q.dim() != 4:
@@ -48,14 +51,14 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if b == 0 or s == 0:
         return out
     fn = build.c_function("paged_prefill_attention",
-                          "paged_prefill_attention_f32", _ARGTYPES)
+                          "paged_prefill_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-                 kv_offset.data_ptr(), out.data_ptr(), b, hq, hkv, s, ps, d,
+                 kv_offset.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+                 DTYPE_CODES[k_pages.dtype], b, hq, hkv, s, ps, d,
                  block_tables.shape[1], 1.0 / math.sqrt(d),
                  float(softcap or 0.0), int(window or 0),
-                 int(k_scale is not None),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"paged_prefill_attention launch failed "

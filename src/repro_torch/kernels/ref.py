@@ -4,7 +4,9 @@ Each function mirrors one kernel's contract exactly (and the JAX
 package's pure-jnp oracle of the same name).  They are what a CPU tensor
 runs through :mod:`repro_torch.kernels.ops`, and what ``chip_smoke.py``
 holds every CUDA kernel against on the card, within the per-element
-limits of the ``*_limit`` functions.  All arithmetic is fp32.
+limits of the ``*_limit`` functions.  All arithmetic is fp32 (a dense
+int8 cache is dequantized in q's dtype first, as the JAX package's
+stacked path does).
 """
 
 from __future__ import annotations
@@ -33,18 +35,28 @@ def _zero_past(x: torch.Tensor, n_live: torch.Tensor) -> torch.Tensor:
     return torch.where(live, x, 0.0)
 
 
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """int8 ``q`` (..., D) times its per-row ``scale`` (...), with both
+    factors and their product in ``dtype``.  In fp32 that is the paged
+    kernels' rule; in the model dtype it is the JAX package's stacked path
+    (``k.astype(dt) * ks.astype(dt)``, ``models/model.py:481-485``), which
+    the dense decode kernel follows."""
+    return q.to(dtype) * scale.to(dtype)[..., None]
+
+
 def decode_attention(q, k, v, kv_len, *, k_scale=None, v_scale=None,
                      softcap=None):
     """q (B,Hq,D); k/v (B,Hkv,S,D); kv_len (B,).  With ``k_scale`` /
-    ``v_scale`` (B,Hkv,S) the cache is int8 and is dequantized in fp32.
-    Positions at or past ``kv_len`` never reach the result, NaN included."""
+    ``v_scale`` (B,Hkv,S) the cache is int8 and is dequantized in q's
+    dtype (:func:`dequantize`).  Positions at or past ``kv_len`` never
+    reach the result, NaN included."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     g = hq // hkv
-    kf, vf = k.float(), v.float()
     if k_scale is not None:
-        kf = kf * k_scale.float()[..., None]
-        vf = vf * v_scale.float()[..., None]
+        k, v = dequantize(k, k_scale, q.dtype), dequantize(v, v_scale, q.dtype)
+    kf, vf = k.float(), v.float()
     kf, vf = _zero_past(kf, kv_len), _zero_past(vf, kv_len)
     qf = q.reshape(b, hkv, g, d).float()
     sc = torch.einsum("bkgd,bktd->bkgt", qf, kf)
@@ -115,7 +127,7 @@ def _attention_limit(want, abs_out, p_dtype, *, int8):
       most ``eps / 2`` of itself, so the output by at most ``eps / 2 *
       sum(p |v|) / sum(p)``: ``abs_out`` is that attention over |v| and
       ``p_dtype`` the value dtype, or both None where p is not rounded
-      (fp32 and int8 caches).
+      (fp32 caches, and int8 caches dequantized in fp32).
     """
     lim = (2e-4 if int8 else 2e-5) \
         + _SLACK * torch.finfo(want.dtype).eps * want.float().abs()
@@ -127,12 +139,45 @@ def _attention_limit(want, abs_out, p_dtype, *, int8):
 def decode_attention_limit(q, k, v, kv_len, want, *, k_scale=None,
                            v_scale=None, softcap=None):
     """Per-element limit on |kernel - :func:`decode_attention`| (``want``)
-    on these inputs; see :func:`_attention_limit`."""
+    on these inputs; see :func:`_attention_limit`.  An int8 cache under a
+    bf16 q is dequantized in bf16 and rounds p like a bf16 cache."""
     abs_out = p_dtype = None
+    q8 = k_scale is not None
+    if q8:
+        k, v = dequantize(k, k_scale, q.dtype), dequantize(v, v_scale, q.dtype)
     if v.dtype in _HALF:
         abs_out = decode_attention(q.float(), k, v.abs(), kv_len,
                                    softcap=softcap)
         p_dtype = v.dtype
+    return _attention_limit(want, abs_out, p_dtype, int8=q8)
+
+
+def paged_decode_attention_limit(q, k_pages, v_pages, block_tables, kv_len,
+                                 want, *, k_scale=None, v_scale=None,
+                                 softcap=None):
+    """Per-element limit on |kernel - :func:`paged_decode_attention`|
+    (``want``); see :func:`_attention_limit`.  int8 pages dequantize in
+    fp32, so only 16-bit pages round p."""
+    abs_out = p_dtype = None
+    if v_pages.dtype in _HALF:
+        abs_out = paged_decode_attention(q.float(), k_pages, v_pages.abs(),
+                                         block_tables, kv_len,
+                                         softcap=softcap)
+        p_dtype = v_pages.dtype
+    return _attention_limit(want, abs_out, p_dtype, int8=k_scale is not None)
+
+
+def paged_prefill_attention_limit(q, k_pages, v_pages, block_tables,
+                                  kv_offset, want, *, k_scale=None,
+                                  v_scale=None, softcap=None, window=None):
+    """Per-element limit on |kernel - :func:`paged_prefill_attention`|
+    (``want``); see :func:`_attention_limit`."""
+    abs_out = p_dtype = None
+    if v_pages.dtype in _HALF:
+        abs_out = paged_prefill_attention(q.float(), k_pages, v_pages.abs(),
+                                          block_tables, kv_offset,
+                                          softcap=softcap, window=window)
+        p_dtype = v_pages.dtype
     return _attention_limit(want, abs_out, p_dtype, int8=k_scale is not None)
 
 
@@ -177,9 +222,11 @@ def _gather_kv(k_pages, v_pages, block_tables, k_scale, v_scale, n_live):
     position at or past ``n_live[b]`` (see :func:`_zero_past`)."""
     k = gather_pages(k_pages, block_tables)
     v = gather_pages(v_pages, block_tables)
-    if k_scale is not None:
-        k = k.float() * gather_page_scales(k_scale, block_tables)[..., None]
-        v = v.float() * gather_page_scales(v_scale, block_tables)[..., None]
+    if k_scale is not None:             # in fp32, as the paged kernels do
+        k = dequantize(k, gather_page_scales(k_scale, block_tables),
+                       torch.float32)
+        v = dequantize(v, gather_page_scales(v_scale, block_tables),
+                       torch.float32)
     return _zero_past(k, n_live), _zero_past(v, n_live)
 
 
@@ -228,3 +275,98 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, kv_offset, *,
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return o.reshape(b, hq, s, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD, intra-chunk part
+# ---------------------------------------------------------------------------
+
+def ssd_chunk(x, dt, a, b, c, *, chunk: int):
+    """The intra-chunk part of chunked SSD, per (batch, head, chunk):
+
+    * ``cum``: the inclusive cumsum of ``dt * a`` over the chunk;
+    * ``y_intra[i] = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j``;
+    * ``state_c = sum_j exp(cum_last - cum_j) dt_j x_j B_j^T``.
+
+    x (B,L,H,P); dt (B,L,H) after softplus; a (H,) negative; b/c (B,L,H,N),
+    which may be a stride-0 expand of (B,L,G,N) over the heads.  L % chunk
+    == 0.  Returns (y_intra (B,L,H,P), state_c (B,nc,H,P,N), cum (B,L,H)),
+    all fp32.  ``y_intra`` stays fp32 where the Pallas kernel writes
+    x.dtype: the path it stands for (``ssd_chunked``) adds the inter-chunk
+    term and D x before its one cast."""
+    bs, ln, h, p = x.shape
+    n = b.shape[-1]
+    nc = ln // chunk
+    xc = x.reshape(bs, nc, chunk, h, p).float()
+    dtc = dt.reshape(bs, nc, chunk, h).float()
+    bc = b.reshape(bs, nc, chunk, h, n).float()
+    cc = c.reshape(bs, nc, chunk, h, n).float()
+    cum = torch.cumsum(dtc * a.float(), dim=2)            # (B,nc,K,H)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # cum_i - cum_j
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    xdt = xc * dtc[..., None]
+    cb = torch.einsum("bnkhs,bnlhs->bnklh", cc, bc)
+    y = torch.einsum("bnklh,bnlhp->bnkhp", cb * decay, xdt)
+    tail = torch.exp(cum[:, :, -1:, :] - cum)
+    sc = torch.einsum("bnkh,bnkhs,bnkhp->bnhps", tail, bc, xdt)
+    return y.reshape(bs, ln, h, p), sc, cum.reshape(bs, ln, h)
+
+
+_U32 = 2.0 ** -24      # fp32 unit roundoff
+
+
+def _gamma(k: int) -> float:
+    """The classical bound on a k-term fp32 sum's relative error."""
+    return k * _U32 / (1 - k * _U32)
+
+
+def ssd_chunk_limit(x, dt, a, b, c, *, chunk: int):
+    """Per-element limits (y, state, cum) on |kernel - :func:`ssd_chunk`|,
+    two fp32 computations of the same function in different orders:
+
+    * ``cum_i``: any order of an i-term sum errs by at most
+      ``gamma_K * S_i`` (``S_i`` the prefix sum of |dt a|), so the two
+      sides differ by ``E_i = 2 gamma_K S_i``;
+    * the decay ``exp(cum_i - cum_j)`` then differs by a relative
+      ``rho_ij = 1.01 (E_i + E_j + 2u |cum_i - cum_j|) + 8u`` (exp's two
+      ulps a side, and the subtraction);
+    * ``C_i . B_j`` by ``2 gamma_N A_ij`` (``A_ij = sum_n |C_in B_jn|``),
+      and a K-term sum of products by ``2 gamma_K`` of its |terms|;
+      ``dt_j x_j`` is one rounding of the same operands on both sides;
+    * so ``|dy_ip| <= sum_{j<=i} A_ij decay_ij |dt_j x_jp| (2 gamma_N +
+      2 gamma_K + rho_ij + 8u)`` and ``|ds_pn| <= sum_j tail_j |B_jn|
+      |dt_j x_jp| (2 gamma_K + rho_Kj + 8u)``, each times 1.01 for the
+      second-order terms.
+
+    At Mamba2-2.7B's widths (K = N = 128, |dt a| near 0.5) the cum term
+    dominates: late rows of a chunk may move by about 1e-3 of their
+    |terms|, where dropping one diagonal term moves them by O(1)."""
+    bs, ln, h, p = x.shape
+    n = b.shape[-1]
+    nc = ln // chunk
+    u = _U32
+    gk, gn = _gamma(chunk), _gamma(n)
+    dtc = dt.reshape(bs, nc, chunk, h).float()
+    la = dtc * a.float()
+    cum = torch.cumsum(la, dim=2)
+    e = 2 * gk * torch.cumsum(la.abs(), dim=2)            # E_i
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    rho = _SLACK * (e[:, :, :, None, :] + e[:, :, None, :, :]
+                    + 2 * u * seg.abs()) + 8 * u
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    xdt = (x.reshape(bs, nc, chunk, h, p).float() * dtc[..., None]).abs()
+    bc = b.reshape(bs, nc, chunk, h, n).float().abs()
+    cc = c.reshape(bs, nc, chunk, h, n).float().abs()
+    acb = torch.einsum("bnkhs,bnlhs->bnklh", cc, bc)
+    w = acb * decay * (2 * gn + 2 * gk + rho + 8 * u)
+    y_lim = _SLACK * torch.einsum("bnklh,bnlhp->bnkhp", w, xdt)
+    tail = torch.exp(cum[:, :, -1:, :] - cum)
+    rho_t = rho[:, :, -1]                                  # (B,nc,K,H)
+    s_lim = _SLACK * torch.einsum("bnkh,bnkhs,bnkhp->bnhps",
+                                  tail * (2 * gk + rho_t + 8 * u), bc, xdt)
+    return (y_lim.reshape(bs, ln, h, p), s_lim,
+            (e + 8 * u * cum.abs()).reshape(bs, ln, h))

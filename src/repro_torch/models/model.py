@@ -1,8 +1,8 @@
-"""Model assembly for the dense decoder families.
+"""Model assembly for the dense decoder families and Mamba2.
 
 The PyTorch counterpart of the JAX package's ``models/model.py`` for the
-dense GQA families: parameter init, the embedding / head, and two
-executions of the same layer math —
+dense GQA families and the attention-free SSM family (Mamba2): parameter
+init, the embedding / head, and two executions of the dense layer math —
 
 * the resident whole model (:func:`prefill` / :func:`decode_step` over the
   stacked (n_super, B, Hkv, T, hd) cache of :func:`init_cache`, fp or
@@ -13,6 +13,12 @@ executions of the same layer math —
   routed through an injected ``linear(x, name)`` callable — the seam that
   lets :mod:`repro_torch.serving.backends` run it resident or
   HeteGen-offloaded.
+
+The SSM family runs only the resident whole model: :func:`prefill` /
+:func:`decode_step` over the (n_groups, period, B, ...) state cache of
+:func:`init_cache`, the Mamba2 blocks of :mod:`repro_torch.models.ssm` in
+a loop (:func:`_mamba_trunk`); it has no backend path, as in the JAX
+package (:func:`extract_backend_params` takes dense decoders only).
 
 Dense-cache attention picks its route once per forward
 (:func:`attention_route`): decode runs the flash-decode kernel, a prefill
@@ -42,7 +48,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as R
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -64,6 +72,24 @@ def _check_dense(cfg: ModelConfig) -> None:
             f"(got family={cfg.family}, attn={cfg.attn_kind})")
 
 
+def _check_whole_model(cfg: ModelConfig) -> None:
+    """The families the resident whole model runs: dense GQA and SSM."""
+    if cfg.family == "ssm":
+        return
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "the port runs the SSM family, not the hybrid (shared "
+            "attention) one")
+    _check_dense(cfg)
+
+
+def _ssm_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_groups, period) of the SSM trunk's stacked layers; the SSM family
+    has one group of every layer."""
+    period = cfg.shared_attn_period or cfg.n_layers
+    return cfg.n_layers // period, period
+
+
 def _pattern_period(cfg: ModelConfig) -> int:
     if cfg.layer_pattern:
         return len(cfg.layer_pattern)
@@ -75,11 +101,11 @@ def _pattern_period(cfg: ModelConfig) -> int:
 def init_params(cfg: ModelConfig,
                 generator: Union[torch.Generator, int] = 0, *,
                 device=None) -> Dict:
-    """Random params for a dense GQA decoder, drawn from ``generator`` (a
-    ``torch.Generator`` on ``device``, or an int seed).  Same tree layout
-    as the JAX package's ``init_params``; the numbers differ (the two
-    frameworks' generators do)."""
-    _check_dense(cfg)
+    """Random params for a dense GQA decoder or a Mamba2 model, drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``, or an int seed).
+    Same tree layout as the JAX package's ``init_params``; the numbers
+    differ (the two frameworks' generators do)."""
+    _check_whole_model(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -128,17 +154,45 @@ def init_params(cfg: ModelConfig,
             p["ln2_post"] = norm(d)
         return p
 
+    def mamba():
+        din, h = cfg.d_inner, cfg.ssm_heads
+        gn = cfg.ssm_groups * cfg.ssm_state
+        f32 = dict(dtype=torch.float32, device=dev)
+        return {"w_z": dense((d, din)), "w_x": dense((d, din)),
+                "w_bc": dense((d, 2 * gn)), "w_dt": dense((d, h)),
+                "conv_x_w": dense((cfg.ssm_conv, din), scale=0.2),
+                "conv_x_b": zeros(din),
+                "conv_bc_w": dense((cfg.ssm_conv, 2 * gn), scale=0.2),
+                "conv_bc_b": zeros(2 * gn),
+                "A_log": torch.zeros((h,), **f32),          # A = -1
+                "D": torch.ones((h,), **f32),
+                "dt_bias": torch.full((h,), -1.0, **f32),
+                "gnorm": torch.ones((din,), dtype=dt, device=dev),
+                "out_proj": dense((din, d)), "ln": norm(d)}
+
     params: Dict = {"embed": dense((cfg.vocab_size, d), scale=1.0),
                     "final_norm": norm(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.vocab_size))
     if cfg.pos_emb == "learned":
         params["pos"] = dense((cfg.max_seq, d), scale=0.02)
+    if cfg.family == "ssm":
+        n_groups, period = _ssm_groups(cfg)
+        params["blocks"] = _stack([_stack([mamba() for _ in range(period)])
+                                   for _ in range(n_groups)])
+        return params
     period = _pattern_period(cfg)
     supers = [{f"pos{j}": block() for j in range(period)}
               for _ in range(cfg.n_layers // period)]
     params["blocks"] = _stack(supers)
     return params
+
+
+def _pick(tree, idx):
+    """Index every leaf of a stacked param tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, idx) for k, v in tree.items()}
+    return tree[idx]
 
 
 def _stack(trees):
@@ -412,9 +466,10 @@ def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
 
     ``layout`` "bthd": k/v (B, T, Hkv, D) (the backend's per-layer
     buffers); "bhtd": (B, Hkv, T, D) (a stacked cache's layer slice).
-    ``k_scale``/``v_scale`` (B, Hkv, T) mark an int8 cache.  The kernels
-    read either layout through strides; nothing is copied into the other
-    one."""
+    ``k_scale``/``v_scale`` (B, Hkv, T) mark an int8 cache, which every
+    route dequantizes in the model dtype, as the JAX package's stacked
+    path does.  The kernels read either layout through strides; nothing is
+    copied into the other one."""
     b, s = q.shape[:2]
     kh = k_buf.transpose(1, 2) if layout == "bthd" else k_buf
     vh = v_buf.transpose(1, 2) if layout == "bthd" else v_buf
@@ -428,22 +483,20 @@ def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
     if route == "prefill":
         kh, vh = kh[:, :, :s], vh[:, :, :s]
         if k_scale is not None:
-            # no int8 form of the kernel: dequantize the s positions in
-            # the model dtype, as the stacked path does
-            kh = kh.to(dt) * k_scale[:, :, :s, None].to(dt)
-            vh = vh.to(dt) * v_scale[:, :, :s, None].to(dt)
+            # no int8 form of the kernel: dequantize the s positions
+            kh = R.dequantize(kh, k_scale[:, :, :s], dt)
+            vh = R.dequantize(vh, v_scale[:, :, :s], dt)
         out = K.flash_attention(q.transpose(1, 2), kh, vh, causal=True,
                                 window=window, softcap=cfg.attn_softcap)
         return out.transpose(1, 2)
     if k_scale is not None:
-        kh = kh.to(dt) * k_scale[..., None].to(dt)
-        vh = vh.to(dt) * v_scale[..., None].to(dt)
+        kh, vh = R.dequantize(kh, k_scale, dt), R.dequantize(vh, v_scale, dt)
     kvpos = torch.arange(kh.shape[2], device=q.device)
-    return K.plain_dense_attention(q, kh, vh, q_positions=q_positions,
-                                   kv_positions=kvpos[None], kv_len=kv_len,
-                                   causal=True, window=window,
-                                   attn_softcap=cfg.attn_softcap,
-                                   kv_format="bhtd")
+    K.count_plain("plain_dense_attention", q)
+    return L.attention(q, kh, vh, q_positions=q_positions,
+                       kv_positions=kvpos[None], kv_len=kv_len, causal=True,
+                       window=window, attn_softcap=cfg.attn_softcap,
+                       kv_format="bhtd")
 
 
 def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None):
@@ -506,15 +559,10 @@ def extract_backend_params(cfg: ModelConfig, params: Dict):
         if kname in params:
             shared[kname] = params[kname]
 
-    def pick(tree, g):
-        if isinstance(tree, dict):
-            return {k: pick(v, g) for k, v in tree.items()}
-        return tree[g]
-
     layers = []
     for l in range(cfg.n_layers):
         g, j = divmod(l, period)
-        blk = pick(params["blocks"][f"pos{j}"], g)
+        blk = _pick(params["blocks"][f"pos{j}"], g)
         a, m = blk["attn"], blk.get("mlp", {})
         for nm in ("wq", "wk", "wv", "wo"):
             weights[f"blk{l}.{nm}"] = a[nm]
@@ -620,10 +668,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     slice is the flash-decode kernel's (B, Hkv, T, D) operand as it is —
     plus a scalar "len".  With ``cfg.kv_dtype == "int8"`` the stacks are
     int8 with fp32 per-(token, head) scales "ks{j}"/"vs{j}"
-    (n_super, B, Hkv, T)."""
-    _check_dense(cfg)
+    (n_super, B, Hkv, T).
+
+    The SSM family's cache is its recurrent state instead, whatever
+    ``max_len``: "ssm" (n_groups, period, B, H, P, N) fp32 and the causal
+    convolutions' last inputs "conv_x" (..., B, conv - 1, d_inner) and
+    "conv_bc" (..., B, conv - 1, 2 G N) in the model dtype."""
+    _check_whole_model(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
+    if cfg.family == "ssm":
+        lead = _ssm_groups(cfg) + (batch,)
+        k1 = cfg.ssm_conv - 1
+        return {"len": torch.zeros((), dtype=torch.int32, device=dev),
+                "ssm": torch.zeros(lead + (cfg.ssm_heads, cfg.ssm_head_dim,
+                                          cfg.ssm_state),
+                                   dtype=torch.float32, device=dev),
+                "conv_x": torch.zeros(lead + (k1, cfg.d_inner), dtype=dt,
+                                      device=dev),
+                "conv_bc": torch.zeros(
+                    lead + (k1, 2 * cfg.ssm_groups * cfg.ssm_state),
+                    dtype=dt, device=dev)}
     period = _pattern_period(cfg)
     n_super = cfg.n_layers // period
     shape = (n_super, batch, cfg.n_kv_heads, max_len, cfg.hd)
@@ -692,14 +757,8 @@ def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
     period = _pattern_period(cfg)
     keys = ("k", "v", "ks", "vs") if cfg.kv_dtype == "int8" else ("k", "v")
     blocks = params["blocks"]
-
-    def pick(tree, g):
-        if isinstance(tree, dict):
-            return {k: pick(v, g) for k, v in tree.items()}
-        return tree[g]
-
     for g in range(cfg.n_layers // period):
-        p_blk = pick(blocks, g)
+        p_blk = _pick(blocks, g)
         for j in range(period):
             stacks = tuple(cache[f"{nm}{j}"] for nm in keys)
             x = _apply_attn_layer_stacked(cfg, p_blk[f"pos{j}"], x,
@@ -710,21 +769,45 @@ def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
     return x
 
 
+def _mamba_trunk(cfg, params, x, *, cache):
+    """The SSM trunk as a loop over its groups and their layers (the JAX
+    package scans it): pre-norm Mamba2 block + residual, each layer's
+    recurrent and convolution states updated in the cache in place."""
+    n_groups, period = _ssm_groups(cfg)
+    blocks = params["blocks"]
+    for g in range(n_groups):
+        for j in range(period):
+            p = _pick(blocks, (g, j))
+            ssm, cx, cbc = (cache[k][g, j] for k in ("ssm", "conv_x",
+                                                      "conv_bc"))
+            h = L.apply_norm(cfg, p["ln"], x)
+            y, s2, (cx2, cbc2) = S.mamba_block(cfg, p, h, ssm_state=ssm,
+                                               conv_state=(cx, cbc))
+            ssm.copy_(s2)
+            cx.copy_(cx2)
+            cbc.copy_(cbc2)
+            x = x + y
+    return x
+
+
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
             all_logits: bool = False) -> Tuple[Dict, torch.Tensor]:
     """Process ``batch["tokens"]`` (B, S) at ``cache["len"]``, writing the
-    stacked cache in place.  Returns (cache, logits): (B, V) for the last
-    position, or (B, S, V) with ``all_logits``."""
-    _check_dense(cfg)
+    stacked cache (or the SSM state) in place.  Returns (cache, logits):
+    (B, V) for the last position, or (B, S, V) with ``all_logits``."""
+    _check_whole_model(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     cur_len = cache["len"]
     positions = _positions_from(cur_len, b, s)
     x = _add_learned_pos(cfg, params, x, positions)
-    x = _transformer_trunk(cfg, params, x, positions, cache=cache,
-                           cur_len=cur_len,
-                           route=attention_route(cur_len, s))
+    if cfg.family == "ssm":
+        x = _mamba_trunk(cfg, params, x, cache=cache)
+    else:
+        x = _transformer_trunk(cfg, params, x, positions, cache=cache,
+                               cur_len=cur_len,
+                               route=attention_route(cur_len, s))
     new_cache = dict(cache)
     new_cache["len"] = cur_len + s
     x = L.apply_norm(cfg, params["final_norm"],

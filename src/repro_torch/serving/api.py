@@ -121,17 +121,18 @@ class LLM:
         # without a backend the one-shot generator runs the stacked whole
         # model over these params (moved to the device only if they are
         # elsewhere); the batcher wraps the same tensors in a
-        # ResidentBackend, whose per-layer weights are views of them
+        # ResidentBackend (per-layer views of them), built at its first
+        # use or here for paged serving, as in the JAX package, so a
+        # family no backend takes (SSM) still generates one-shot
         self._params = None
-        built_here = False
-        if backend is None:
-            from repro_torch.serving.backends import ResidentBackend
-            self._params = M.tree_to(params, resolve_device(device))
-            backend = ResidentBackend(cfg, self._params, device=device)
-            built_here = True
+        self._device = device
         self._backend = backend
-        self._own_backend = built_here if own_backend is None \
+        self._own_backend = (backend is None) if own_backend is None \
             else bool(own_backend)
+        if backend is None:
+            self._params = M.tree_to(params, resolve_device(device))
+            if paged:
+                self._resident_backend()
         self.sampling = sampling
         self._batcher_kw = dict(
             max_slots=max_slots, max_len=max_len, paged=paged,
@@ -148,12 +149,19 @@ class LLM:
         self.last_metrics: Dict[str, float] = {}
 
     # -- executor -------------------------------------------------------
+    def _resident_backend(self):
+        if self._backend is None:
+            from repro_torch.serving.backends import ResidentBackend
+            self._backend = ResidentBackend(self.cfg, self._params,
+                                            device=self._device)
+        return self._backend
+
     def _ensure_batcher(self) -> ContinuousBatcher:
         if self._batcher is None:
             # the facade manages backend lifetime, not the batcher
             self._batcher = ContinuousBatcher(
-                self.cfg, backend=self._backend, own_backend=False,
-                **self._batcher_kw)
+                self.cfg, backend=self._resident_backend(),
+                own_backend=False, **self._batcher_kw)
         return self._batcher
 
     def _ensure_generator(self) -> Generator:
@@ -321,6 +329,8 @@ class LLM:
     # -- introspection / lifecycle -------------------------------------
     @property
     def backend(self):
+        """The serving backend: the one passed in, or the resident one
+        built for the batcher (None until then)."""
         return self._backend
 
     def stats(self) -> Dict:
@@ -368,7 +378,7 @@ class LLM:
         self._closed = True
         if self._batcher is not None:
             self._batcher.close()
-        if self._own_backend:
+        if self._own_backend and self._backend is not None:
             self._backend.close()
 
     def __enter__(self) -> "LLM":

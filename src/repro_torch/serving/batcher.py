@@ -66,6 +66,9 @@ class ContinuousBatcher:
                  tracer: Tracer = NULL_TRACER,
                  metrics: Optional[MetricsRegistry] = None,
                  device=None):
+        if cfg.family in ("ssm", "hybrid", "encdec"):
+            raise NotImplementedError(
+                "continuous batching supports transformer KV caches")
         if backend is None and params is None:
             raise ValueError("ContinuousBatcher needs params or a backend")
         require_greedy(sampling)

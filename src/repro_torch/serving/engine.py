@@ -1,4 +1,4 @@
-"""One-shot generation over the dense KV cache.
+"""One-shot generation over the dense KV cache or an SSM state.
 
 :class:`Generator` runs a rectangular batch to completion: one prefill,
 then a greedy decode loop.  It has two executions of the same layer
@@ -7,7 +7,8 @@ math, as in the JAX package:
 * **resident whole model** (``Generator(cfg, params)``):
   :func:`repro_torch.models.model.prefill` /
   :func:`~repro_torch.models.model.decode_step` over the stacked cache of
-  :func:`~repro_torch.models.model.init_cache` (fp or int8);
+  :func:`~repro_torch.models.model.init_cache` (fp or int8), or over the
+  recurrent state of an SSM model (Mamba2);
 * **through a backend** (``Generator(cfg, backend=...)``): the backend's
   ``prefill`` / ``decode`` over its per-layer dense cache —
   :class:`repro_torch.serving.backends.ResidentBackend` or the offloaded
@@ -16,7 +17,8 @@ math, as in the JAX package:
 
 On the card the prefill attends through the flash-attention kernel and
 every decode step through the flash-decode kernel
-(:func:`repro_torch.models.model.attention_route`).  Sampling is greedy,
+(:func:`repro_torch.models.model.attention_route`); a Mamba2 prefill runs
+the SSD chunk kernel (:mod:`repro_torch.models.ssm`).  Sampling is greedy,
 the port's only sampler so far: the loop moves (B,) token ids per step
 and reads nothing back to the host until the batch is done (an offload
 backend's own host share aside).  Request-level ``sampling`` raises

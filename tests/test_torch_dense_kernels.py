@@ -204,9 +204,7 @@ def test_ops_cpu_route_counts_nothing():
     x = _t(rng.standard_normal((3, 8)).astype(np.float32))
     np.testing.assert_array_equal(K.rmsnorm(x, torch.ones(8)).numpy(),
                                   R.rmsnorm(x, torch.ones(8)).numpy())
-    pos = torch.arange(6)[None].expand(2, 6)
-    K.plain_dense_attention(qs.transpose(1, 2), k, k, q_positions=pos,
-                            kv_positions=pos[:1], kv_format="bhtd")
+    K.count_plain("plain_dense_attention", qs)
     assert not any(K.launch_counts().values())
 
 

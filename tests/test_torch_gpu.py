@@ -135,13 +135,21 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         q8_matmul.q8_matmul(x.t(), torch.zeros((2, 3), dtype=torch.int8,
                                                device=cuda),
                             torch.ones(3, device=cuda))
-    # the paged kernels take fp32 only: a bf16 q raises (a known limit)
+    # the paged kernels take fp32 and bf16: a float16 q raises, a bf16 q
+    # over bf16 pages runs, a bf16 q over fp32 pages raises
     gen = torch.Generator(device=cuda).manual_seed(0)
     kp, vp, _, _, bt = _pool(gen, 2, 2, 2, 16, 64, False, cuda)
+    ones = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         paged_attention.paged_decode_attention(
-            torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=cuda),
-            kp, vp, bt, torch.ones(2, dtype=torch.int32, device=cuda))
+            torch.zeros((2, 4, 64), dtype=torch.float16, device=cuda),
+            kp.half(), vp.half(), bt, ones)
+    qb = torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=cuda)
+    out = paged_attention.paged_decode_attention(qb, kp.bfloat16(),
+                                                 vp.bfloat16(), bt, ones)
+    assert out.dtype == torch.bfloat16 and out.shape == qb.shape
+    with pytest.raises(TypeError):
+        paged_attention.paged_decode_attention(qb, kp, vp, bt, ones)
     # dense kernels: a wrong dtype or layout raises
     q = torch.zeros((2, 4, 64), device=cuda)
     k = torch.zeros((2, 2, 8, 64), device=cuda)
@@ -160,6 +168,24 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         flash_attention.flash_attention(k, k, k.transpose(1, 2))
     with pytest.raises(TypeError):
         rmsnorm.rmsnorm(q, torch.ones(64, device=cuda, dtype=torch.bfloat16))
+    # SSD: a wrong dtype, layout or width raises
+    from repro_torch.kernels import ssd_chunk
+    x = torch.zeros((1, 32, 2, 8), device=cuda)
+    dt = torch.zeros((1, 32, 2), device=cuda)
+    a = -torch.ones(2, device=cuda)
+    bm = torch.zeros((1, 32, 2, 16), device=cuda)
+    with pytest.raises(TypeError):
+        ssd_chunk.ssd_chunk(x.half(), dt, a, bm.half(), bm.half(), chunk=16)
+    with pytest.raises(TypeError):
+        ssd_chunk.ssd_chunk(x, dt, a, bm.bfloat16(), bm, chunk=16)
+    with pytest.raises(ValueError):
+        ssd_chunk.ssd_chunk(x, dt, a, bm.transpose(2, 3).contiguous()
+                            .transpose(2, 3), bm, chunk=16)
+    with pytest.raises(ValueError):
+        ssd_chunk.ssd_chunk(x, dt, a, bm, bm, chunk=12)
+    with pytest.raises(ValueError):
+        ssd_chunk.ssd_chunk(torch.zeros((1, 32, 2, 160), device=cuda), dt,
+                            a, bm, bm, chunk=16)
 
 
 def _dense_cache(gen, b, hkv, t, d, dtype, layout, dev):
@@ -199,6 +225,9 @@ def _assert_within(got, want, limit):
     (8, 2, 128, None), (4, 4, 64, 30.0), (4, 1, 16, None)])
 def test_decode_attention_kernel(cuda, qdt, kvdt, layout, hq, hkv, d,
                                  softcap):
+    """An int8 cache is dequantized in q's dtype: under a bf16 q as
+    bf16(bf16(k) * bf16(scale)) with p rounded to bf16, the stacked
+    path's rule."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=cuda).manual_seed(2)
     b, t = 4, 300
@@ -322,3 +351,96 @@ def test_engine_on_card(cuda, wstream):
         assert eng.manager.rings["g"].slots[0].buffer.is_pinned()
     finally:
         eng.close()
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("q8", [False, True])
+def test_paged_kernels_bf16(cuda, kind, q8):
+    """A bf16 q over bf16 pages (p rounded to bf16 before the PV product)
+    or over int8 pages (dequantized in fp32), held to the per-element
+    limits of ``ref.paged_*_attention_limit``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b, hq, hkv, d, ps, nb = 2, 8, 2, 128, 16, 6
+    kp, vp, ks, vs, bt = _pool(gen, b, hkv, nb, ps, d, q8, cuda)
+    if not q8:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    kw = dict(k_scale=ks, v_scale=vs)
+    if kind == "decode":
+        q = torch.randn((b, hq, d), generator=gen, device=cuda).bfloat16()
+        lens = torch.tensor([37, nb * ps], dtype=torch.int32, device=cuda)
+        got = ops.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+        want = ref.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+        limit = ref.paged_decode_attention_limit(q, kp, vp, bt, lens,
+                                                 want, **kw)
+    else:
+        s = 37
+        q = torch.randn((b, hq, s, d), generator=gen, device=cuda).bfloat16()
+        off = torch.tensor([3, 50], dtype=torch.int32, device=cuda)
+        got = ops.paged_prefill_attention(q, kp, vp, bt, off, **kw)
+        want = ref.paged_prefill_attention(q, kp, vp, bt, off, **kw)
+        limit = ref.paged_prefill_attention_limit(q, kp, vp, bt, off,
+                                                  want, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_within(got, want, limit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("nc,chunk,p,n", [(1, 128, 64, 128), (4, 16, 16, 16),
+                                          (4, 64, 24, 40)])
+def test_ssd_chunk_kernel(cuda, dtype, groups, nc, chunk, p, n):
+    """y_intra, state_c and cum against the plain version within the
+    per-element limits of ``ref.ssd_chunk_limit``; B/C broadcast over the
+    heads as a stride-0 expand (one group) or a copy (two)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.ssm import heads_of_groups
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    bs, h = 2, 4
+    ln = nc * chunk
+    x = torch.randn((bs, ln, h, p), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bs, ln, h), generator=gen, device=cuda) - 1.0)
+    a = -torch.rand(h, generator=gen, device=cuda) - 0.5
+    bc = torch.randn((bs, ln, 2 * groups * n), generator=gen,
+                     device=cuda).to(dtype)
+    bm = heads_of_groups(bc[..., :groups * n].reshape(bs, ln, groups, n), h)
+    cm = heads_of_groups(bc[..., groups * n:].reshape(bs, ln, groups, n), h)
+    if groups == 1:
+        assert bm.stride(2) == 0
+    before = ops.launch_counts()["ssd_chunk"]
+    got = ops.ssd_chunk(x, dt, a, bm, cm, chunk=chunk)
+    want = ref.ssd_chunk(x, dt, a, bm, cm, chunk=chunk)
+    limits = ref.ssd_chunk_limit(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk"] == before + 1
+    for g, w, lim in zip(got, want, limits):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _assert_within(g, w, lim)
+
+
+@pytest.mark.parametrize("s", [32, 20])
+def test_mamba_oneshot_on_card_matches_cpu(cuda, s):
+    """A reduced Mamba2 on the card gives the CPU's greedy tokens; a
+    chunked prompt (32) launches ssd_chunk once per layer, a scanned one
+    (20) takes the counted plain scan; RMSNorm runs twice per layer and
+    once more per forward."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Generator
+    cfg = reduced(get_config("mamba2-2.7b"))
+    params = M.init_params(cfg, 0, device="cpu")
+    prompts = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (3, s)).astype(np.int32)
+    want = Generator(cfg, params).generate({"tokens": prompts}, 6)
+    ops.reset_launch_counts()
+    got = Generator(cfg, M.tree_to(params, cuda)).generate(
+        {"tokens": prompts}, 6)
+    n = ops.launch_counts()
+    assert got.tokens == want.tokens
+    chunked = s % cfg.ssm_chunk == 0 and s > cfg.ssm_chunk
+    assert n["ssd_chunk"] == (cfg.n_layers if chunked else 0)
+    assert n["plain_ssd_scan"] == (0 if chunked else cfg.n_layers)
+    assert n["rmsnorm"] == (2 * cfg.n_layers + 1) * 6

@@ -230,3 +230,89 @@ def test_bf16_params_convert_exactly_and_serve():
     be = Generator(cfg, backend=ResidentBackend(cfg, tp, device="cpu")) \
         .generate({"tokens": prompts}, 4)
     assert whole.tokens == be.tokens
+
+
+@pytest.fixture
+def bf16_dots(monkeypatch):
+    """This CPU's XLA has no bf16 x bf16 -> fp32 dot, which the JAX
+    package's attention asks for (``preferred_element_type=float32``).
+    Widen such operands to fp32 first: bf16 products are exact in fp32 and
+    the sum is fp32 either way, so the arithmetic is the same."""
+    einsum = jnp.einsum
+
+    def widened(spec, *ops, preferred_element_type=None, **kw):
+        if preferred_element_type == jnp.float32:
+            ops = [o.astype(jnp.float32) if o.dtype == jnp.bfloat16 else o
+                   for o in ops]
+        return einsum(spec, *ops,
+                      preferred_element_type=preferred_element_type, **kw)
+
+    monkeypatch.setattr(jnp, "einsum", widened)
+
+
+def test_int8_cache_dequantizes_in_model_dtype(bf16_dots):
+    """A bf16 model over an int8 stacked cache dequantizes it in bf16, as
+    the JAX package does (``k.astype(dt) * ks.astype(dt)``): the plain int8
+    decode equals, element for element, the plain bf16 decode over the
+    buffer JAX dequantizes; the whole model's decode logits stay within
+    2e-2 of the largest |logit| of the JAX package's (a few bf16 steps:
+    the frameworks round activations at other places)."""
+    from repro_torch.kernels import ref as R
+    rng = np.random.default_rng(8)
+    k8 = rng.integers(-127, 128, (2, 2, 12, 16)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (2, 2, 12, 16)).astype(np.int8)
+    ks = (rng.random((2, 2, 12)) * 0.02).astype(np.float32)
+    vs = (rng.random((2, 2, 12)) * 0.02).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32)) \
+        .bfloat16()
+    lens = torch.tensor([5, 12], dtype=torch.int32)
+
+    def jax_dequant(v, s):
+        return torch.from_numpy(np.array(
+            (jnp.asarray(v).astype(jnp.bfloat16)
+             * jnp.asarray(s)[..., None].astype(jnp.bfloat16))
+            .astype(jnp.float32))).bfloat16()
+
+    int8 = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    got = R.decode_attention(q, torch.from_numpy(k8), torch.from_numpy(v8),
+                             lens, **int8)
+    want = R.decode_attention(q, jax_dequant(k8, ks), jax_dequant(v8, vs),
+                              lens)
+    assert torch.equal(got, want)
+    # the rule is what matters: dequantized in fp32 (under an fp32 q),
+    # the result is another one
+    fp32 = R.decode_attention(q.float(), torch.from_numpy(k8),
+                              torch.from_numpy(v8), lens, **int8)
+    assert not torch.equal(fp32.bfloat16(), want)
+
+    cfg = _cfg("mistral-nemo-12b", dtype="bfloat16", kv_dtype="int8")
+    jp, tp = _params(cfg)
+    toks = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    jc, jl = JM.prefill(cfg, jp, {"tokens": jnp.asarray(toks)},
+                        JM.init_cache(cfg, 2, 16))
+    tc, tl = TM.prefill(cfg, tp, {"tokens": torch.from_numpy(toks)},
+                        TM.init_cache(cfg, 2, 16, device="cpu"))
+    tok = np.asarray(jnp.argmax(jl, -1), np.int32)
+    for _ in range(3):
+        jc, jl = JM.decode_step(cfg, jp, jnp.asarray(tok), jc)
+        tc, tl = TM.decode_step(cfg, tp, torch.from_numpy(tok), tc)
+        want = np.asarray(jl, np.float32)
+        np.testing.assert_allclose(tl.float().numpy(), want, rtol=0,
+                                   atol=2e-2 * float(np.abs(want).max()))
+        tok = np.asarray(jnp.argmax(jl, -1), np.int32)
+
+
+def test_llm_builds_its_backend_lazily(setup):
+    """``LLM(cfg, params)`` builds its ResidentBackend when the batcher is
+    first needed (as the JAX facade builds its batcher), or at once for
+    ``paged=True``; one-shot generation needs none."""
+    cfg, _, tp, prompts = setup
+    p = [list(r) for r in prompts]
+    with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32) as llm:
+        llm.generate(p, max_new=3)
+        assert llm.backend is None
+        llm.generate([p[0], p[1][:5]], max_new=3)
+        assert isinstance(llm.backend, ResidentBackend)
+    with LLM(cfg, tp, device="cpu", paged=True, max_slots=2,
+             max_len=32) as llm:
+        assert isinstance(llm.backend, ResidentBackend)

@@ -37,12 +37,14 @@ def _plan_tuple(res):
 
 
 def test_configs_equal():
-    for name in ("tiny", "opt-125m", "opt-6.7b", "opt-30b"):
+    for name in ("tiny", "opt-125m", "opt-6.7b", "opt-30b", "mamba2-2.7b"):
         assert dataclasses.asdict(tget(name)) == \
             dataclasses.asdict(jget(name))
     from repro.configs import reduced as jreduced
     assert dataclasses.asdict(treduced(tget("opt-6.7b"), layers=3)) == \
         dataclasses.asdict(jreduced(jget("opt-6.7b"), layers=3))
+    assert dataclasses.asdict(treduced(tget("mamba2-2.7b"))) == \
+        dataclasses.asdict(jreduced(jget("mamba2-2.7b")))
 
 
 @pytest.mark.parametrize("wire", ["fp", "q8"])
