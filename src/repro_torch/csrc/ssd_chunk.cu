@@ -18,16 +18,16 @@
 //
 // Design: one block of 256 threads (a 16 x 16 grid) per cell.  The block
 //   stages C and B (K x N), dt x (transposed, P x K) and dt / cum / tail in
-//   shared memory as fp32 (bf16 inputs are widened on load), 204 KB at the
-//   shapes above, so it opts in to more than 48 KB.  cum is a sequential
-//   scan by one thread (K <= 128).  The three products are one routine: each
-//   thread keeps an up-to 8 x 8 register tile of rows {ty + 16 r} and
-//   columns {tx + 16 c} and walks the reduction axis four at a time with
-//   float4 loads; both operands are stored reduction-axis innermost with a
-//   row stride of an odd number of float4s, so a warp's float4 loads fall
-//   in distinct bank groups.  C B^T is computed in registers for the tiles
-//   on or below the diagonal (c <= r) only; after a barrier the
-//   decay-masked G = C B^T o exp(cum_i - cum_j) [j <= i] overwrites B, and B
+//   shared memory as fp32 (bf16 inputs are widened on load), 166.5 KiB at
+//   the shapes above (199.5 KiB at P = 128), so it opts in to more than
+//   48 KB.  cum is a sequential scan by one thread (K <= 128).  The three
+//   products are one routine: each thread keeps an up-to 8 x 8 register
+//   tile of rows {ty + 16 r} and columns {tx + 16 c} and walks the
+//   reduction axis four at a time with float4 loads; both operands are
+//   stored reduction-axis innermost with a row stride of an odd number of
+//   float4s, so a warp's float4 loads fall in distinct bank groups.  C B^T
+//   is computed in registers for the tiles on or below the diagonal
+//   (c <= r) only; after a barrier the decay-masked G = C B^T o exp(cum_i - cum_j) [j <= i] overwrites B, and B
 //   scaled by tail_j = exp(cum_last - cum_j) is re-read from device memory
 //   (L2: all heads of a group share it) transposed over C.  Then y = G (dt x)
 //   walks, for row tile r, only the reduction blocks j < 16 (r + 1), so the

@@ -322,16 +322,18 @@ def _gamma(k: int) -> float:
     return k * _U32 / (1 - k * _U32)
 
 
-def ssd_chunk_limit(x, dt, a, b, c, *, chunk: int):
-    """Per-element limits (y, state, cum) on |kernel - :func:`ssd_chunk`|,
-    two fp32 computations of the same function in different orders:
+def ssd_chunk_limit(x, dt, a, b, c, other_cum, *, chunk: int):
+    """Per-element limits (y, state, cum) on |other - :func:`ssd_chunk`|,
+    for another fp32 computation of the same function in a different
+    order, whose ``cum`` (B,L,H) is ``other_cum``:
 
     * ``cum_i``: any order of an i-term sum errs by at most
       ``gamma_K * S_i`` (``S_i`` the prefix sum of |dt a|), so the two
-      sides differ by ``E_i = 2 gamma_K S_i``;
+      sides may differ by ``E_i = 2 gamma_K S_i``: cum's limit;
     * the decay ``exp(cum_i - cum_j)`` then differs by a relative
-      ``rho_ij = 1.01 (E_i + E_j + 2u |cum_i - cum_j|) + 8u`` (exp's two
-      ulps a side, and the subtraction);
+      ``rho_ij = 1.01 (d_i + d_j + 2u |cum_i - cum_j|) + 8u`` (exp's two
+      ulps a side, and the subtraction), with ``d_i`` the two sides'
+      actual distance at i, which cum's own limit holds within ``E_i``;
     * ``C_i . B_j`` by ``2 gamma_N A_ij`` (``A_ij = sum_n |C_in B_jn|``),
       and a K-term sum of products by ``2 gamma_K`` of its |terms|;
       ``dt_j x_j`` is one rounding of the same operands on both sides;
@@ -340,9 +342,10 @@ def ssd_chunk_limit(x, dt, a, b, c, *, chunk: int):
       |dt_j x_jp| (2 gamma_K + rho_Kj + 8u)``, each times 1.01 for the
       second-order terms.
 
-    At Mamba2-2.7B's widths (K = N = 128, |dt a| near 0.5) the cum term
-    dominates: late rows of a chunk may move by about 1e-3 of their
-    |terms|, where dropping one diagonal term moves them by O(1)."""
+    Taking ``d_i`` as read, not its worst case ``E_i``, keeps y's limit
+    near 3e-5 of its |terms| in every row: at Mamba2-2.7B's widths (K = N
+    = 128, |dt a| near 0.5) ``E_i`` reaches 1e-3 in a chunk's late rows,
+    which would pass a y_intra rounded to bf16 (2^-9 of |y|) there."""
     bs, ln, h, p = x.shape
     n = b.shape[-1]
     nc = ln // chunk
@@ -352,8 +355,9 @@ def ssd_chunk_limit(x, dt, a, b, c, *, chunk: int):
     la = dtc * a.float()
     cum = torch.cumsum(la, dim=2)
     e = 2 * gk * torch.cumsum(la.abs(), dim=2)            # E_i
+    d = (other_cum.reshape(bs, nc, chunk, h).float() - cum).abs()
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    rho = _SLACK * (e[:, :, :, None, :] + e[:, :, None, :, :]
+    rho = _SLACK * (d[:, :, :, None, :] + d[:, :, None, :, :]
                     + 2 * u * seg.abs()) + 8 * u
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()

@@ -146,8 +146,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def mamba_block(cfg, p: Dict, x: torch.Tensor, *,
                 ssm_state: Optional[torch.Tensor] = None,
-                conv_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                chunked: bool = True):
+                conv_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Full Mamba2 block over a sequence.  x (B,L,d_model).
 
     Returns (y, new_ssm_state, (new_conv_x, new_conv_bc)).  Decode (L == 1
@@ -177,7 +176,7 @@ def mamba_block(cfg, p: Dict, x: torch.Tensor, *,
         hnew, yt = ssd_decode_step(ssm_state, xs[:, 0], dt[:, 0], a,
                                    b[:, 0], c[:, 0], p["D"])
         y, new_state = yt[:, None], hnew
-    elif chunked and ln % cfg.ssm_chunk == 0 and ln > cfg.ssm_chunk:
+    elif ln % cfg.ssm_chunk == 0 and ln > cfg.ssm_chunk:
         y, new_state = ssd_chunked(xs, dt, a, b, c, p["D"],
                                    chunk=cfg.ssm_chunk, h0=ssm_state)
     else:

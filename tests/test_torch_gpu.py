@@ -412,7 +412,7 @@ def test_ssd_chunk_kernel(cuda, dtype, groups, nc, chunk, p, n):
     before = ops.launch_counts()["ssd_chunk"]
     got = ops.ssd_chunk(x, dt, a, bm, cm, chunk=chunk)
     want = ref.ssd_chunk(x, dt, a, bm, cm, chunk=chunk)
-    limits = ref.ssd_chunk_limit(x, dt, a, bm, cm, chunk=chunk)
+    limits = ref.ssd_chunk_limit(x, dt, a, bm, cm, got[2], chunk=chunk)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssd_chunk"] == before + 1
     for g, w, lim in zip(got, want, limits):

@@ -5,7 +5,9 @@
   and from two groups): fp32 within 1e-5 of the largest |value|; in bf16
   the Pallas kernel rounds y_intra to bf16 and the port keeps it fp32, so
   y is held to one bf16 rounding (2^-8 relative) and the fp32 outputs to
-  1e-5;
+  1e-5; the kernel's per-element limits admit the Pallas kernel's order
+  and reject, in every row of a chunk, a y rounded to bf16 or a y over a
+  bf16 G;
 * the SSD pieces (chunked with a carried state, the scan, the decode step,
   a block's prefill then decode): 1e-4 (fp32 on both sides, other
   summation orders);
@@ -112,16 +114,38 @@ def test_ssd_chunk_limit_admits_another_order_and_rejects_off_by_one():
     args = [_t(i[k]) for k in ("x", "dt", "a")] + \
         [TS.heads_of_groups(_t(i[k]), h) for k in ("b", "c")]
     want = R.ssd_chunk(*args, chunk=16)
-    limits = R.ssd_chunk_limit(*args, chunk=16)
     other = jssd.ssd_chunk(*(jnp.asarray(v) for v in (
         i["x"], i["dt"], i["a"], _heads(i["b"], h), _heads(i["c"], h))),
         chunk=16, interpret=True)
+    limits = R.ssd_chunk_limit(*args, _t(np.asarray(other[2])), chunk=16)
     for w, o, lim in zip(want, other, limits):
         assert bool(((w - _t(np.asarray(o))).abs() <= lim).all())
     x, dt, _, b, c = args
     diag = torch.einsum("blhn,blhn->blh", c, b)[..., None] * x * dt[..., None]
     bad = want[0] - diag
     assert bool(((bad - want[0]).abs() > limits[0]).any())
+
+
+def test_ssd_chunk_limit_rejects_bf16_y_and_bf16_g_in_every_row():
+    """y_intra rounded to bf16, and y_intra over a decay-masked G rounded
+    to bf16 (a tensor-core product's operand), each lie beyond the y limit
+    somewhere in every row position of a chunk, its last rows included."""
+    i = _inputs(5, l=64, h=4, p=8, n=16)
+    args = [_t(i[k]) for k in ("x", "dt", "a")] + \
+        [TS.heads_of_groups(_t(i[k]), 4) for k in ("b", "c")]
+    want = R.ssd_chunk(*args, chunk=16)
+    limit = R.ssd_chunk_limit(*args, want[2], chunk=16)[0]
+    x, dt, a, b, c = (t.reshape(2, 4, 16, *t.shape[2:]) if t.dim() > 1
+                      else t for t in args)
+    cum = torch.cumsum(dt * a, dim=2)
+    seg = cum[:, :, :, None] - cum[:, :, None]
+    decay = torch.exp(seg) * torch.ones(16, 16).tril()[..., None]
+    g = torch.einsum("bnkhs,bnlhs->bnklh", c, b) * decay
+    over_g = torch.einsum("bnklh,bnlhp->bnkhp",
+                          g.bfloat16().float(), x * dt[..., None])
+    for bad in (want[0].bfloat16().float(), over_g.reshape(want[0].shape)):
+        out = ((bad - want[0]).abs() > limit).reshape(2, 4, 16, 4, 8)
+        assert bool(out.any(dim=(0, 1, 3, 4)).all())
 
 
 def test_ssd_pieces_match_jax():
