@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    so the prefill kernel sees ``kv_offset > 0`` — once with fp32 weights
    on the wire and fp32 pages, once with ``wstream="q8"`` and int8 pages.
    Kernel launch counters are zeroed just before and read just after each
-   run.  The fp run's prefill logits are held against the port's
-   ``ResidentBackend`` on the card;
+   run; neither matmul kernel may launch on the HeteGen split.  The fp
+   run's prefill logits are held against the port's ``ResidentBackend``
+   on the card;
 3b. resident one-shot generation of Mistral-NeMo-12B at full width and
    full depth (40 layers), bf16, random weights made on the card from a
    seed: ``LLM(cfg, params).generate`` of four 512-token prompts, 16 new
@@ -24,7 +25,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``kv_dtype="int8"``.  The counters must show exactly one
    flash-attention launch per layer, one flash-decode launch per layer
    and decode step, two RMSNorm launches per layer plus the final norm
-   per forward, and no plain dense attention.  The whole model's prefill
+   per forward, one ``gated_matmul`` launch (the gate and up products,
+   SiLU) per layer and forward, by (rows, width) 40 at (2048, 5120) and
+   600 at (4, 5120), and no plain dense attention.  The whole model's prefill
    logits are held against ``ResidentBackend`` on a dense backend cache.
    A reduced Mistral runs on the card (kernels) and on the CPU (plain
    versions): greedy tokens identical in fp32; in bf16, with a bf16 and
@@ -37,7 +40,15 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    flash-attention launch per layer, seven flash-decode launches per
    layer).  Its dense-cache prefill logits are held against
    ``ResidentBackend`` (checked in phase 3, while the weights are on the
-   card);
+   card); no matmul kernel launches;
+3f. resident one-shot generation of OPT-6.7B (``--layers``, fp32), phase
+   3's weights while they are on the card: ``LLM(cfg, params).generate``
+   of 3c's four 64-token prompts, 8 new tokens each, on the stacked cache.
+   Each layer's fc1 (bias, ReLU) runs the ``matmul`` kernel, once per
+   layer and forward (32 at (256, 4096), 224 at (4, 4096) with 32
+   layers), beside one flash-attention launch per layer and one
+   flash-decode launch per layer and decode step.  Its prefill logits
+   are held against 3c's HeteGen(fp) logits within ``LOGIT_TOL``;
 3d. resident one-shot generation of Mamba2-2.7B at full width and full
    depth (64 layers), bf16, random weights made on the card from a seed:
    ``LLM(cfg, params).generate`` of four 512-token prompts, 16 new tokens
@@ -50,7 +61,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    card) through ``LLM(cfg, params, paged=True).generate`` of a ragged
    batch (four prompts of 500-512 tokens, 8 new each), bf16 pages then
    int8 pages, with one paged-prefill launch per layer and prefill call
-   and one paged-decode launch per layer and decode step.  A reduced bf16
+   and one paged-decode launch per layer and decode step, and one
+   ``gated_matmul`` launch per layer and forward (over each prompt's rows
+   at prefill, the four rows at decode).  A reduced bf16
    Mistral over a paged cache runs on the card and on the CPU: prefill and
    decode logits within ``BF16_MODEL_TOL``;
 4. every kernel against its plain PyTorch version on the same card
@@ -75,6 +88,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    chunk, a y rounded to bf16 and a y over a bf16 G); no single PyTorch
    call computes it, so it has no library time; the reduced shape is
    logged and left out of the ``kernels`` line;
+4d. ``matmul`` at 3f's shapes (fp32, bias, ReLU) and ``gated_matmul`` at
+   3b's and 3e's (bf16, SiLU), each within ``ref.matmul_limit`` /
+   ``ref.gated_matmul_limit`` (shown to reject a sum missing its last K
+   block and a result without its bias, or the activation on the up
+   product), timed beside the plain version and ``torch.matmul`` of the
+   same product alone (``product_ms``: PyTorch has no single call for the
+   fused function, so ``library_ms`` is null); one shape off the main
+   path each, logged only;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +126,7 @@ from repro_torch.core.policy import build_policy  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
+from repro_torch.kernels import hete_matmul as k_mm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as k_decode  # noqa: E402
 from repro_torch.kernels import paged_prefill as k_prefill  # noqa: E402
@@ -488,17 +510,28 @@ def library_q8(x, qw, sc):
 # phases 3b and 3c: one-shot generation over the dense KV cache
 # ---------------------------------------------------------------------------
 
-def expected_oneshot_launches(cfg, new_tokens):
+def expected_oneshot_launches(cfg, new_tokens, *, resident):
     """What the route rule predicts for one rectangular one-shot run: one
     flash-attention launch per layer (the prefill from position 0), one
-    flash-decode launch per layer and decode step, and, for an RMSNorm
-    model, two norms per layer plus the final one per forward."""
+    flash-decode launch per layer and decode step, for an RMSNorm model
+    two norms per layer plus the final one per forward, and, over resident
+    weights, one fused MLP first stage per layer and forward
+    (:func:`mlp_launches`); the HeteGen split (``resident=False``)
+    launches neither matmul kernel."""
     n = {"flash_attention": cfg.n_layers,
          "decode_attention": cfg.n_layers * (new_tokens - 1),
          "plain_dense_attention": 0}
     if cfg.norm_kind == "rmsnorm":
         n["rmsnorm"] = (2 * cfg.n_layers + 1) * new_tokens
-    return n
+    return {**n, **mlp_launches(cfg, new_tokens if resident else 0)}
+
+
+def mlp_launches(cfg, forwards):
+    """One fused MLP first stage per layer and forward: ``gated_matmul``
+    for a gated MLP, ``matmul`` otherwise, and none of the other."""
+    gated = cfg.mlp_kind.startswith("gated")
+    n = cfg.n_layers * forwards
+    return {"gated_matmul": n if gated else 0, "matmul": 0 if gated else n}
 
 
 def check_launches(run, launches, want):
@@ -634,25 +667,31 @@ def compare_whole_model_logits(cfg, params, prompts):
     return torch.argmax(want, dim=-1).tolist()
 
 
-def tally_rmsnorm_rows(fn):
-    """Run ``fn()`` with the RMSNorm calls on CUDA tensors tallied by
-    shape, (rows, width) (the model calls ``ops.rmsnorm``, which launches
-    the kernel on a CUDA tensor), so that each shape gets its own
-    launches; returns ``fn()``'s result and the tally."""
-    rows = {}
-    inner = ops.rmsnorm
+def tally_rows(fn, names=("rmsnorm",)):
+    """Run ``fn()`` with the calls of each ``ops.<name>`` on CUDA tensors
+    tallied by shape, (rows, width) of its first operand (the model calls
+    the ``ops`` entry points, which launch the kernels on CUDA tensors),
+    so that each shape gets its own launches; returns ``fn()``'s result
+    and ``{name: {(rows, width): calls}}``."""
+    tally = {name: {} for name in names}
+    inner = {name: getattr(ops, name) for name in names}
 
-    def tallied(x, scale, **kw):
-        if x.is_cuda:
-            shape = (x.numel() // x.shape[-1], x.shape[-1])
-            rows[shape] = rows.get(shape, 0) + 1
-        return inner(x, scale, **kw)
+    def tallied(name):
+        def fn_(x, *a, **kw):
+            if x.is_cuda:
+                shape = (x.numel() // x.shape[-1], x.shape[-1])
+                rows = tally[name]
+                rows[shape] = rows.get(shape, 0) + 1
+            return inner[name](x, *a, **kw)
+        return fn_
 
-    ops.rmsnorm = tallied
+    for name in names:
+        setattr(ops, name, tallied(name))
     try:
-        return fn(), rows
+        return fn(), tally
     finally:
-        ops.rmsnorm = inner
+        for name in names:
+            setattr(ops, name, inner[name])
 
 
 def run_mistral(seed):
@@ -677,24 +716,36 @@ def run_mistral(seed):
     prompts = [list(rng.integers(0, cfg.vocab_size, ONESHOT_PROMPT))
                for _ in range(4)]
     first = compare_whole_model_logits(cfg, params, prompts)
-    want = expected_oneshot_launches(cfg, ONESHOT_NEW)
+    want = expected_oneshot_launches(cfg, ONESHOT_NEW, resident=True)
     counts = {}
     for kv_dtype in (None, "int8"):
         run_cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
         run = f"3b mistral kv={kv_dtype or 'bf16'}"
-        (toks, launches, llm), rows = tally_rmsnorm_rows(
+        (toks, launches, llm), tally = tally_rows(
             lambda: run_oneshot(run, lambda: LLM(run_cfg, params), prompts,
-                                ONESHOT_NEW, cfg))
+                                ONESHOT_NEW, cfg),
+            ("rmsnorm", "gated_matmul"))
         llm.close()
         check_launches(run, launches, want)
-        check(sum(rows.values()) == launches["rmsnorm"],
-              f"{run}: rmsnorm calls by shape do not add up to its launches")
-        log(f"{run}: rmsnorm launches by (rows, width) {dict(rows)}")
+        for name, rows in tally.items():
+            check(sum(rows.values()) == launches[name],
+                  f"{run}: {name} calls by shape do not add up to its "
+                  f"launches")
+        rows = tally["rmsnorm"]
+        b = len(prompts)
+        want_mm = {(b * ONESHOT_PROMPT, cfg.d_model): cfg.n_layers,
+                   (b, cfg.d_model): cfg.n_layers * (ONESHOT_NEW - 1)}
+        check(tally["gated_matmul"] == want_mm,
+              f"{run}: gated_matmul by shape {tally['gated_matmul']}, want "
+              f"{want_mm}")
+        log(f"{run}: launches by (rows, width): rmsnorm {dict(rows)}, "
+            f"gated_matmul {tally['gated_matmul']}")
         if kv_dtype is None:
             check([t[0] for t in toks] == first,
                   "3b: first tokens differ from the prefill logits' argmax")
         counts[kv_dtype or "bf16"] = launches
         counts[(kv_dtype or "bf16") + "_rmsnorm_rows"] = rows
+        counts[(kv_dtype or "bf16") + "_gated_rows"] = tally["gated_matmul"]
     del llm
     counts["3e"] = run_paged_bf16(cfg, params, seed)
     del params
@@ -739,10 +790,13 @@ def run_paged_bf16(cfg, params, seed):
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        outs = llm.generate(prompts, max_new=PAGED_NEW)
+        outs, tally = tally_rows(
+            lambda: llm.generate(prompts, max_new=PAGED_NEW),
+            ("gated_matmul",))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
+        mm_rows = tally["gated_matmul"]
         check(llm.last_executor == "batcher",
               f"{run}: executor {llm.last_executor}, want batcher")
         toks = [o.tokens for o in outs]
@@ -755,7 +809,8 @@ def run_paged_bf16(cfg, params, seed):
             f"({sum(map(len, toks)) / wall:.3f} tok/s), steps="
             f"{st['steps']}, forwards {calls}, peak_device_mem="
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"launches={launches}")
+            f"launches={launches}, gated_matmul by (rows, width) "
+            f"{mm_rows}")
         del llm.backend.prefill, llm.backend.decode
         llm.close()
         n_fwd = calls["prefill"] + calls["decode"]
@@ -764,10 +819,15 @@ def run_paged_bf16(cfg, params, seed):
             "paged_decode_attention": cfg.n_layers * calls["decode"],
             "rmsnorm": (2 * cfg.n_layers + 1) * n_fwd,
             "flash_attention": 0, "decode_attention": 0,
-            "plain_dense_attention": 0})
+            "plain_dense_attention": 0, **mlp_launches(cfg, n_fwd)})
         check(calls["prefill"] > 0 and calls["decode"] > 0,
               f"{run}: no prefill or no decode forward")
+        want_mm = {(n, cfg.d_model): cfg.n_layers for n in PAGED_PROMPTS}
+        want_mm[(len(prompts), cfg.d_model)] = cfg.n_layers * calls["decode"]
+        check(mm_rows == want_mm, f"{run}: gated_matmul by shape {mm_rows}, "
+              f"want {want_mm}")
         out[kv_dtype or "bf16"] = launches
+        out[(kv_dtype or "bf16") + "_gated_rows"] = mm_rows
     small = dataclasses.replace(reduced(cfg), dtype="bfloat16")
     toks = torch.tensor([list(rng.integers(0, small.vocab_size, 24))
                          for _ in range(8)], dtype=torch.int32)
@@ -824,15 +884,16 @@ def run_mamba(seed):
                                     device="cuda"))[1]     # drop the state
     check(bool(torch.isfinite(logits).all()), "3d: non-finite logits")
     first = torch.argmax(logits, dim=-1).tolist()
-    (toks, launches, llm), rows = tally_rmsnorm_rows(
+    (toks, launches, llm), tally = tally_rows(
         lambda: run_oneshot("3d mamba2", lambda: LLM(cfg, params), prompts,
                             MAMBA_NEW, cfg))
+    rows = tally["rmsnorm"]
     llm.close()
     check_launches("3d", launches, {
         "ssd_chunk": cfg.n_layers, "plain_ssd_scan": 0,
         "rmsnorm": (2 * cfg.n_layers + 1) * MAMBA_NEW,
         "plain_dense_attention": 0, "flash_attention": 0,
-        "decode_attention": 0})
+        "decode_attention": 0, "matmul": 0, "gated_matmul": 0})
     # per layer a pre-norm (width d_model) and a gated norm (d_inner):
     # over B x L rows in the prefill, B rows in each decode step; the final
     # norm (d_model) once per forward over each row's last position
@@ -886,6 +947,7 @@ def compare_dense_prefill_logits(cfg, params, host_params, prompts):
         f"max_abs_err={err:.3e} max|logit|={scale:.3e} "
         f"tol={LOGIT_TOL:.0e} relative")
     check(err <= LOGIT_TOL * max(scale, 1.0), "3c prefill logits disagree")
+    return got
 
 
 def run_offload_oneshot(cfg, host_params, prompts):
@@ -903,9 +965,44 @@ def run_offload_oneshot(cfg, host_params, prompts):
         f"alpha decode={be.policies['decode'].alpha} "
         f"prefill={be.policies['prefill'].alpha}")
     llm.close()
-    check_launches("3c", launches, expected_oneshot_launches(cfg,
-                                                             OFFLOAD_NEW))
+    check_launches("3c", launches, expected_oneshot_launches(
+        cfg, OFFLOAD_NEW, resident=False))
     return launches
+
+
+def run_opt_resident(cfg, params, prompts, hetegen_logits):
+    """Phase 3f: OPT resident one-shot (fp32) on the stacked cache, each
+    layer's fc1 (bias, ReLU) through the ``matmul`` kernel.  Its prefill
+    logits are held against 3c's HeteGen(fp) prefill logits on the same
+    prompts; returns the launch counts and the ``matmul`` launches by
+    (rows, width)."""
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    b, s = toks.shape
+    _, logits = M.prefill(cfg, params, {"tokens": toks},
+                          M.init_cache(cfg, b, s, device="cuda"))
+    check(bool(torch.isfinite(logits).all()), "3f: non-finite logits")
+    err = float((logits - hetegen_logits).abs().max())
+    scale = float(hetegen_logits.abs().max())
+    log(f"3f prefill logits whole model vs HeteGen(fp) (3c): "
+        f"max_abs_err={err:.3e} max|logit|={scale:.3e} tol={LOGIT_TOL:.0e} "
+        f"relative")
+    check(err <= LOGIT_TOL * max(scale, 1.0), "3f prefill logits disagree")
+    first = torch.argmax(logits, dim=-1).tolist()
+    del logits
+    (out, launches, llm), tally = tally_rows(
+        lambda: run_oneshot("3f opt resident", lambda: LLM(cfg, params),
+                            prompts, OFFLOAD_NEW, cfg), ("matmul",))
+    llm.close()
+    check_launches("3f", launches, expected_oneshot_launches(
+        cfg, OFFLOAD_NEW, resident=True))
+    rows = tally["matmul"]
+    want = {(b * s, cfg.d_model): cfg.n_layers,
+            (b, cfg.d_model): cfg.n_layers * (OFFLOAD_NEW - 1)}
+    log(f"3f: matmul launches by (rows, width) {rows}")
+    check(rows == want, f"3f: matmul launches by shape {rows}, want {want}")
+    check([t[0] for t in out] == first,
+          "3f: first tokens differ from the prefill logits' argmax")
+    return {"launches": launches, "matmul_rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -942,10 +1039,13 @@ def sdpa(q, k, v, **kw):
 
 
 def rejects(bad, want, limit, what):
-    """The limit must fail a plain version with an off-by-one mask, so a
-    kernel with that bug could not pass it."""
-    check(bool(((bad.float() - want.float()).abs() > limit).any()),
-          f"the limit of {what} would pass an off-by-one mask")
+    """The limit must fail a plain version with a known fault (so a kernel
+    with that fault could not pass it); logs the share of elements it
+    rejects."""
+    beyond = float(((bad.float() - want.float()).abs() > limit)
+                   .float().mean())
+    log(f"control {what}: {beyond:.3f} of elements beyond the limit")
+    check(beyond > 0, f"the limit would pass {what}")
 
 
 def rms_entry(name, gen, cfg, rows, d, launches):
@@ -987,7 +1087,7 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
         want = ref.decode_attention(q, k, v, kl, **kw)
         limit = ref.decode_attention_limit(q, k, v, kl, want, **kw)
         rejects(ref.decode_attention(q, k, v, kl - 1, **kw), want, limit,
-                name)
+                f"{name}, an off-by-one mask")
         lib = None
         if not q8:
             mask = (torch.arange(t, device="cuda")[None, :]
@@ -1017,7 +1117,7 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
         bad = want.clone()                       # query i misses key i
         bad[:, :, 1:] = ref.flash_attention(q[:, :, 1:], k[:, :, :-1],
                                             v[:, :, :-1])
-        rejects(bad, want, limit, name)
+        rejects(bad, want, limit, f"{name}, an off-by-one mask")
         el = q.element_size()
         return kernel_entry(
             name, src + "flash_attention.cu",
@@ -1130,7 +1230,8 @@ def ssd_entry(name, cfg, bs, ln, dtype, launches, gen):
     limits = ref.ssd_chunk_limit(x, dt, a, b, c, got[2], chunk=chunk)
     diag = torch.einsum("blhn,blhn->blh", c.float(), b.float())[..., None] \
         * x.float() * dt[..., None]
-    rejects(want[0] - diag, want[0], limits[0], name)
+    rejects(want[0] - diag, want[0], limits[0],
+            f"{name}, y without each row's own term")
     rejects_every_row(want[0].to(torch.bfloat16).float(), want[0], limits[0],
                       chunk, f"{name} y_intra rounded to bf16")
     rejects_every_row(ssd_y_bf16_g(x, dt, a, b, c, chunk), want[0],
@@ -1173,6 +1274,103 @@ def check_ssd_kernel(counts_3d):
         phase = "prefill" if rows == 4 * MAMBA_PROMPT else "decode"
         entries.append(rms_entry(f"rmsnorm_mamba_{phase}_d{d}", gen, cfg,
                                  rows, d, n))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the dense matmul kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
+             bias=False):
+    """One shape of ``matmul`` or ``gated_matmul`` on random operands at
+    the model's scale (x ~ N(0, 1), weights ~ N(0, 1/K), bias ~ N(0, 1)):
+    within its per-element limit, the limit shown to reject a sum missing
+    its last 128-wide K block and a result without its bias (or, gated,
+    the activation on the up product); timed beside its plain version,
+    one ``torch.matmul`` of the same product with no epilogue (for the
+    gated kernel over both weights side by side; ``product_ms``, not a
+    library call for the same function, which PyTorch has none of) and
+    the bound."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    ws = [(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
+          .to(dtype) for _ in range(2 if gated else 1)]
+    b = torch.randn(n, generator=gen, device="cuda").to(dtype) \
+        if bias else None
+    tag = f"{name}, "
+    if gated:
+        def kernel():
+            return k_mm.gated_matmul(x, *ws, activation=act)
+
+        def plain(xx=x, wg=ws[0], wu=ws[1]):
+            return ref.gated_matmul(xx, wg, wu, activation=act)
+        want = plain()
+        limit = ref.gated_matmul_limit(x, *ws, want, activation=act)
+        rejects(plain(x, ws[1], ws[0]), want, limit,
+                     tag + "the activation on the up product")
+        short = plain(x[:, :-128], ws[0][:-128], ws[1][:-128])
+        wcat = torch.cat(ws, dim=1)
+    else:
+        def kernel():
+            return k_mm.matmul(x, ws[0], b, activation=act)
+
+        def plain(xx=x, w=ws[0], bb=b):
+            return ref.matmul(xx, w, bb, activation=act)
+        want = plain()
+        limit = ref.matmul_limit(x, ws[0], want, b, activation=act)
+        if bias:
+            rejects(plain(bb=None), want, limit,
+                         tag + "a result without its bias")
+        short = plain(x[:, :-128], ws[0][:-128])
+        wcat = ws[0]
+    rejects(short, want, limit, tag + "a sum missing its last K block")
+    got = kernel()
+    el = x.element_size()
+    nbytes = (x.numel() + sum(w.numel() for w in ws) + m * n
+              + (n if bias else 0)) * el
+    flops = 2 * m * k * n * len(ws)
+    entry = kernel_entry(
+        name, "src/repro_torch/csrc/hete_matmul.cu",
+        "src/repro/kernels/hete_matmul.py:" + ("126" if gated else "79"),
+        launches, got, want, limit, kernel, plain, None, nbytes, flops,
+        BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    entry["product_ms"] = time_ms(lambda: torch.matmul(x, wcat))
+    log(f"kernel {name}: product_ms={entry['product_ms']:.4f} "
+        f"(torch.matmul of the same product, no epilogue)")
+    return entry
+
+
+def check_matmul_kernels(counts_3b, counts_3f):
+    """Phase 4d: ``matmul`` at 3f's two shapes (OPT fc1, fp32, bias +
+    ReLU) and ``gated_matmul`` at 3b's two and two of 3e's prefill shapes
+    (Mistral's gate/up, bf16, SiLU), in the ``kernels`` line; one shape
+    off the main path each (bf16 ``matmul`` with bias and GELU, fp32
+    ``gated_matmul``, at sizes that are no multiple of 128), logged only."""
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    opt, mis = get_config("opt-6.7b"), get_config("mistral-nemo-12b")
+    f32, bf = torch.float32, torch.bfloat16
+    fc1 = counts_3f["matmul_rows"]
+    gate = counts_3b["bf16_gated_rows"]
+    gate_3e = counts_3b["3e"]["bf16_gated_rows"]
+    b = 4
+    entries = []
+    for rows in (b * OFFLOAD_PROMPT, b):
+        entries.append(mm_entry(
+            f"matmul_f32_m{rows}", gen, f32, rows, opt.d_model, opt.d_ff,
+            fc1.get((rows, opt.d_model), 0), gated=False, act="relu",
+            bias=True))
+    for rows, n in ((b * ONESHOT_PROMPT, gate), (b, gate),
+                    (PAGED_PROMPTS[0], gate_3e),
+                    (PAGED_PROMPTS[-1], gate_3e)):
+        entries.append(mm_entry(
+            f"gated_matmul_bf16_m{rows}", gen, bf, rows, mis.d_model,
+            mis.d_ff, n.get((rows, mis.d_model), 0), gated=True,
+            act="silu"))
+    off = "none (not a main-path shape)"
+    mm_entry("matmul_bf16_m37", gen, bf, 37, 1000, 3000, off, gated=False,
+             act="gelu", bias=True)
+    mm_entry("gated_matmul_f32_m130", gen, f32, 130, 2000, 3000, off,
+             gated=True, act="silu")
     return entries
 
 
@@ -1223,7 +1421,10 @@ def main() -> int:
 
     compare_prefill_logits(cfg, params, host_params, prompts)
     oprompts = offload_prompts(cfg.vocab_size, SEED)
-    compare_dense_prefill_logits(cfg, params, host_params, oprompts)
+    hetegen_logits = compare_dense_prefill_logits(cfg, params, host_params,
+                                                  oprompts)
+    counts_3f = timed("3f", run_opt_resident, cfg, params, oprompts,
+                      hetegen_logits)
     del params
     torch.cuda.empty_cache()
 
@@ -1237,6 +1438,9 @@ def main() -> int:
         check(counts["paged_prefill_attention"] > 0,
               f"{run} run never launched paged_prefill_attention")
     check(l_q8["q8_matmul"] > 0, "q8 run never launched q8_matmul")
+    for run, counts in (("fp", l_fp), ("q8", l_q8)):
+        check(counts["matmul"] == counts["gated_matmul"] == 0,
+              f"{run} run launched a matmul kernel on the HeteGen split")
     launches = {
         "paged_decode_attention": {False: l_fp["paged_decode_attention"],
                                    True: l_q8["paged_decode_attention"]},
@@ -1250,8 +1454,8 @@ def main() -> int:
     counts_3c = timed("3c", run_offload_oneshot, cfg, host_params, oprompts)
     counts_3d = timed("3d", run_mamba, SEED)
     for kind in ("paged_decode_attention", "paged_prefill_attention"):
-        launches[kind + "_3e"] = {kv: n[kind]
-                                  for kv, n in counts_3b["3e"].items()}
+        launches[kind + "_3e"] = {kv: counts_3b["3e"][kv][kind]
+                                  for kv in ("bf16", "int8")}
 
     pol = build_policy(enumerate_linears(cfg, "q8"), H100_HOST, batch=4,
                        phase="decode")
@@ -1261,6 +1465,7 @@ def main() -> int:
                      get_config("mistral-nemo-12b"), cfg, counts_3b,
                      counts_3c)
     entries += timed("4c", check_ssd_kernel, counts_3d)
+    entries += timed("4d", check_matmul_kernels, counts_3b, counts_3f)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

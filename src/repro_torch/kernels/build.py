@@ -25,7 +25,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 KERNELS = ("paged_decode_attention", "paged_prefill_attention", "q8_matmul",
-           "decode_attention", "flash_attention", "rmsnorm", "ssd_chunk")
+           "decode_attention", "flash_attention", "rmsnorm", "ssd_chunk",
+           "hete_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dense_decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import hete_matmul as _mm
 from repro_torch.kernels import paged_attention as _decode
 from repro_torch.kernels import paged_prefill as _prefill
 from repro_torch.kernels import q8_matmul as _q8
@@ -51,6 +52,8 @@ _WRAPPERS = {
     "flash_attention": _flash.flash_attention,
     "rmsnorm": _rms.rmsnorm,
     "ssd_chunk": _ssd.ssd_chunk,
+    "matmul": _mm.matmul,
+    "gated_matmul": _mm.gated_matmul,
 }
 
 
@@ -128,3 +131,15 @@ def ssd_chunk(x, dt, a, b, c, *, chunk):
     if _route(x) == "cpu":
         return _ref.ssd_chunk(x, dt, a, b, c, chunk=chunk)
     return _ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+
+
+def matmul(x, w, bias=None, *, activation=None):
+    if _route(x) == "cpu":
+        return _ref.matmul(x, w, bias, activation=activation)
+    return _mm.matmul(x, w, bias, activation=activation)
+
+
+def gated_matmul(x, w_gate, w_up, *, activation="silu"):
+    if _route(x) == "cpu":
+        return _ref.gated_matmul(x, w_gate, w_up, activation=activation)
+    return _mm.gated_matmul(x, w_gate, w_up, activation=activation)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Each function mirrors one kernel's contract exactly (and the JAX
 package's pure-jnp oracle of the same name).  They are what a CPU tensor
@@ -12,8 +12,10 @@ stacked path does).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1.0e30
 
@@ -374,3 +376,95 @@ def ssd_chunk_limit(x, dt, a, b, c, other_cum, *, chunk: int):
                                   tail * (2 * gk + rho_t + 8 * u), bc, xdt)
     return (y_lim.reshape(bs, ln, h, p), s_lim,
             (e + 8 * u * cum.abs()).reshape(bs, ln, h))
+
+
+# ---------------------------------------------------------------------------
+# Dense matmul with a fused epilogue
+# ---------------------------------------------------------------------------
+
+def _act(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+    """``_apply_act`` of the Pallas kernels: none, relu, relu2, gelu (the
+    tanh form, ``jax.nn.gelu``'s default) or silu."""
+    if activation in (None, "none"):
+        return y
+    if activation == "relu":
+        return torch.relu(y)
+    if activation == "relu2":
+        r = torch.relu(y)
+        return r * r
+    if activation == "gelu":
+        return F.gelu(y, approximate="tanh")
+    if activation == "silu":
+        return y * torch.sigmoid(y)
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def matmul(x, w, bias=None, *, activation=None):
+    """act(x (M, K) @ w (K, N) + bias (N,)): fp32 product, bias and
+    activation in fp32, one cast to x's dtype."""
+    y = x.float() @ w.float()
+    if bias is not None:
+        y = y + bias.float()
+    return _act(y, activation).to(x.dtype)
+
+
+def gated_matmul(x, w_gate, w_up, *, activation="silu"):
+    """act(x @ w_gate) * (x @ w_up), both products and the gate in fp32,
+    one cast to x's dtype."""
+    xf = x.float()
+    g = _act(xf @ w_gate.float(), activation)
+    return (g * (xf @ w_up.float())).to(x.dtype)
+
+
+# largest |act'| of gelu (tanh form, 1.129 near 1.5) and silu (1.0998 near 2.4)
+_ACT_SLOPE = {"gelu": 1.13, "silu": 1.1}
+
+
+def _act_error(z, dz, activation):
+    """Bound on |act(z') - act(z)| over |z' - z| <= dz, plus each side's
+    evaluation error of act: the slope bound times dz (relu2: ``(2 r + dz)
+    dz`` with r = relu(z)), and for relu2 the square's rounding, for gelu
+    and silu a few ulps of |act| and |z| (tanh/exp and the cancellation of
+    ``1 + tanh`` far below 0)."""
+    if activation in (None, "none", "relu"):
+        return dz
+    a = _act(z, activation).abs()
+    if activation == "relu2":
+        return (2 * torch.relu(z) + dz) * dz + 2 * _U32 * a
+    return _ACT_SLOPE[activation] * dz + 8 * _U32 * (a + z.abs())
+
+
+def _product_bound(xf, wf):
+    """(x @ w, the limit on two fp32 computations of it in different
+    orders): each lies within ``gamma_K sum_k |x_k w_k|`` of the exact
+    sum, whatever the order or the use of FMA."""
+    return xf @ wf, 2 * _gamma(xf.shape[-1]) * (xf.abs() @ wf.abs())
+
+
+def matmul_limit(x, w, want, bias=None, *, activation=None):
+    """Per-element limit on |kernel - :func:`matmul`| (``want``), for
+    another fp32 summation of the same products: the two sums' distance
+    (:func:`_product_bound`) and, with a bias, each side's rounding of
+    the add, carried through the activation (:func:`_act_error`), plus
+    one step of ``want``'s dtype where both round the result."""
+    z, dz = _product_bound(x.float(), w.float())
+    if bias is not None:
+        z = z + bias.float()
+        dz = dz + 2 * _U32 * z.abs()
+    lim = _act_error(z, dz, activation)
+    return _SLACK * (lim + torch.finfo(want.dtype).eps * want.float().abs())
+
+
+def gated_matmul_limit(x, w_gate, w_up, want, *, activation="silu"):
+    """Per-element limit on |kernel - :func:`gated_matmul`| (``want``):
+    the gate's and the up product's distances (:func:`_product_bound`),
+    the gate's through the activation (e_a), combined as
+    ``e_a (|u| + d_u) + |act(g)| d_u`` plus each side's rounding of the
+    product, and one step of ``want``'s dtype."""
+    xf = x.float()
+    g, dg = _product_bound(xf, w_gate.float())
+    u, du = _product_bound(xf, w_up.float())
+    ea = _act_error(g, dg, activation)
+    a = _act(g, activation).abs()
+    lim = ea * (u.abs() + du) + a * du + 2 * _U32 * a * u.abs()
+    return _SLACK * (lim + torch.finfo(want.dtype).eps * want.float().abs())

@@ -7,8 +7,10 @@ plain dicts of tensors; every weight matmul can be routed through an
 injected ``linear(x, name)`` callable (the backend seam).  Norm statistics
 and attention scores are computed in fp32.  Every RMSNorm (the block
 norms and the qk-norms) goes through
-:func:`repro_torch.kernels.ops.rmsnorm`: the hand-written kernel on a
-CUDA tensor, its plain version on the CPU.
+:func:`repro_torch.kernels.ops.rmsnorm`, and the first stage of an MLP
+over resident weights through ``ops.matmul`` / ``ops.gated_matmul``
+(:func:`mlp_in`): the hand-written kernels on a CUDA tensor, their plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -173,16 +175,44 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(cfg, p: Dict, x: torch.Tensor, linear=None) -> torch.Tensor:
+def mlp_in(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP's first stage on device-resident weights in ``p``, fused
+    through the matmul kernels: ``act(x @ w_gate) * (x @ w_up)`` for a
+    gated MLP (:func:`repro_torch.kernels.ops.gated_matmul`), ``act(x @ w_in
+    + b_in)`` otherwise (:func:`repro_torch.kernels.ops.matmul`).  One fp32
+    sum and one cast, where the JAX package's jnp dots round each product
+    to the model dtype before the activation (the same numbers in fp32)."""
     kind = cfg.mlp_kind
-    if linear is None:
-        def linear(h, nm):
-            y = h @ p[nm]
-            bias = {"w_in": "b_in", "w_down": "b_down"}.get(nm)
-            if cfg.attn_bias and bias is not None and bias in p:
-                y = y + p[bias]
-            return y
+    x2 = x.reshape(-1, x.shape[-1])
     if kind.startswith("gated"):
+        h = K.gated_matmul(x2, p["w_gate"], p["w_up"],
+                           activation="silu" if kind == "gated_silu"
+                           else "gelu")
+    else:
+        bias = p.get("b_in") if cfg.attn_bias else None
+        h = K.matmul(x2, p["w_in"], bias,
+                     activation=kind if kind in ("relu2", "gelu") else "relu")
+    return h.reshape(*x.shape[:-1], h.shape[-1])
+
+
+def mlp(cfg, p: Dict, x: torch.Tensor, linear=None,
+        fused_in=None) -> torch.Tensor:
+    """The MLP block.  Without ``linear`` the weights are the resident ones
+    in ``p``: the first stage runs fused (:func:`mlp_in`) and ``w_down`` as
+    ``h @ w (+ b)``.  A backend passes its ``linear(x, name)`` for every
+    weight, and, where it holds each layer's weights whole on the device,
+    ``fused_in(x)``, its :func:`mlp_in`; without one (a backend that
+    splits each weight between host and device) the first stage is its
+    linears and the activation, as in the JAX package."""
+    if linear is None:
+        y = mlp_in(cfg, p, x) @ p["w_down"]
+        if cfg.attn_bias and "b_down" in p:
+            y = y + p["b_down"]
+        return y
+    kind = cfg.mlp_kind
+    if fused_in is not None:
+        h = fused_in(x)
+    elif kind.startswith("gated"):
         act = F.silu if kind == "gated_silu" else _gelu
         h = act(linear(x, "w_gate")) * linear(x, "w_up")
     else:

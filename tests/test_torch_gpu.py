@@ -8,9 +8,11 @@ port is installed:
 
 Tolerances: 2e-5 for fp32 pages, 2e-4 for int8 pages, 1e-5 relative for
 the int8-weight matmul (fp32 arithmetic; different summation orders);
-for the dense-cache kernels and RMSNorm, element by element, the limits
-of ``ref.decode_attention_limit``, ``ref.flash_attention_limit`` and
-``ref.rmsnorm_limit``: fp32 summation order, one step of a bf16 output,
+for the dense-cache kernels, RMSNorm and the dense matmuls, element by
+element, the limits of ``ref.decode_attention_limit``,
+``ref.flash_attention_limit``, ``ref.rmsnorm_limit``,
+``ref.matmul_limit`` and ``ref.gated_matmul_limit``: fp32 summation
+order, one step of a bf16 output,
 and, over a bf16 cache, the most that rounding p to bf16 before the PV
 product can move the output (the kernels round p, the plain versions do
 not).
@@ -323,6 +325,7 @@ def test_oneshot_on_card_matches_cpu(cuda, kv_dtype):
     assert n["flash_attention"] == cfg.n_layers
     assert n["decode_attention"] == cfg.n_layers * 5
     assert n["rmsnorm"] == (2 * cfg.n_layers + 1) * 6
+    assert n["gated_matmul"] == cfg.n_layers * 6
     assert n["plain_dense_attention"] == 0
 
 
@@ -444,3 +447,81 @@ def test_mamba_oneshot_on_card_matches_cpu(cuda, s):
     assert n["ssd_chunk"] == (cfg.n_layers if chunked else 0)
     assert n["plain_ssd_scan"] == (0 if chunked else cfg.n_layers)
     assert n["rmsnorm"] == (2 * cfg.n_layers + 1) * 6
+
+
+MM_ACTS = [None, "relu", "relu2", "gelu", "silu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(256, 384), (200, 136), (97, 77)])
+@pytest.mark.parametrize("m", [1, 4, 37, 500, 2048])
+def test_matmul_kernels(cuda, m, k, n, dtype):
+    """Both matmul kernels against their plain versions, every activation,
+    with and without bias, at row counts of decode (1, 4), a ragged middle
+    (37), a paged prefill (500) and a one-shot prefill (2048); K and N not
+    multiples of 128, and (97, 77) off the 16-byte load path."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x, w, wu = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+                for s in ((m, k), (k, n), (k, n)))
+    b = torch.randn(n, generator=gen, device=cuda).to(dtype)
+    for act in MM_ACTS:
+        for bias in (None, b):
+            before = ops.launch_counts()["matmul"]
+            got = ops.matmul(x, w, bias, activation=act)
+            want = ref.matmul(x, w, bias, activation=act)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (m, n)
+            assert ops.launch_counts()["matmul"] == before + 1
+            _assert_within(got, want, ref.matmul_limit(x, w, want, bias,
+                                                       activation=act))
+        got = ops.gated_matmul(x, w, wu, activation=act)
+        want = ref.gated_matmul(x, w, wu, activation=act)
+        torch.cuda.synchronize()
+        _assert_within(got, want, ref.gated_matmul_limit(x, w, wu, want,
+                                                         activation=act))
+
+
+def test_matmul_wrappers_raise(cuda):
+    """A wrong dtype, a non-contiguous weight, a K that differs between x
+    and w, or a bias of another dtype raises; nothing falls back."""
+    from repro_torch.kernels import hete_matmul as H
+    x = torch.zeros((4, 32), device=cuda)
+    w = torch.zeros((32, 16), device=cuda)
+    with pytest.raises(TypeError):
+        H.matmul(x.half(), w.half())
+    with pytest.raises(TypeError):
+        H.gated_matmul(x, w.bfloat16(), w)
+    with pytest.raises(ValueError):
+        H.matmul(x, torch.zeros((16, 32), device=cuda).t())
+    with pytest.raises(ValueError):
+        H.gated_matmul(x, w, torch.zeros((16, 32), device=cuda).t())
+    with pytest.raises(ValueError):
+        H.matmul(x, torch.zeros((31, 16), device=cuda))
+    with pytest.raises(ValueError):
+        H.gated_matmul(x[:, :31], w, w)
+    with pytest.raises(ValueError):
+        H.matmul(x, w, torch.zeros(16, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        H.matmul(x, w, activation="tanh")
+
+
+def test_opt_resident_on_card_matches_cpu(cuda):
+    """A reduced OPT (fp32, fc1 with bias and ReLU) one-shot on the card
+    gives the CPU run's greedy tokens, with one ``matmul`` launch per
+    layer and forward and no gated one."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Generator
+    cfg = reduced(get_config("opt-6.7b"))
+    params = M.init_params(cfg, 0, device="cpu")
+    prompts = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (3, 20)).astype(np.int32)
+    want = Generator(cfg, params).generate({"tokens": prompts}, 6)
+    ops.reset_launch_counts()
+    got = Generator(cfg, M.tree_to(params, cuda)).generate(
+        {"tokens": prompts}, 6)
+    n = ops.launch_counts()
+    assert got.tokens == want.tokens
+    assert n["matmul"] == cfg.n_layers * 6 and n["gated_matmul"] == 0

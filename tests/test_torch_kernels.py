@@ -195,7 +195,9 @@ def test_ops_cpu_route_is_plain_version():
                                  "paged_prefill_attention": 0,
                                  "q8_matmul": 0, "decode_attention": 0,
                                  "flash_attention": 0, "rmsnorm": 0,
-                                 "ssd_chunk": 0, "plain_dense_attention": 0,
+                                 "ssd_chunk": 0, "matmul": 0,
+                                 "gated_matmul": 0,
+                                 "plain_dense_attention": 0,
                                  "plain_ssd_scan": 0}
 
 
