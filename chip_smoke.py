@@ -92,10 +92,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    3b's and 3e's (bf16, SiLU), each within ``ref.matmul_limit`` /
    ``ref.gated_matmul_limit`` (shown to reject a sum missing its last K
    block and a result without its bias, or the activation on the up
-   product), timed beside the plain version and ``torch.matmul`` of the
-   same product alone (``product_ms``: PyTorch has no single call for the
-   fused function, so ``library_ms`` is null); one shape off the main
-   path each, logged only;
+   product, and in fp32 the products of operands rounded to TF32), timed
+   beside the plain version, ``torch.matmul`` of the same product alone
+   (``product_ms``) and, for ``matmul``, the library call
+   ``torch._addmm_activation`` (bias, product and ReLU or GELU in one
+   cuBLASLt call; PyTorch has no single call for the gated function, so
+   its ``library_ms`` is null); one shape off the main path each, logged
+   only;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1281,22 +1284,48 @@ def check_ssd_kernel(counts_3d):
 # phase 4d: the dense matmul kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def tf32(t):
+    """t with the low 13 bits of each fp32 mantissa cleared: TF32's 10."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def library_addmm(x, w, b, act, want, limit):
+    """``torch._addmm_activation``: act(b + x @ w) in one cuBLASLt call,
+    for ReLU or (``use_gelu``, its tanh form) GELU with a bias, as the
+    library yardstick; None for another function or where it lies beyond
+    the limit."""
+    if b is None or act not in ("relu", "gelu"):
+        return None
+    gelu = act == "gelu"
+    err, ratio = excess(torch._addmm_activation(b, x, w, use_gelu=gelu),
+                        want, limit)
+    log(f"library addmm_activation: max_abs_err={err:.3e} worst "
+        f"err/limit={ratio:.3f}")
+    if ratio > 1.0:
+        log("library addmm_activation: disagrees; not used")
+        return None
+    return lambda: torch._addmm_activation(b, x, w, use_gelu=gelu)
+
+
 def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
              bias=False):
     """One shape of ``matmul`` or ``gated_matmul`` on random operands at
     the model's scale (x ~ N(0, 1), weights ~ N(0, 1/K), bias ~ N(0, 1)):
     within its per-element limit, the limit shown to reject a sum missing
     its last 128-wide K block and a result without its bias (or, gated,
-    the activation on the up product); timed beside its plain version,
-    one ``torch.matmul`` of the same product with no epilogue (for the
-    gated kernel over both weights side by side; ``product_ms``, not a
-    library call for the same function, which PyTorch has none of) and
-    the bound."""
+    the activation on the up product), and in fp32 the products of
+    operands rounded to TF32; timed beside its plain version, one
+    ``torch.matmul`` of the same product with no epilogue (for the gated
+    kernel over both weights side by side; ``product_ms``), the library
+    call (:func:`library_addmm`, ``matmul`` only) and the bound.  In
+    fp32 it also logs how far the kernel's sum x @ w lies from cuBLAS's in
+    units of ``ref._product_bound``, which set ``ref._MM_UNITS``."""
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     ws = [(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5)
           .to(dtype) for _ in range(2 if gated else 1)]
     b = torch.randn(n, generator=gen, device="cuda").to(dtype) \
         if bias else None
+    f32 = dtype == torch.float32
     tag = f"{name}, "
     if gated:
         def kernel():
@@ -1307,9 +1336,13 @@ def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
         want = plain()
         limit = ref.gated_matmul_limit(x, *ws, want, activation=act)
         rejects(plain(x, ws[1], ws[0]), want, limit,
-                     tag + "the activation on the up product")
+                tag + "the activation on the up product")
         short = plain(x[:, :-128], ws[0][:-128], ws[1][:-128])
+        if f32:
+            rejects(plain(tf32(x), tf32(ws[0]), tf32(ws[1])), want, limit,
+                    tag + "operands rounded to TF32")
         wcat = torch.cat(ws, dim=1)
+        library = None
     else:
         def kernel():
             return k_mm.matmul(x, ws[0], b, activation=act)
@@ -1320,10 +1353,20 @@ def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
         limit = ref.matmul_limit(x, ws[0], want, b, activation=act)
         if bias:
             rejects(plain(bb=None), want, limit,
-                         tag + "a result without its bias")
+                    tag + "a result without its bias")
         short = plain(x[:, :-128], ws[0][:-128])
+        if f32:
+            rejects(plain(tf32(x), tf32(ws[0])), want, limit,
+                    tag + "operands rounded to TF32")
         wcat = ws[0]
+        library = library_addmm(x, ws[0], b, act, want, limit)
     rejects(short, want, limit, tag + "a sum missing its last K block")
+    if f32:
+        z, zlim = ref._product_bound(x, ws[0])
+        units = float(((k_mm.matmul(x, ws[0]) - z).abs()
+                       / (zlim / ref._MM_UNITS)).max())
+        log(f"kernel {name}: its fp32 sum lies {units:.3f} units from "
+            f"cuBLAS's (the limit allows {ref._MM_UNITS})")
     got = kernel()
     el = x.element_size()
     nbytes = (x.numel() + sum(w.numel() for w in ws) + m * n
@@ -1332,7 +1375,7 @@ def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
     entry = kernel_entry(
         name, "src/repro_torch/csrc/hete_matmul.cu",
         "src/repro/kernels/hete_matmul.py:" + ("126" if gated else "79"),
-        launches, got, want, limit, kernel, plain, None, nbytes, flops,
+        launches, got, want, limit, kernel, plain, library, nbytes, flops,
         BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
     entry["product_ms"] = time_ms(lambda: torch.matmul(x, wcat))
     log(f"kernel {name}: product_ms={entry['product_ms']:.4f} "

@@ -9,7 +9,8 @@
 //   and the activation (none, relu, relu2, gelu in its tanh form, silu) once
 //   in fp32 on the finished sum, and write x's dtype: one rounding, as the
 //   Pallas kernels do.  The Pallas kernels assert that their 128-blocks
-//   divide M, N and K; these take any M, N and K and mask the ragged edges.
+//   divide M, N and K; these take any M, and K and N that are multiples of
+//   8 (bf16) or 4 (fp32), and mask the ragged edges of their tiles.
 //
 // What bounds it on the H100.  Prefill (M = B * S, hundreds to thousands
 //   of rows) is bound by operations: at Mistral-NeMo-12B's gated MLP (2048 x
@@ -40,9 +41,9 @@
 //     256 threads read float4s of the weights, each thread four K rows at a
 //     time against every row of x, and the partial sums meet in shared
 //     memory.
-//   Wide loads (16 bytes) need K and N to be multiples of 8 (bf16) or 4
-//   (fp32) and aligned operands; other shapes take the same kernels with
-//   element-wise loads.
+//   Every load and store of x, the weights and y is 16 bytes wide, so K, N
+//   and x's row stride are multiples of 8 (bf16) or 4 (fp32) elements and
+//   the operands are 16-byte aligned; the entry points refuse anything else.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +85,16 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16 bytes of read-only global memory.  Volatile, so the compiler keeps
+// the load where it is written instead of sinking it to its first use.
+__device__ __forceinline__ float4 ldg16(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -143,37 +154,20 @@ template <class C, int NW>
 __device__ __forceinline__ void tc_load(__nv_bfloat16* as, __nv_bfloat16* bs,
                                         const __nv_bfloat16* __restrict__ x, long long lda,
                                         const __nv_bfloat16* const (&w)[2], int m, int n,
-                                        int k, int m0, int n0, int k0, bool vec) {
+                                        int k, int m0, int n0, int k0) {
   constexpr int AC = C::BM * C::BK / 8, BC = C::BK * C::BN / 8;  // 16-byte chunks
-  if (vec) {
-    for (int c = threadIdx.x; c < AC; c += C::kThreads) {
-      const int r = c / (C::BK / 8), kc = (c % (C::BK / 8)) * 8;
-      const bool ok = m0 + r < m && k0 + kc < k;
-      cp_async16(as + r * C::AS + kc, ok ? x + (long long)(m0 + r) * lda + k0 + kc : x, ok);
-    }
+  for (int c = threadIdx.x; c < AC; c += C::kThreads) {
+    const int r = c / (C::BK / 8), kc = (c % (C::BK / 8)) * 8;
+    const bool ok = m0 + r < m && k0 + kc < k;
+    cp_async16(as + r * C::AS + kc, ok ? x + (long long)(m0 + r) * lda + k0 + kc : x, ok);
+  }
 #pragma unroll
-    for (int g = 0; g < NW; ++g) {
-      for (int c = threadIdx.x; c < BC; c += C::kThreads) {
-        const int r = c / (C::BN / 8), nc = (c % (C::BN / 8)) * 8;
-        const bool ok = k0 + r < k && n0 + nc < n;
-        cp_async16(bs + (g * C::BK + r) * C::BS + nc,
-                   ok ? w[g] + (long long)(k0 + r) * n + n0 + nc : w[g], ok);
-      }
-    }
-  } else {
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
-    for (int e = threadIdx.x; e < C::BM * C::BK; e += C::kThreads) {
-      const int r = e / C::BK, kc = e % C::BK;
-      as[r * C::AS + kc] = (m0 + r < m && k0 + kc < k)
-                               ? x[(long long)(m0 + r) * lda + k0 + kc] : zero;
-    }
-#pragma unroll
-    for (int g = 0; g < NW; ++g) {
-      for (int e = threadIdx.x; e < C::BK * C::BN; e += C::kThreads) {
-        const int r = e / C::BN, nc = e % C::BN;
-        bs[(g * C::BK + r) * C::BS + nc] = (k0 + r < k && n0 + nc < n)
-                                               ? w[g][(long long)(k0 + r) * n + n0 + nc] : zero;
-      }
+  for (int g = 0; g < NW; ++g) {
+    for (int c = threadIdx.x; c < BC; c += C::kThreads) {
+      const int r = c / (C::BN / 8), nc = (c % (C::BN / 8)) * 8;
+      const bool ok = k0 + r < k && n0 + nc < n;
+      cp_async16(bs + (g * C::BK + r) * C::BS + nc,
+                 ok ? w[g] + (long long)(k0 + r) * n + n0 + nc : w[g], ok);
     }
   }
 }
@@ -183,7 +177,7 @@ __global__ void __launch_bounds__(C::kThreads)
 tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
           const __nv_bfloat16* __restrict__ w0, const __nv_bfloat16* __restrict__ w1,
           const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, int m,
-          int n, int k, int act, bool vec) {
+          int n, int k, int act) {
   constexpr int NW = GATED ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -210,7 +204,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
   for (int s = 0; s < C::STAGES - 1; ++s) {
     if (s < ktiles)
       tc_load<C, NW>(smem + s * STAGE, smem + s * STAGE + A_ELEMS, x, lda, w, m, n, k, m0,
-                     n0, s * C::BK, vec);
+                     n0, s * C::BK);
     cp_async_commit();
   }
 
@@ -221,7 +215,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
     if (nk < ktiles) {
       const int s = nk % C::STAGES;
       tc_load<C, NW>(smem + s * STAGE, smem + s * STAGE + A_ELEMS, x, lda, w, m, n, k, m0,
-                     n0, nk * C::BK, vec);
+                     n0, nk * C::BK);
     }
     cp_async_commit();
 
@@ -253,9 +247,9 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
   }
   cp_async_wait<0>();
 
-  // epilogue in registers: bias and activation in fp32, one cast
+  // epilogue in registers: bias and activation in fp32, one cast (n is
+  // even, so a thread's two columns are both in range or both out)
   const int gid = lane / 4, tig = lane % 4;
-  const bool pairs = (n % 2) == 0;
 #pragma unroll
   for (int i = 0; i < C::MT; ++i) {
 #pragma unroll
@@ -265,7 +259,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
       float b0 = 0.f, b1 = 0.f;
       if (!GATED && bias != nullptr) {
         b0 = __bfloat162float(bias[col]);
-        if (col + 1 < n) b1 = __bfloat162float(bias[col + 1]);
+        b1 = __bfloat162float(bias[col + 1]);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -279,13 +273,8 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
           v0 = apply_act(acc[0][i][j][2 * h] + b0, act);
           v1 = apply_act(acc[0][i][j][2 * h + 1] + b1, act);
         }
-        __nv_bfloat16* out = y + (long long)row * n + col;
-        if (pairs && col + 1 < n) {
-          *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          out[0] = __float2bfloat16(v0);
-          if (col + 1 < n) out[1] = __float2bfloat16(v1);
-        }
+        *reinterpret_cast<__nv_bfloat162*>(y + (long long)row * n + col) =
+            __floats2bfloat162_rn(v0, v1);
       }
     }
   }
@@ -293,7 +282,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
 
 template <class C, bool GATED>
 int launch_tc(const void* x, long long lda, const void* w0, const void* w1, const void* bias,
-              void* y, int m, int n, int k, int act, bool vec, cudaStream_t stream) {
+              void* y, int m, int n, int k, int act, cudaStream_t stream) {
   constexpr size_t smem = tc_smem<C, GATED ? 2 : 1>();
   cudaError_t err = cudaFuncSetAttribute(
       tc_kernel<C, GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -302,7 +291,7 @@ int launch_tc(const void* x, long long lda, const void* w0, const void* w1, cons
   tc_kernel<C, GATED><<<grid, C::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), lda, static_cast<const __nv_bfloat16*>(w0),
       static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(y), m, n, k, act, vec);
+      static_cast<__nv_bfloat16*>(y), m, n, k, act);
   return (int)cudaGetLastError();
 }
 
@@ -320,7 +309,7 @@ template <int BN, bool GATED>
 __global__ void __launch_bounds__(kFpThreads, 2)   // 128 registers: two blocks an SM
 fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restrict__ w0,
                 const float* __restrict__ w1, const float* __restrict__ bias,
-                float* __restrict__ y, int m, int n, int k, int act, bool vec) {
+                float* __restrict__ y, int m, int n, int k, int act) {
   constexpr int NW = GATED ? 2 : 1;
   constexpr int TN = BN / 16;               // columns a thread holds, per weight
   constexpr int BCH = BN / 4;               // float4 chunks in a weight row
@@ -337,31 +326,28 @@ fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restr
   const int br = brem / BCH, bc = (brem % BCH) * 4;         // w: 4 columns of one row
   float ra[4], rb[4];
 
+  // k and n are multiples of 4, so a float4 is all in range or all out.
+  // The next tile's loads must stay in flight while the current one is
+  // multiplied: each fetch reads a valid address through ldg16 (the
+  // compiler sank a plain load to the stash, which then waited on it), and
+  // the zero fill of the ragged edges waits for the stash.
+  bool oka = false, okb = false;
   auto fetch = [&](int k0) {
     const int row = m0 + ar, kc = k0 + ak;
-    if (vec && row < m && kc < k) {
-      const float4 v = *reinterpret_cast<const float4*>(x + (long long)row * lda + kc);
-      ra[0] = v.x; ra[1] = v.y; ra[2] = v.z; ra[3] = v.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ra[e] = (row < m && kc + e < k) ? x[(long long)row * lda + kc + e] : 0.f;
-    }
+    oka = row < m && kc < k;
+    const float4 va = ldg16(oka ? x + (long long)row * lda + kc : x);
+    ra[0] = va.x; ra[1] = va.y; ra[2] = va.z; ra[3] = va.w;
     const int kr = k0 + br, col = n0 + bc;
     const float* wg = bg ? w1 : w0;
-    if (vec && kr < k && col < n) {
-      const float4 v = *reinterpret_cast<const float4*>(wg + (long long)kr * n + col);
-      rb[0] = v.x; rb[1] = v.y; rb[2] = v.z; rb[3] = v.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        rb[e] = (kr < k && col + e < n) ? wg[(long long)kr * n + col + e] : 0.f;
-    }
+    okb = kr < k && col < n;
+    const float4 vb = ldg16(okb ? wg + (long long)kr * n + col : wg);
+    rb[0] = vb.x; rb[1] = vb.y; rb[2] = vb.z; rb[3] = vb.w;
   };
   auto stash = [&](int buf) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) as[buf][ak + e][ar] = ra[e];
-    *reinterpret_cast<float4*>(&bs[buf][bg][br][bc]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+    for (int e = 0; e < 4; ++e) as[buf][ak + e][ar] = oka ? ra[e] : 0.f;
+    *reinterpret_cast<float4*>(&bs[buf][bg][br][bc]) =
+        okb ? make_float4(rb[0], rb[1], rb[2], rb[3]) : make_float4(0.f, 0.f, 0.f, 0.f);
   };
 
   float acc[NW][8][TN];
@@ -413,6 +399,7 @@ fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restr
 #pragma unroll
     for (int q = 0; q < TN / 4; ++q) {
       const int col = n0 + q * 64 + tx * 4;
+      if (col >= n) continue;
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -420,18 +407,11 @@ fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restr
         if (GATED) {
           v[e] = apply_act(acc[0][i][j], act) * acc[NW - 1][i][j];
         } else {
-          const float b = (bias != nullptr && col + e < n) ? bias[col + e] : 0.f;
-          v[e] = apply_act(acc[0][i][j] + b, act);
+          v[e] = apply_act(acc[0][i][j] + (bias != nullptr ? bias[col + e] : 0.f), act);
         }
       }
-      float* out = y + (long long)row * n + col;
-      if (vec && col + 3 < n) {
-        *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (col + e < n) out[e] = v[e];
-      }
+      *reinterpret_cast<float4*>(y + (long long)row * n + col) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
@@ -447,7 +427,7 @@ template <int MR, bool GATED>
 __global__ void __launch_bounds__(kFpThreads)
 fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __restrict__ w0,
                  const float* __restrict__ w1, const float* __restrict__ bias,
-                 float* __restrict__ y, int m, int n, int k, int act, bool vec) {
+                 float* __restrict__ y, int m, int n, int k, int act) {
   constexpr int NW = GATED ? 2 : 1;
   constexpr int kWarps = kFpThreads / 32;
   __shared__ float red[kWarps][NW][MR][kSkCols];
@@ -465,7 +445,7 @@ fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __rest
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[g][r][e] = 0.f;
 
-  if (vec && col < n) {
+  if (col < n) {
 #pragma unroll 2
     for (int kb = kg * 4; kb < k; kb += 4 * kSkGroups) {
       float4 wv[NW][4];
@@ -488,22 +468,6 @@ fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __rest
             acc[g][r][2] = fmaf(xs[i], wv[g][i].z, acc[g][r][2]);
             acc[g][r][3] = fmaf(xs[i], wv[g][i].w, acc[g][r][3]);
           }
-      }
-    }
-  } else if (!vec) {
-    for (int kb = kg * 4; kb < k; kb += 4 * kSkGroups) {
-      for (int i = 0; i < 4 && kb + i < k; ++i) {
-#pragma unroll
-        for (int r = 0; r < MR; ++r) {
-          if (r >= m) break;
-          const float xs = x[(long long)r * lda + kb + i];
-#pragma unroll
-          for (int g = 0; g < NW; ++g)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (col + e < n)
-                acc[g][r][e] = fmaf(xs, w[g][(long long)(kb + i) * n + col + e], acc[g][r][e]);
-        }
       }
     }
   }
@@ -546,7 +510,7 @@ fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __rest
 
 template <bool GATED>
 int launch_fp(const void* x, long long lda, const void* w0, const void* w1, const void* bias,
-              void* y, int m, int n, int k, int act, bool vec, cudaStream_t stream) {
+              void* y, int m, int n, int k, int act, cudaStream_t stream) {
   const float* xf = static_cast<const float*>(x);
   const float* w0f = static_cast<const float*>(w0);
   const float* w1f = static_cast<const float*>(w1);
@@ -556,7 +520,7 @@ int launch_fp(const void* x, long long lda, const void* w0, const void* w1, cons
     const unsigned blocks = (unsigned)((n + kSkCols - 1) / kSkCols);
 #define SK_LAUNCH(MR)                                                                    \
   fp_skinny_kernel<MR, GATED><<<blocks, kFpThreads, 0, stream>>>(xf, lda, w0f, w1f, bf, \
-                                                                  yf, m, n, k, act, vec)
+                                                                  yf, m, n, k, act)
     if (m <= 1) SK_LAUNCH(1);
     else if (m <= 2) SK_LAUNCH(2);
     else if (m <= 4) SK_LAUNCH(4);
@@ -566,7 +530,7 @@ int launch_fp(const void* x, long long lda, const void* w0, const void* w1, cons
     constexpr int BN = GATED ? 64 : 128;
     dim3 grid((m + kFpBM - 1) / kFpBM, (n + BN - 1) / BN);
     fp_tiled_kernel<BN, GATED><<<grid, kFpThreads, 0, stream>>>(xf, lda, w0f, w1f, bf, yf,
-                                                                 m, n, k, act, vec);
+                                                                 m, n, k, act);
   }
   return (int)cudaGetLastError();
 }
@@ -577,28 +541,30 @@ int dispatch(const void* x, long long lda, const void* w0, const void* w1, const
              void* y, int dtype, int m, int n, int k, int act, bool gated, void* stream) {
   if (m < 0 || n < 0 || k < 0 || act < kNone || act > kSilu || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  const int lanes = dtype == 0 ? 4 : 8;   // elements in 16 bytes
+  if (k % lanes || n % lanes || lda % lanes || !aligned16(x) || !aligned16(w0) ||
+      !aligned16(w1) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
   if (m == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int lanes = dtype == 0 ? 4 : 8;   // elements in 16 bytes
-  const bool vec = k % lanes == 0 && n % lanes == 0 && lda % lanes == 0 && aligned16(x) &&
-                   aligned16(w0) && aligned16(w1) && aligned16(y);
   if (dtype == 0) {
-    return gated ? launch_fp<true>(x, lda, w0, w1, bias, y, m, n, k, act, vec, s)
-                 : launch_fp<false>(x, lda, w0, w1, bias, y, m, n, k, act, vec, s);
+    return gated ? launch_fp<true>(x, lda, w0, w1, bias, y, m, n, k, act, s)
+                 : launch_fp<false>(x, lda, w0, w1, bias, y, m, n, k, act, s);
   }
   if (m <= 48) {
-    return gated ? launch_tc<TcDecode, true>(x, lda, w0, w1, bias, y, m, n, k, act, vec, s)
-                 : launch_tc<TcDecode, false>(x, lda, w0, w1, bias, y, m, n, k, act, vec, s);
+    return gated ? launch_tc<TcDecode, true>(x, lda, w0, w1, bias, y, m, n, k, act, s)
+                 : launch_tc<TcDecode, false>(x, lda, w0, w1, bias, y, m, n, k, act, s);
   }
-  return gated ? launch_tc<TcPrefillGated, true>(x, lda, w0, w1, bias, y, m, n, k, act, vec, s)
-               : launch_tc<TcPrefill, false>(x, lda, w0, w1, bias, y, m, n, k, act, vec, s);
+  return gated ? launch_tc<TcPrefillGated, true>(x, lda, w0, w1, bias, y, m, n, k, act, s)
+               : launch_tc<TcPrefill, false>(x, lda, w0, w1, bias, y, m, n, k, act, s);
 }
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16 (x, the weights, the bias and y alike).
 // x (M, K) with row stride lda and a unit column stride; w, w_gate, w_up
-// (K, N) and y (M, N) contiguous; bias (N,) or null.  act: 0 none, 1 relu,
+// (K, N) and y (M, N) contiguous; bias (N,) or null.  K, N and lda are
+// multiples of 16 bytes' elements, x, the weights and y 16-byte aligned.  act: 0 none, 1 relu,
 // 2 relu2, 3 gelu (tanh form), 4 silu.  Returns the launch's cudaError.
 extern "C" int hete_matmul(const void* x, long long lda, const void* w, const void* bias,
                            void* y, int dtype, int m, int n, int k, int act, void* stream) {

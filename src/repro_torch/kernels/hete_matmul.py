@@ -4,7 +4,10 @@
 :func:`matmul` computes ``act(x @ w + bias)`` and :func:`gated_matmul`
 ``act(x @ w_gate) * (x @ w_up)`` in one pass over x, each summing in fp32
 and rounding once to x's dtype, as the Pallas kernels do.  fp32 runs on
-the CUDA cores (no TF32), bf16 on the tensor cores.  Any M, N and K.  The
+the CUDA cores (no TF32), bf16 on the tensor cores.  Any M; K, N and x's
+row stride in multiples of 16 bytes (8 bf16 or 4 fp32 elements), and
+16-byte aligned operands, as every model width is: the kernels load and
+store 16 bytes at a time, and the wrappers refuse other operands.  The
 plain versions are :func:`repro_torch.kernels.ref.matmul` and
 :func:`repro_torch.kernels.ref.gated_matmul`.
 """
@@ -36,7 +39,8 @@ def _activation(activation: Optional[str]) -> int:
 
 def _check(x: torch.Tensor, ws) -> None:
     """x (M, K) fp32 or bf16 with unit column stride; each w (K, N)
-    contiguous, of x's dtype."""
+    contiguous, of x's dtype; K, N and x's row stride multiples of 16
+    bytes, x and each w 16-byte aligned."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or x.stride(1) != 1 \
@@ -52,6 +56,13 @@ def _check(x: torch.Tensor, ws) -> None:
                              f"{x.shape[1]}, got {tuple(w.shape)}")
         if not w.is_contiguous():
             raise ValueError("weights must be contiguous")
+    lanes = 16 // x.element_size()
+    if any(v % lanes for v in (x.shape[1], ws[0].shape[1], _lda(x))):
+        raise ValueError(f"K, N and x's row stride must be multiples of "
+                         f"{lanes} for {x.dtype}, got K = {x.shape[1]}, "
+                         f"N = {ws[0].shape[1]}, stride {_lda(x)}")
+    if any(t.data_ptr() % 16 for t in (x, *ws)):
+        raise ValueError("x and the weights must be 16-byte aligned")
 
 
 def _lda(x: torch.Tensor) -> int:

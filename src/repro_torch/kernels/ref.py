@@ -434,11 +434,29 @@ def _act_error(z, dz, activation):
     return _ACT_SLOPE[activation] * dz + 8 * _U32 * (a + z.abs())
 
 
+# How many units of ``u sqrt(K) (sqrt(sum t_k^2) + |z|)`` two fp32 sums of
+# the same products may lie apart (:func:`_product_bound`).  The fp32
+# kernels of ``csrc/hete_matmul.cu`` lay at most 1.53 units from cuBLAS's
+# sums at the shapes of ``chip_smoke.py`` 4d (one H100 80GB HBM3, 700 W);
+# 5 leaves over 3x of room.
+_MM_UNITS = 5.0
+
+
 def _product_bound(xf, wf):
-    """(x @ w, the limit on two fp32 computations of it in different
-    orders): each lies within ``gamma_K sum_k |x_k w_k|`` of the exact
-    sum, whatever the order or the use of FMA."""
-    return xf @ wf, 2 * _gamma(xf.shape[-1]) * (xf.abs() @ wf.abs())
+    """(z = x @ w, the limit on two fp32 computations of it in different
+    orders).  Not the worst case ``gamma_K sum_k |x_k w_k|``: at K = 4096
+    that is about 2% of |z|, which a sum of TF32 or bf16-rounded
+    operands passes.  Each side's error is ``sum_k d_k S_k`` over its
+    partial sums S_k with |d_k| <= u; for terms t_k = x_k w_k of either
+    sign the S_k wander like ``sqrt(k) rms(t)`` and the error like ``u
+    sqrt(K) sqrt(sum t_k^2)``, for terms of one sign S_k grows to z and the
+    error like ``u sqrt(K) |z|``.  The limit is ``_MM_UNITS`` times
+    ``u sqrt(K) (sqrt(sum t_k^2) + |z|)``, its factor set from the card's
+    runs; operands rounded to TF32 (2^-11) lie hundreds of units off."""
+    z = xf @ wf
+    rms = ((xf * xf) @ (wf * wf)).sqrt()
+    unit = _U32 * math.sqrt(xf.shape[-1]) * (rms + z.abs())
+    return z, _MM_UNITS * unit
 
 
 def matmul_limit(x, w, want, bias=None, *, activation=None):

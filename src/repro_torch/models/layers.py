@@ -195,23 +195,17 @@ def mlp_in(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     return h.reshape(*x.shape[:-1], h.shape[-1])
 
 
-def mlp(cfg, p: Dict, x: torch.Tensor, linear=None,
-        fused_in=None) -> torch.Tensor:
-    """The MLP block.  Without ``linear`` the weights are the resident ones
-    in ``p``: the first stage runs fused (:func:`mlp_in`) and ``w_down`` as
-    ``h @ w (+ b)``.  A backend passes its ``linear(x, name)`` for every
-    weight, and, where it holds each layer's weights whole on the device,
-    ``fused_in(x)``, its :func:`mlp_in`; without one (a backend that
-    splits each weight between host and device) the first stage is its
-    linears and the activation, as in the JAX package."""
-    if linear is None:
-        y = mlp_in(cfg, p, x) @ p["w_down"]
-        if cfg.attn_bias and "b_down" in p:
-            y = y + p["b_down"]
-        return y
+def mlp(cfg, p: Dict, x: torch.Tensor, linear=None) -> torch.Tensor:
+    """The MLP block.  Where ``p`` holds the first stage's weights (the
+    stacked whole model's layer, or the per-layer dict of a backend that
+    holds its weights whole on the device) that stage runs fused
+    (:func:`mlp_in`); a backend that splits each weight between host and
+    device leaves them out, and its ``linear(x, name)`` runs the stage and
+    the activation follows, as in the JAX package.  ``w_down`` is
+    ``linear``'s where one is given, else ``h @ w (+ b)``."""
     kind = cfg.mlp_kind
-    if fused_in is not None:
-        h = fused_in(x)
+    if "w_gate" in p or "w_in" in p:
+        h = mlp_in(cfg, p, x)
     elif kind.startswith("gated"):
         act = F.silu if kind == "gated_silu" else _gelu
         h = act(linear(x, "w_gate")) * linear(x, "w_up")
@@ -223,4 +217,9 @@ def mlp(cfg, p: Dict, x: torch.Tensor, linear=None,
             h = _gelu(h)
         else:
             h = torch.relu(h)
-    return linear(h, "w_down")
+    if linear is not None:
+        return linear(h, "w_down")
+    y = h @ p["w_down"]
+    if cfg.attn_bias and "b_down" in p:
+        y = y + p["b_down"]
+    return y

@@ -499,11 +499,10 @@ def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
                        kv_format="bhtd")
 
 
-def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None,
-               fused_in=None):
+def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None):
     norm = norm_fn or (lambda pp, h: L.apply_norm(cfg, pp, h))
     h = norm(p["ln2"], x)
-    y = L.mlp(cfg, p["mlp"], h, linear=linear, fused_in=fused_in)
+    y = L.mlp(cfg, p["mlp"], h, linear=linear)
     if cfg.post_norm:
         y = norm(p["ln2_post"], y)
     return x + y
@@ -511,11 +510,9 @@ def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None,
 
 def decoder_layer(cfg, p, x, positions, *, kv_cache, cur_len, linear,
                   kind: str = "dense", ops: Optional[Dict] = None,
-                  block_tables=None, route: str, fused_in=None):
+                  block_tables=None, route: str):
     """One full decoder layer (attention + FFN), backend-parameterized.
-    ``fused_in(x)`` is the backend's fused MLP first stage, where it has
-    one (see :func:`repro_torch.models.layers.mlp`).  Returns (x,
-    new_kv_cache); see :func:`_apply_attn_layer`."""
+    Returns (x, new_kv_cache); see :func:`_apply_attn_layer`."""
     ops = ops or {}
     x, new_kv = _apply_attn_layer(cfg, p, x, positions, kind=kind,
                                   kv_cache=kv_cache, cur_len=cur_len,
@@ -524,8 +521,7 @@ def decoder_layer(cfg, p, x, positions, *, kv_cache, cur_len, linear,
                                   block_tables=block_tables,
                                   paged_attend_fn=ops.get("paged_attend"),
                                   route=route)
-    x = _apply_ffn(cfg, p, x, kind, linear=linear, norm_fn=ops.get("norm"),
-                   fused_in=fused_in)
+    x = _apply_ffn(cfg, p, x, kind, linear=linear, norm_fn=ops.get("norm"))
     return x, new_kv
 
 
@@ -533,9 +529,7 @@ def make_backend_ops(cfg: ModelConfig) -> Dict:
     """The device pieces between the engine's linears: norms, the dense
     attention route, the paged attention kernels, and the lm head.  PyTorch
     runs them eagerly, so these are the plain functions bound to ``cfg``
-    (the JAX package jits the same pieces).  A backend that holds its
-    weights whole on the device adds ``"mlp_in": fn(h, layer)``, its fused
-    MLP first stage (:func:`backend_prefill` hands it to each layer)."""
+    (the JAX package jits the same pieces)."""
     def _paged(q, k_pages, v_pages, block_tables, q_positions, kv_len,
                window, k_scale=None, v_scale=None):
         return _paged_attend(cfg, q, k_pages, v_pages, block_tables,
@@ -632,10 +626,8 @@ def backend_prefill(cfg: ModelConfig, shared: Dict, batch: Dict, cache: Dict,
     bt = cache.get("block_tables")
     q8 = "pages_ks0" in cache
     route = "paged" if paged else attention_route(cur_len, s)
-    fused = ops.get("mlp_in")
     for l in range(cfg.n_layers):
         lin = (lambda h, nm, _l=l: linear(h, f"blk{_l}.{nm}"))
-        fused_in = None if fused is None else (lambda h, _l=l: fused(h, _l))
         if paged:
             kvc = (cache[f"pages_k{l}"], cache[f"pages_v{l}"])
             if q8:
@@ -646,7 +638,7 @@ def backend_prefill(cfg: ModelConfig, shared: Dict, batch: Dict, cache: Dict,
                              kv_cache=kvc, cur_len=cur_len, linear=lin,
                              kind=kinds[l], ops=ops,
                              block_tables=bt if paged else None,
-                             route=route, fused_in=fused_in)
+                             route=route)
     new_cache["len"] = cur_len + s
     norm = ops.get("norm") or (lambda pp, h: L.apply_norm(cfg, pp, h))
     x = norm(shared["final_norm"], x if all_logits else x[:, -1:])

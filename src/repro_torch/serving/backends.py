@@ -32,7 +32,6 @@ from repro_torch.core.alpha import resolve_phase_tokens
 from repro_torch.core.engine import HeteGenEngine, ModulePlan, StreamStats
 from repro_torch.core.hw import H100_HOST, HardwareSpec
 from repro_torch.core.policy import LinearSpec, PolicyResult, build_policy
-from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -76,10 +75,10 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 class ResidentBackend:
-    """Device-resident weights; the shared forward runs eagerly.  Its ops
-    carry ``mlp_in``, each layer's fused MLP first stage
-    (:func:`repro_torch.models.layers.mlp_in`), which HeteGenBackend, whose
-    linears split every weight, does not have."""
+    """Device-resident weights; the shared forward runs eagerly.  Each
+    layer's small-param dict also holds its MLP's first-stage weights, so
+    that stage runs fused (:func:`repro_torch.models.layers.mlp`), which
+    HeteGenBackend, whose linears split every weight, leaves out."""
 
     cache_batch_axis = 0
 
@@ -90,18 +89,13 @@ class ResidentBackend:
         self.shared = M.tree_to(shared, self.device)
         self.weights = {k: v.to(self.device) for k, v in weights.items()}
         self.biases = {k: v.to(self.device) for k, v in biases.items()}
-        # each layer's MLP first stage runs fused over the resident weights,
-        # as in the stacked whole model (layers.mlp_in)
-        mlps = []
-        for l in range(cfg.n_layers):
-            w = {nm: self.weights[f"blk{l}.{nm}"]
-                 for nm in ("w_gate", "w_up", "w_in")
-                 if f"blk{l}.{nm}" in self.weights}
+        for l, small in enumerate(self.shared["layers"]):
+            for nm in ("w_gate", "w_up", "w_in"):
+                if f"blk{l}.{nm}" in self.weights:
+                    small["mlp"][nm] = self.weights[f"blk{l}.{nm}"]
             if f"blk{l}.w_in" in self.biases:
-                w["b_in"] = self.biases[f"blk{l}.w_in"]
-            mlps.append(w)
-        self._ops = dict(M.make_backend_ops(cfg),
-                         mlp_in=lambda h, l: L.mlp_in(cfg, mlps[l], h))
+                small["mlp"]["b_in"] = self.biases[f"blk{l}.w_in"]
+        self._ops = M.make_backend_ops(cfg)
 
     # -- LinearBackend surface -----------------------------------------
     def linear(self, x: torch.Tensor, name: str) -> torch.Tensor:

@@ -453,13 +453,14 @@ MM_ACTS = [None, "relu", "relu2", "gelu", "silu"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,n", [(256, 384), (200, 136), (97, 77)])
+@pytest.mark.parametrize("k,n", [(256, 384), (200, 136), (104, 88)])
 @pytest.mark.parametrize("m", [1, 4, 37, 500, 2048])
 def test_matmul_kernels(cuda, m, k, n, dtype):
     """Both matmul kernels against their plain versions, every activation,
     with and without bias, at row counts of decode (1, 4), a ragged middle
     (37), a paged prefill (500) and a one-shot prefill (2048); K and N not
-    multiples of 128, and (97, 77) off the 16-byte load path."""
+    multiples of 128, and (104, 88) not of 16 either, so the last K step
+    and the last column tile are part-filled."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=cuda).manual_seed(m + k + n)
     x, w, wu = (torch.randn(s, generator=gen, device=cuda).to(dtype)
@@ -484,7 +485,8 @@ def test_matmul_kernels(cuda, m, k, n, dtype):
 
 def test_matmul_wrappers_raise(cuda):
     """A wrong dtype, a non-contiguous weight, a K that differs between x
-    and w, or a bias of another dtype raises; nothing falls back."""
+    and w, a bias of another dtype, a K or N that is not a multiple of 16
+    bytes, or an x off 16-byte alignment raises; nothing falls back."""
     from repro_torch.kernels import hete_matmul as H
     x = torch.zeros((4, 32), device=cuda)
     w = torch.zeros((32, 16), device=cuda)
@@ -504,6 +506,13 @@ def test_matmul_wrappers_raise(cuda):
         H.matmul(x, w, torch.zeros(16, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         H.matmul(x, w, activation="tanh")
+    with pytest.raises(ValueError):
+        H.matmul(x[:, :30], torch.zeros((30, 16), device=cuda))
+    with pytest.raises(ValueError):
+        H.gated_matmul(x.bfloat16(), *(torch.zeros((32, 12), device=cuda,
+                                                   dtype=torch.bfloat16),) * 2)
+    with pytest.raises(ValueError):
+        H.matmul(torch.zeros(4 * 32 + 1, device=cuda)[1:].view(4, 32), w)
 
 
 def test_opt_resident_on_card_matches_cpu(cuda):

@@ -9,7 +9,8 @@ MLP that runs on it, the port against the JAX package.
   element within ``ref.matmul_limit`` / ``ref.gated_matmul_limit``; bf16
   within one bf16 step (2^-7 of |y|) plus that limit.
 * The limits reject a sum missing its last K block, a result without its
-  bias, and the activation applied to the up product instead of the gate.
+  bias, the activation applied to the up product instead of the gate, and
+  fp32 products of operands rounded to TF32.
 * The whole resident path on the CPU: reduced OPT-6.7B (fp32, fc1 with
   bias and ReLU) and reduced Mistral-NeMo-12B (gated SiLU) give the JAX
   package's logits within 1e-4 (fp32, different summation orders) and
@@ -55,6 +56,11 @@ def _arrays(seed, m, k, n):
 
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(a).to(dtype)
+
+
+def _tf32(t):
+    """t with the low 13 bits of each fp32 mantissa cleared: TF32's 10."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
 def _within(got, want, limit):
@@ -120,8 +126,9 @@ def test_bf16_matches_pallas_within_a_step(gated):
 def test_limits_reject_the_controls(m, k, n):
     """Each limit must fail a plain version with a known fault, so a
     kernel with that fault could not pass it: the sum missing its last
-    128-wide K block, the result without its bias, and the activation on
-    the up product instead of the gate."""
+    128-wide K block, the result without its bias, the activation on the
+    up product instead of the gate, and (the fp32 kernels must not use
+    TF32) the products of operands rounded to TF32."""
     x, w, wu, b = (_t(a) for a in _arrays(3, m, k, n))
     want = R.matmul(x, w, b, activation="relu")
     limit = R.matmul_limit(x, w, want, b, activation="relu")
@@ -131,9 +138,13 @@ def test_limits_reject_the_controls(m, k, n):
     g_limit = R.gated_matmul_limit(x, w, wu, g_want)
     g_short = R.gated_matmul(x[:, :-128], w[:-128], wu[:-128])
     swapped = R.gated_matmul(x, wu, w)
+    tf32 = R.matmul(_tf32(x), _tf32(w), b, activation="relu")
+    g_tf32 = R.gated_matmul(_tf32(x), _tf32(w), _tf32(wu))
     for bad, good, lim in ((short, want, limit), (no_bias, want, limit),
+                           (tf32, want, limit),
                            (g_short, g_want, g_limit),
-                           (swapped, g_want, g_limit)):
+                           (swapped, g_want, g_limit),
+                           (g_tf32, g_want, g_limit)):
         beyond = ((bad - good).abs() > lim).float().mean()
         assert float(beyond) > 0.25
     _within(R.matmul(x, w, b, activation="relu"), want, limit)
