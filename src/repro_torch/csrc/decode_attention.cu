@@ -33,6 +33,8 @@
 
 #include <type_traits>
 
+#include "launch_args.h"
+
 namespace {
 
 constexpr int kWarps = 16;
@@ -187,7 +189,7 @@ int launch(const void* q, long long q_sb, long long q_sh, const void* k,
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (K/V only, with scales).
-extern "C" int decode_attention(
+static int decode_attention_impl(
     const void* q, long long q_sb, long long q_sh, int q_dtype,
     const void* k, const void* v, long long kv_sb, long long kv_sh,
     long long kv_st, int kv_dtype, const void* k_scale, const void* v_scale,
@@ -207,4 +209,9 @@ extern "C" int decode_attention(
     return launch<__nv_bfloat16, int8_t, true>(DECODE_ARGS);
 #undef DECODE_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// Entry points: the arguments of the functions above, packed (launch_args.h).
+extern "C" int decode_attention(const long long* args) {
+  return call_packed(decode_attention_impl, args);
 }

@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_args.h"
+
 namespace {
 
 enum Act { kNone = 0, kRelu = 1, kRelu2 = 2, kGelu = 3, kSilu = 4 };
@@ -566,13 +568,21 @@ int dispatch(const void* x, long long lda, const void* w0, const void* w1, const
 // (K, N) and y (M, N) contiguous; bias (N,) or null.  K, N and lda are
 // multiples of 16 bytes' elements, x, the weights and y 16-byte aligned.  act: 0 none, 1 relu,
 // 2 relu2, 3 gelu (tanh form), 4 silu.  Returns the launch's cudaError.
-extern "C" int hete_matmul(const void* x, long long lda, const void* w, const void* bias,
-                           void* y, int dtype, int m, int n, int k, int act, void* stream) {
+static int hete_matmul_impl(const void* x, long long lda, const void* w, const void* bias,
+                            void* y, int dtype, int m, int n, int k, int act, void* stream) {
   return dispatch(x, lda, w, w, bias, y, dtype, m, n, k, act, false, stream);
 }
 
-extern "C" int hete_gated_matmul(const void* x, long long lda, const void* w_gate,
-                                 const void* w_up, void* y, int dtype, int m, int n, int k,
-                                 int act, void* stream) {
+static int hete_gated_matmul_impl(const void* x, long long lda, const void* w_gate,
+                                  const void* w_up, void* y, int dtype, int m, int n, int k,
+                                  int act, void* stream) {
   return dispatch(x, lda, w_gate, w_up, nullptr, y, dtype, m, n, k, act, true, stream);
+}
+
+// Entry points: the arguments of the functions above, packed (launch_args.h).
+extern "C" int hete_matmul(const long long* args) {
+  return call_packed(hete_matmul_impl, args);
+}
+extern "C" int hete_gated_matmul(const long long* args) {
+  return call_packed(hete_gated_matmul_impl, args);
 }

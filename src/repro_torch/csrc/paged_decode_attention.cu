@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_args.h"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -159,7 +161,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (pages only, with scales).
 // q and out share q_dtype; fp32 and bf16 pages go with a q of their dtype.
-extern "C" int paged_decode_attention(
+static int paged_decode_attention_impl(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* kv_len, void* out, int q_dtype, int kv_dtype, int b, int hq,
@@ -177,4 +179,9 @@ extern "C" int paged_decode_attention(
     return launch<__nv_bfloat16, int8_t>(PAGED_ARGS);
 #undef PAGED_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// Entry points: the arguments of the functions above, packed (launch_args.h).
+extern "C" int paged_decode_attention(const long long* args) {
+  return call_packed(paged_decode_attention_impl, args);
 }

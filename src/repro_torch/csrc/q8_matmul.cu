@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_args.h"
+
 namespace {
 
 constexpr int kBM = 64;
@@ -98,11 +100,16 @@ q8_matmul_kernel(const float* __restrict__ x,        // (M, K)
 
 }  // namespace
 
-extern "C" int q8_matmul_f32(const void* x, const void* q, const void* scale,
-                             void* y, int m, int n, int k, void* stream) {
+static int q8_matmul_f32_impl(const void* x, const void* q, const void* scale,
+                              void* y, int m, int n, int k, void* stream) {
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   q8_matmul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       (const float*)x, (const int8_t*)q, (const float*)scale, (float*)y, m, n,
       k);
   return (int)cudaGetLastError();
+}
+
+// Entry points: the arguments of the functions above, packed (launch_args.h).
+extern "C" int q8_matmul_f32(const long long* args) {
+  return call_packed(q8_matmul_f32_impl, args);
 }

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_args.h"
+
 namespace {
 
 constexpr int kTile = 16;                  // threads per side of the grid
@@ -282,14 +284,14 @@ size_t smem_bytes(int p, int n, int chunk) {
 // x (B, L, H, P), b/c (B, L, H, N) and dt (B, L, H) through their strides
 // (unit stride in the last dim); y (B, L, H, P), state (B, L / chunk, H, P, N)
 // and cum (B, L, H) are contiguous fp32.
-extern "C" int ssd_chunk(const void* x, long long xs_b, long long xs_l,
-                         long long xs_h, const void* dt, long long ds_b,
-                         long long ds_l, long long ds_h, const void* a,
-                         const void* bm, long long bs_b, long long bs_l,
-                         long long bs_h, const void* cm, long long cs_b,
-                         long long cs_l, long long cs_h, void* y, void* state,
-                         void* cum, int dtype, int batch, int seqlen, int heads,
-                         int p, int n, int chunk, void* stream) {
+static int ssd_chunk_impl(const void* x, long long xs_b, long long xs_l,
+                          long long xs_h, const void* dt, long long ds_b,
+                          long long ds_l, long long ds_h, const void* a,
+                          const void* bm, long long bs_b, long long bs_l,
+                          long long bs_h, const void* cm, long long cs_b,
+                          long long cs_l, long long cs_h, void* y, void* state,
+                          void* cum, int dtype, int batch, int seqlen, int heads,
+                          int p, int n, int chunk, void* stream) {
   const size_t smem = smem_bytes(p, n, chunk);
   if (smem == 0 || seqlen % chunk || batch < 1 || heads < 1)
     return (int)cudaErrorInvalidValue;
@@ -301,4 +303,9 @@ extern "C" int ssd_chunk(const void* x, long long xs_b, long long xs_l,
   if (dtype == 1) return launch<__nv_bfloat16>(SSD_ARGS);
 #undef SSD_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// Entry points: the arguments of the functions above, packed (launch_args.h).
+extern "C" int ssd_chunk(const long long* args) {
+  return call_packed(ssd_chunk_impl, args);
 }

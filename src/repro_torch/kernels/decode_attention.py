@@ -97,18 +97,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     sst = k_scale.stride() if q8 else (0, 0, 0)
     fn = build.c_function("decode_attention", "decode_attention", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), q.stride(0), q.stride(1), DTYPE_CODES[q.dtype],
+    build.launch(fn, dev.index,
+                 q.data_ptr(), q.stride(0), q.stride(1), DTYPE_CODES[q.dtype],
                  k.data_ptr(), v.data_ptr(), *k.stride()[:3],
                  DTYPE_CODES[k.dtype],
-                 k_scale.data_ptr() if q8 else None,
-                 v_scale.data_ptr() if q8 else None, *sst,
+                 k_scale.data_ptr() if q8 else 0,
+                 v_scale.data_ptr() if q8 else 0, *sst,
                  kv_len.data_ptr(), out.data_ptr(), out.stride(0),
                  out.stride(1), b, hq, hkv, t, d, 1.0 / math.sqrt(d),
-                 float(softcap or 0.0),
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attention launch failed (cudaError {err})")
+                 float(softcap or 0.0))
     decode_attention.launches += 1
     return out
 

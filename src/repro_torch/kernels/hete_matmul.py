@@ -88,13 +88,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     if m == 0 or n == 0:
         return y
     fn = build.c_function("hete_matmul", "hete_matmul", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), _lda(x), w.data_ptr(),
-                 None if bias is None else bias.data_ptr(), y.data_ptr(),
-                 DTYPE_CODES[x.dtype], m, n, k, act,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"hete_matmul launch failed (cudaError {err})")
+    build.launch(fn, dev.index, x.data_ptr(), _lda(x), w.data_ptr(),
+                 0 if bias is None else bias.data_ptr(), y.data_ptr(),
+                 DTYPE_CODES[x.dtype], m, n, k, act)
     matmul.launches += 1
     return y
 
@@ -117,13 +113,9 @@ def gated_matmul(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if m == 0 or n == 0:
         return y
     fn = build.c_function("hete_matmul", "hete_gated_matmul", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), _lda(x), w_gate.data_ptr(), w_up.data_ptr(),
-                 y.data_ptr(), DTYPE_CODES[x.dtype], m, n, k, act,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"hete_gated_matmul launch failed "
-                           f"(cudaError {err})")
+    build.launch(fn, dev.index,
+                 x.data_ptr(), _lda(x), w_gate.data_ptr(), w_up.data_ptr(),
+                 y.data_ptr(), DTYPE_CODES[x.dtype], m, n, k, act)
     gated_matmul.launches += 1
     return y
 

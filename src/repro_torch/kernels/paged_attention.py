@@ -25,8 +25,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def check_operands(q, k_pages, v_pages, block_tables, lens, k_scale,
@@ -90,17 +90,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     fn = build.c_function("paged_decode_attention",
                           "paged_decode_attention", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    build.launch(fn, q.device.index,
+                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
                  kv_len.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
                  DTYPE_CODES[k_pages.dtype], b, hq, hkv, ps, d,
                  block_tables.shape[1], 1.0 / math.sqrt(d),
-                 float(softcap or 0.0),
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_decode_attention launch failed "
-                           f"(cudaError {err})")
+                 float(softcap or 0.0))
     paged_decode_attention.launches += 1
     return out
 

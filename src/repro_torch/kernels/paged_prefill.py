@@ -52,17 +52,13 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     fn = build.c_function("paged_prefill_attention",
                           "paged_prefill_attention", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    build.launch(fn, q.device.index,
+                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
                  kv_offset.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
                  DTYPE_CODES[k_pages.dtype], b, hq, hkv, s, ps, d,
                  block_tables.shape[1], 1.0 / math.sqrt(d),
-                 float(softcap or 0.0), int(window or 0),
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_prefill_attention launch failed "
-                           f"(cudaError {err})")
+                 float(softcap or 0.0), int(window or 0))
     paged_prefill_attention.launches += 1
     return out
 

@@ -60,11 +60,9 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor,
     if m == 0 or n == 0:
         return y
     fn = build.c_function("q8_matmul", "q8_matmul_f32", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                 m, n, k, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"q8_matmul launch failed (cudaError {err})")
+    build.launch(fn, x.device.index,
+                 x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                 m, n, k)
     q8_matmul.launches += 1
     return y
 

@@ -203,6 +203,26 @@ def rmsnorm_limit(want):
     return 1e-6 + (1e-5 + _SLACK * torch.finfo(want.dtype).eps) * w
 
 
+# The most of a 16-bit RMSNorm output that may differ in its bits from
+# :func:`rmsnorm`.  One bf16 step, which :func:`rmsnorm_limit` must allow,
+# also passes a kernel that rounds the squares to bf16 before the mean, or
+# x * rsqrt to bf16 before the scale, or takes the mean over D - 1: at 2048
+# x 5120 bf16 those differ in 1.07e-2, 0.26 and 1.81e-2 of the elements.
+# A kernel that follows the plain version's fp32 operations and rounds once
+# differs only where its order of the sum moves rsqrt by an ulp and that
+# flips a rounding: 5.8e-6 of the elements for per-lane sums and a tree.
+# (In fp32 an ulp of rsqrt moves nearly every element's last bit, and the
+# limit's 1e-5 rejects each of those faults, so this holds 16-bit outputs.)
+RMSNORM_UNEQUAL_MAX = 1e-3
+
+
+def unequal_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The share of elements of ``got`` whose bits differ from ``want``'s
+    (both of one 16- or 32-bit dtype and shape)."""
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    return float((got.view(ints) != want.view(ints)).float().mean())
+
+
 def gather_pages(pages: torch.Tensor,
                  block_tables: torch.Tensor) -> torch.Tensor:
     """(P, H, ps, D) pages + (B, nb) tables -> contiguous (B, H, nb*ps, D)."""

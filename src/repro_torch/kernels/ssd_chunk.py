@@ -68,14 +68,11 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if bs == 0 or ln == 0 or h == 0:
         return y, state, cum
     fn = build.c_function("ssd_chunk", "ssd_chunk", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), *x.stride()[:3], dt.data_ptr(),
+    build.launch(fn, dev.index, x.data_ptr(), *x.stride()[:3], dt.data_ptr(),
                  *dt.stride(), a.data_ptr(), b.data_ptr(), *b.stride()[:3],
                  c.data_ptr(), *c.stride()[:3], y.data_ptr(),
                  state.data_ptr(), cum.data_ptr(), DTYPE_CODES[x.dtype], bs,
-                 ln, h, p, n, chunk, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"ssd_chunk launch failed (cudaError {err})")
+                 ln, h, p, n, chunk)
     ssd_chunk.launches += 1
     return y, state, cum
 

@@ -11,8 +11,12 @@ the ``ref.*_limit`` bounds: one bf16 step of the output, plus, for a bf16
 cache, the most that rounding p to bf16 before the PV product can move
 it (the Pallas kernels round p, the plain versions do not).  The CPU route of
 ``ops`` is the plain version and counts no launch; the CUDA wrappers
-raise on CPU tensors instead of falling back.
+raise on CPU tensors instead of falling back.  Controls: the flash limit
+rejects scores rounded to bf16 before the softmax, and the RMSNorm bit
+check (``ref.unequal_share``) three faults that stay within one bf16 step.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -248,3 +252,80 @@ def test_limits_reject_an_off_by_one(dtype):
     bad[:, :, 1:] = R.flash_attention(qs[:, :, 1:], k[:, :, :-1],
                                       v[:, :, :-1])
     assert bool(((bad.float() - want.float()).abs() > lim).any())
+
+
+def _flash_scores_bf16(q, k, v):
+    """The plain causal flash attention with one fault, the one a
+    tensor-core kernel invites: each score q . k rounded to bf16 before
+    the scale and the softmax."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qf = q.reshape(b, hkv, hq // hkv, sq, d).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qf, k.float())
+    s = s.to(torch.bfloat16).float() / math.sqrt(d)
+    ok = torch.arange(skv)[None, :] <= torch.arange(sq)[:, None]
+    p = torch.softmax(torch.where(ok, s, R.NEG_INF), dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def test_flash_limit_rejects_bf16_scores():
+    """``flash_attention_limit`` rejects scores rounded to bf16 before the
+    softmax at B 2, Hq 8, Hkv 2, S 512, D 128, causal, bf16, though in few
+    elements (the share is printed)."""
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    b, hq, hkv, s, d = 2, 8, 2, 512, 128
+    q = _t(rng.standard_normal((b, hq, s, d)).astype(np.float32), bf)
+    k = _t(rng.standard_normal((b, hkv, s, d)).astype(np.float32), bf)
+    v = _t(rng.standard_normal((b, hkv, s, d)).astype(np.float32), bf)
+    want = R.flash_attention(q, k, v)
+    lim = R.flash_attention_limit(q, k, v, want)
+    beyond = (_flash_scores_bf16(q, k, v).float() - want.float()).abs() > lim
+    print(f"bf16 scores: {float(beyond.float().mean()):.2e} of elements "
+          f"beyond the limit")
+    assert bool(beyond.any())
+
+
+def _rms_faults(x, w, eps):
+    """Plain RMSNorms with one fault each (all within one bf16 step of the
+    plain version, so within ``rmsnorm_limit``), and one sound reordering
+    of the fp32 sum (per-lane partial sums of 32 lanes, then their
+    total), as the kernel sums."""
+    xf, wf = x.float(), w.float()
+    d = x.shape[-1]
+
+    def norm(var, y=None):
+        y = xf * torch.rsqrt(var + eps) if y is None else y
+        return (y * wf).to(x.dtype)
+
+    sq = xf * xf
+    return {
+        "squares_bf16": norm(sq.to(x.dtype).float().mean(-1, keepdim=True)),
+        "normalised_bf16": norm(None, (xf * torch.rsqrt(
+            sq.mean(-1, keepdim=True) + eps)).to(x.dtype).float()),
+        "mean_over_d_minus_1": norm(sq.sum(-1, keepdim=True) / (d - 1)),
+        "lane_sums": norm(sq.reshape(-1, d // 32, 32).sum(1)
+                          .sum(-1, keepdim=True) * (1.0 / d)),
+    }
+
+
+@pytest.mark.parametrize("variant,sound", [
+    ("squares_bf16", False), ("normalised_bf16", False),
+    ("mean_over_d_minus_1", False), ("lane_sums", True)])
+def test_rmsnorm_bit_check_rejects_faults(variant, sound):
+    """At 2048 x 5120 bf16 each fault stays within ``rmsnorm_limit`` (one
+    bf16 step) but differs from the plain version in more than
+    ``RMSNORM_UNEQUAL_MAX`` of its elements; a sound fp32 reordering
+    differs in far fewer."""
+    rng = np.random.default_rng(1)
+    bf = torch.bfloat16
+    x = _t(rng.standard_normal((2048, 5120)).astype(np.float32), bf)
+    w = _t(rng.standard_normal(5120).astype(np.float32), bf)
+    want = R.rmsnorm(x, w, eps=1e-5)
+    got = _rms_faults(x, w, 1e-5)[variant]
+    assert bool(((got.float() - want.float()).abs()
+                 <= R.rmsnorm_limit(want)).all())
+    share = R.unequal_share(got, want)
+    print(f"{variant}: {share:.2e} of elements not bit-equal")
+    assert (share <= R.RMSNORM_UNEQUAL_MAX) == sound

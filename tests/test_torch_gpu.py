@@ -15,7 +15,8 @@ element, the limits of ``ref.decode_attention_limit``,
 order, one step of a bf16 output,
 and, over a bf16 cache, the most that rounding p to bf16 before the PV
 product can move the output (the kernels round p, the plain versions do
-not).
+not).  A bf16 RMSNorm output is also held bit-equal to the plain version
+but for at most ``ref.RMSNORM_UNEQUAL_MAX`` of its elements.
 """
 import numpy as np
 import pytest
@@ -300,6 +301,82 @@ def test_rmsnorm_kernel(cuda, dtype, shape, plus_one, sliced):
     torch.cuda.synchronize()
     assert got.shape == x.shape and got.dtype == dtype
     _assert_within(got, want, ref.rmsnorm_limit(want))
+    if dtype == torch.bfloat16:
+        assert ref.unequal_share(got, want) <= ref.RMSNORM_UNEQUAL_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2560, 5120])
+@pytest.mark.parametrize("rows", [1, 4, 2048])
+def test_rmsnorm_kernel_model_widths(cuda, rows, d, dtype):
+    """The model widths at decode and prefill row counts: within the
+    limit, and a bf16 output bit-equal to the plain version but for at
+    most ``ref.RMSNORM_UNEQUAL_MAX`` of its elements."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
+    w = torch.randn(d, generator=gen, device=cuda).to(dtype)
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm(x, w, eps=1e-5)
+    want = ref.rmsnorm(x, w, eps=1e-5)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.rmsnorm_limit(want))
+    if dtype == torch.bfloat16:
+        assert ref.unequal_share(got, want) <= ref.RMSNORM_UNEQUAL_MAX
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+
+
+@pytest.mark.parametrize("hq,hkv,d,s,window,softcap", [
+    (32, 8, 128, 512, None, None), (32, 8, 128, 500, None, None),
+    (32, 8, 128, 77, None, None), (4, 2, 256, 200, None, None),
+    (4, 1, 256, 130, 50, 30.0)])
+def test_flash_attention_bf16_tensor_cores(cuda, hq, hkv, d, s, window,
+                                           softcap):
+    """The bf16 kernel at Mistral-NeMo's head layout (S 512, 500 and 77:
+    whole, ragged and short tiles) and at D 256 (32-key tiles, Q from
+    shared memory): within the limit, and positions past s holding NaN
+    are never read."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    b, t = 2, s + 24
+    k, v, _, _ = _dense_cache(gen, b, hkv, t, d, torch.bfloat16, "bhtd",
+                              cuda)
+    k, v = k[:, :, :s], v[:, :, :s]
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda) \
+        .to(torch.bfloat16).transpose(1, 2)
+    kw = dict(window=window, softcap=softcap)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.flash_attention_limit(q, k, v, want, **kw))
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    for x in (k, v):
+        x.as_strided((b, hkv, t, d), x.stride())[:, :, s:] = float("nan")
+    again = ops.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_flash_attention_refuses_unsupported_operands(cuda):
+    """bf16 takes only the head dims it is built for and rows in 16-byte
+    steps; it raises on anything else and never falls back."""
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    q = torch.zeros((1, 4, 8, 96), device=cuda, dtype=bf)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :2], q[:, :2])           # D 96
+    buf = torch.zeros((1, 2, 8, 68), device=cuda, dtype=bf)
+    k = buf[..., :64]                                       # row stride 68
+    q = torch.zeros((1, 4, 8, 64), device=cuda, dtype=bf)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError):                         # 2-byte offset
+        fa.flash_attention(torch.zeros(4 * 8 * 64 + 1, device=cuda,
+                                       dtype=bf)[1:].view(1, 4, 8, 64),
+                           q[:, :2], q[:, :2])
+    fa.flash_attention(q, q[:, :2], q[:, :2])               # aligned: runs
+    kf = torch.zeros((1, 2, 8, 66), device=cuda)[..., :64]
+    fa.flash_attention(q.float(), kf, kf)                   # fp32: any stride
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])

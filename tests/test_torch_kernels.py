@@ -5,8 +5,12 @@ the int8-weight matmul.  Inputs come from numpy with a seed and go to both
 sides.  Tolerances: 2e-5 for fp32 pages, 2e-4 for int8 pages (fp32
 arithmetic in both; the kernels and the plain versions sum in different
 orders).  The CPU route of ``ops`` must be the plain version, with no
-kernel launch counted.
+kernel launch counted.  The launch path's C functions are looked up and
+declared once (``build.c_function``, against a stand-in library: there
+is no nvcc here).
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -213,3 +217,60 @@ def test_cuda_wrappers_reject_cpu_tensors():
             torch.zeros((1, 2, 4)), torch.zeros((3, 2, 4, 4)),
             torch.zeros((3, 2, 4, 4)), torch.ones((1, 2), dtype=torch.int32),
             torch.ones((1,), dtype=torch.int32))
+
+
+class _StandInFunction:
+    """A C entry point that records every assignment of its signature."""
+
+    def __init__(self):
+        self.sets = []
+
+    def __setattr__(self, name, value):
+        if name in ("argtypes", "restype"):
+            self.sets.append(name)
+        object.__setattr__(self, name, value)
+
+
+class _StandInLibrary:
+    def __init__(self):
+        self.lookups = 0
+        self.fn = _StandInFunction()
+
+    def __getattr__(self, symbol):
+        if symbol.startswith("__"):
+            raise AttributeError(symbol)
+        self.lookups += 1
+        return self.fn
+
+
+@pytest.mark.parametrize("kernel,symbol", [
+    ("rmsnorm", "rmsnorm"), ("hete_matmul", "hete_gated_matmul")])
+def test_c_function_is_declared_once(monkeypatch, kernel, symbol):
+    """``build.c_function`` looks a symbol up and declares its signature
+    (one pointer to the packed arguments) once per (library, symbol):
+    later calls return the same object and set nothing again (no nvcc
+    here: the library is a stand-in).  The packing gives every argument
+    an 8-byte slot, a float as float64."""
+    import struct
+
+    from repro_torch.kernels import build
+    lib = _StandInLibrary()
+    loads = []
+    monkeypatch.setattr(build, "_fns", {})
+    monkeypatch.setattr(build, "library",
+                        lambda name: loads.append(name) or lib)
+    argtypes = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_float, ctypes.c_void_p)
+    first = build.c_function(kernel, symbol, argtypes)
+    second = build.c_function(kernel, symbol, argtypes)
+    assert first is second and first.fn is lib.fn
+    assert first.__name__ == symbol
+    assert lib.fn.argtypes == [ctypes.c_char_p]
+    assert lib.fn.restype is ctypes.c_int
+    assert lib.fn.sets == ["argtypes", "restype"]
+    assert loads == [kernel] and lib.lookups == 1
+    packed = first.pack(4096, 5120, 3, 1e-5, 77)
+    assert packed == struct.pack("<qqqdq", 4096, 5120, 3, 1e-5, 77)
+    assert len(packed) == 8 * len(argtypes)
+    other = build.c_function(kernel, symbol + "_other", argtypes)
+    assert other is not first and lib.lookups == 2
