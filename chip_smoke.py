@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    so the prefill kernel sees ``kv_offset > 0`` — once with fp32 weights
    on the wire and fp32 pages, once with ``wstream="q8"`` and int8 pages.
    Kernel launch counters are zeroed just before and read just after each
-   run; neither matmul kernel may launch on the HeteGen split.  The fp
+   run, the q8 run's ``q8_matmul`` calls also tallied by (M, K, N); neither
+   matmul kernel may launch on the HeteGen split.  The fp
    run's prefill logits are held against the port's ``ResidentBackend``
    on the card;
 3b. resident one-shot generation of Mistral-NeMo-12B at full width and
@@ -73,12 +74,17 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    beside the least time the card could take (bytes over 3.35 TB/s or
    FLOPs over the peak for the dtype — 67 TFLOP/s fp32, 989 TFLOP/s bf16 —
    whichever is larger); the paged kernels also in bf16 at 3e's shapes,
-   within the ``ref.paged_*_limit`` bounds;
+   within the ``ref.paged_*_limit`` bounds; ``q8_matmul`` at every (M, K,
+   N) that phase 3's q8 run launched it (tallied there, each with its own
+   launches), within ``ref.q8_matmul_limit`` (shown to reject the plain
+   version over x rounded to bf16 and over x kept to 16 significant bits),
+   two calls giving the same bits, beside ``_weight_int8pack_mm``;
 4b. the same for the dense-cache kernels (flash-decode, flash attention,
    RMSNorm) at the shapes of 3b and 3c, held element by element within
    the ``ref.*_limit`` bounds (each attention limit shown to reject an
    off-by-one mask, and the bf16 flash limit scores rounded to bf16
-   before the softmax); a bf16 RMSNorm output must also be bit-equal to
+   before the softmax; two flash-decode calls must give the same bits);
+   a bf16 RMSNorm output must also be bit-equal to
    the plain version but for at most ``ref.RMSNORM_UNEQUAL_MAX`` of its
    elements, a check shown to reject squares rounded to bf16, x * rsqrt
    rounded to bf16 and a mean over D - 1 (all within one bf16 step, so
@@ -137,9 +143,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.core.alpha import split_columns  # noqa: E402
-from repro_torch.core.hw import H100_HOST  # noqa: E402
-from repro_torch.core.policy import build_policy  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
@@ -154,8 +157,7 @@ from repro_torch.kernels import ssd_chunk as k_ssd  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
-                                          ResidentBackend,
-                                          enumerate_linears)
+                                          ResidentBackend)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM data sheet, fp32 without TC
@@ -419,7 +421,7 @@ def kernel_entry(name, source, replaces, launches, got, want, limit,
     return entry
 
 
-def check_kernels(cfg, launches, q8_cols):
+def check_kernels(cfg, launches, q8_shapes):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     b, hq, hkv, d = 4, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     entries = []
@@ -473,26 +475,41 @@ def check_kernels(cfg, launches, q8_cols):
 
     entries += check_paged_bf16(launches)
 
-    # q8 matmul: decode M = 4 and prefill M = 4 chunks x 32, K = d_model,
-    # N = the decode plan's device columns of the widest linear
-    k = cfg.d_model
-    n = q8_cols
-    for m in (4, 4 * 32):
-        x = torch.randn((m, k), generator=gen, device="cuda")
-        w = torch.randn((k, n), generator=gen, device="cuda")
-        qw, sc = (torch.from_numpy(a).cuda() for a in
-                  k_q8.quantize_weights_np(w.cpu().numpy()))
-        got = k_q8.q8_matmul(x, qw, sc)
-        want = ref.q8_matmul(x, qw, sc)
-        tol = 1e-5 * float(want.abs().max())
-        lib = library_q8(x, qw, sc)
-        entries.append(kernel_entry(
-            f"q8_matmul_m{m}", "src/repro_torch/csrc/q8_matmul.cu",
-            "src/repro/kernels/q8_matmul.py:85", launches["q8_matmul"], got,
-            want, tol, lambda: k_q8.q8_matmul(x, qw, sc),
-            lambda: ref.q8_matmul(x, qw, sc), lib,
-            m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * n * k))
+    # q8 matmul at every (M, K, N) phase 3's q8 run launched it
+    for (m, k, n), count in sorted(q8_shapes.items()):
+        entries.append(q8_entry(gen, m, k, n, count))
     return entries
+
+
+def q8_entry(gen, m, k, n, launches):
+    """``q8_matmul`` at one main-path shape on random operands (x ~ N(0,
+    1), weights ~ N(0, 1) quantized per column): within
+    ``ref.q8_matmul_limit``, the limit shown to reject the plain version
+    over x rounded to bf16 and over x kept to 16 significant bits (what a
+    two-term bf16 split of x carries), the same bits from two calls; timed
+    beside the plain version and ``_weight_int8pack_mm``."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    qw, sc = (torch.from_numpy(a).cuda() for a in
+              k_q8.quantize_weights_np(w.cpu().numpy()))
+    del w
+    name = f"q8_matmul_m{m}_k{k}_n{n}"
+    got = k_q8.q8_matmul(x, qw, sc)
+    check(torch.equal(k_q8.q8_matmul(x, qw, sc), got),
+          f"{name}: two calls differ")
+    want = ref.q8_matmul(x, qw, sc)
+    limit = ref.q8_matmul_limit(x, qw, sc, want)
+    rejects(ref.q8_matmul(x.to(torch.bfloat16).float(), qw, sc), want,
+            limit, f"{name}, x rounded to bf16")
+    bits16 = ((x.view(torch.int32) + 0x80) & ~0xFF).view(torch.float32)
+    rejects(ref.q8_matmul(bits16, qw, sc), want, limit,
+            f"{name}, x kept to 16 significant bits")
+    return kernel_entry(
+        name, "src/repro_torch/csrc/q8_matmul.cu",
+        "src/repro/kernels/q8_matmul.py:85", launches, got, want, limit,
+        lambda: k_q8.q8_matmul(x, qw, sc), lambda: ref.q8_matmul(x, qw, sc),
+        library_q8(x, qw, sc), m * k * 4 + k * n + n * 4 + m * n * 4,
+        2 * m * n * k)
 
 
 def check_paged_bf16(launches):
@@ -732,19 +749,25 @@ def compare_whole_model_logits(cfg, params, prompts):
     return torch.argmax(want, dim=-1).tolist()
 
 
-def tally_rows(fn, names=("rmsnorm",)):
+def rows_width(x, *_):
+    """(rows, width) of an operand: the shape key of :func:`tally_rows`."""
+    return x.numel() // x.shape[-1], x.shape[-1]
+
+
+def tally_rows(fn, names=("rmsnorm",), key=rows_width):
     """Run ``fn()`` with the calls of each ``ops.<name>`` on CUDA tensors
-    tallied by shape, (rows, width) of its first operand (the model calls
-    the ``ops`` entry points, which launch the kernels on CUDA tensors),
-    so that each shape gets its own launches; returns ``fn()``'s result
-    and ``{name: {(rows, width): calls}}``."""
+    tallied by shape, ``key(*operands)`` ((rows, width) of the first
+    operand by default; the model and the engine call the ``ops`` entry
+    points, which launch the kernels on CUDA tensors), so that each shape
+    gets its own launches; returns ``fn()``'s result and ``{name: {shape:
+    calls}}``."""
     tally = {name: {} for name in names}
     inner = {name: getattr(ops, name) for name in names}
 
     def tallied(name):
         def fn_(x, *a, **kw):
             if x.is_cuda:
-                shape = (x.numel() // x.shape[-1], x.shape[-1])
+                shape = key(x, *a)
                 rows = tally[name]
                 rows[shape] = rows.get(shape, 0) + 1
             return inner[name](x, *a, **kw)
@@ -1200,6 +1223,8 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
         kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
         kw = dict(k_scale=ks, v_scale=vs)
         got = k_dense.decode_attention(q, k, v, kl, **kw)
+        check(torch.equal(k_dense.decode_attention(q, k, v, kl, **kw), got),
+              f"{name}: two calls differ")
         want = ref.decode_attention(q, k, v, kl, **kw)
         limit = ref.decode_attention_limit(q, k, v, kl, want, **kw)
         rejects(ref.decode_attention(q, k, v, kl - 1, **kw), want, limit,
@@ -1589,14 +1614,20 @@ def main() -> int:
 
     _, l_fp, _ = run_main_path(cfg, host_params, prompts, wstream="fp",
                                kv_dtype=None)
-    _, l_q8, _ = run_main_path(cfg, host_params, prompts, wstream="q8",
-                               kv_dtype="int8")
+    (_, l_q8, _), q8_tally = tally_rows(
+        lambda: run_main_path(cfg, host_params, prompts, wstream="q8",
+                              kv_dtype="int8"),
+        ("q8_matmul",), key=lambda x, q, *_: (*x.shape, q.shape[1]))
+    q8_shapes = q8_tally["q8_matmul"]
+    log(f"q8 run: q8_matmul launches by (M, K, N) {q8_shapes}")
     for run, counts in (("fp", l_fp), ("q8", l_q8)):
         check(counts["paged_decode_attention"] > 0,
               f"{run} run never launched paged_decode_attention")
         check(counts["paged_prefill_attention"] > 0,
               f"{run} run never launched paged_prefill_attention")
     check(l_q8["q8_matmul"] > 0, "q8 run never launched q8_matmul")
+    check(sum(q8_shapes.values()) == l_q8["q8_matmul"],
+          "q8 run: q8_matmul calls by shape do not add up to its launches")
     for run, counts in (("fp", l_fp), ("q8", l_q8)):
         check(counts["matmul"] == counts["gated_matmul"] == 0,
               f"{run} run launched a matmul kernel on the HeteGen split")
@@ -1605,7 +1636,6 @@ def main() -> int:
                                    True: l_q8["paged_decode_attention"]},
         "paged_prefill_attention": {False: l_fp["paged_prefill_attention"],
                                     True: l_q8["paged_prefill_attention"]},
-        "q8_matmul": l_q8["q8_matmul"],
     }
 
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
@@ -1616,10 +1646,7 @@ def main() -> int:
         launches[kind + "_3e"] = {kv: counts_3b["3e"][kv][kind]
                                   for kv in ("bf16", "int8")}
 
-    pol = build_policy(enumerate_linears(cfg, "q8"), H100_HOST, batch=4,
-                       phase="decode")
-    q8_cols = split_columns(pol.alpha, cfg.d_ff)
-    entries = timed("4", check_kernels, cfg, launches, q8_cols)
+    entries = timed("4", check_kernels, cfg, launches, q8_shapes)
     entries += timed("4b", check_dense_kernels,
                      get_config("mistral-nemo-12b"), cfg, counts_3b,
                      counts_3c)

@@ -8,40 +8,539 @@
 //   attending: in fp32 under an fp32 q, in bf16 under a bf16 q).
 //
 // What bounds it on the H100: bytes.  Each (batch, kv-head) row of kv_len
-//   tokens is read once per q-head of its group (2 * kv_len * D elements)
-//   for 4 FLOPs per element, far below the card's ridge in any dtype.
+//   tokens must be read once (2 * kv_len * D elements, and the scales of an
+//   int8 cache) for 4 FLOPs per element and q-head, far below the card's
+//   ridge in any dtype.
 //
-// Design: one block of 16 warps per (batch, q-head).  K/V are addressed
-//   through (batch, head, token) strides, so the stacked (B, Hkv, T, D)
-//   cache and the backend's (B, T, Hkv, D) buffer seen through
-//   transpose(1, 2) are both read in place, without a copy.  Warp w takes
-//   tokens w, w + 16, ...; its lanes own head-dim columns lane + 32 i, so
-//   every K and V row load is coalesced, and the V row is loaded before the
-//   score is reduced so both loads are in flight together.  Each warp keeps
-//   its own online softmax (m, l) and accumulator in registers with no
-//   block-wide barrier in the loop; the 16 partial states are merged once
-//   through shared memory at the end.  p is rounded to the value dtype
-//   before the PV product (bf16 caches), as the Pallas kernel does; l sums
-//   the unrounded p.  Rows at or past kv_len are never read; a row with no
-//   valid key writes 0.  The q-heads of a GQA group re-read the same rows,
-//   which the 50 MB L2 absorbs.  Splitting one long row across blocks
-//   (split-KV with a combine pass) is left for a later change.
+// K/V are addressed through (batch, head, token) strides, so the stacked
+//   (B, Hkv, T, D) cache and the backend's (B, T, Hkv, D) buffer seen
+//   through transpose(1, 2) are both read in place, without a copy.  Every
+//   route keeps these rules: p is rounded to the value dtype before the PV
+//   product (bf16 caches, and int8 caches under a bf16 q), l sums the
+//   unrounded p; an int8 cache under a bf16 q is dequantized as
+//   bf16(bf16(k) * bf16(scale)); rows at or past kv_len are never read, so
+//   a NaN there reaches no output; a row with no valid key writes 0.
+//
+// bf16 q over a bf16 or int8 cache (head dims 16/32/64/128/256, 16-byte
+//   aligned rows): a split-KV kernel with one thread-block cluster per
+//   (batch, kv-head).  The cluster's blocks (1-8, chosen so that the grid
+//   holds about one block per SM) take contiguous ranges of the row's
+//   kv_len tokens; the q-heads of the GQA group (up to 16, the rows of one
+//   mma tile; a larger group takes several clusters) share every K/V row
+//   the block reads, so each row leaves device memory once instead of once
+//   per q-head.  A block of four warps streams tiles of 64 tokens through
+//   two cp.async stages (16-byte copies; tokens past the range are
+//   zero-filled without a read) and each warp takes 16 of a tile's tokens:
+//   S = Q K^T on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+//   accumulate, the group's q rows in the A fragments), one online-softmax
+//   update a tile in base 2, p rounded to bf16 straight into the PV A
+//   fragments, O += P V on the tensor cores.  An int8 tile (its scales
+//   staged with it) is dequantized by the warp that uses it into a bf16
+//   buffer first.  The four warps' (m, l, O) merge through shared memory
+//   in warp order, then the blocks' through distributed shared memory in
+//   rank order, each block finishing a share of the outputs, all inside
+//   the one launch; a block whose range lies past kv_len reads nothing and
+//   contributes l = 0, which the merge weights by 0 (it never forms
+//   exp(-inf - -inf)).  No atomics: two calls give the same bits.
+//
+// fp32 q (and a bf16 q at another head dim or alignment): one block of 16
+//   warps per (batch, q-head); warp w takes tokens w, w + 16, ..., its lanes
+//   own head-dim columns lane + 32 i, each warp keeps its own online softmax
+//   in registers, and the 16 partial states merge once through shared
+//   memory.  The q-heads of a GQA group re-read the same rows, which the
+//   50 MB L2 absorbs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "launch_args.h"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kNegInf = -1.0e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxD = 256;
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 q: split-KV over a cluster, tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kSpWarps = 4;
+constexpr int kSpThreads = kSpWarps * 32;
+constexpr int kSpTile = 16 * kSpWarps;  // tokens a tile, 16 a warp
+constexpr int kSpStages = 2;            // K/V tiles in shared memory
+constexpr int kSpRows = 16;             // q-heads a block: the rows of an mma tile
+constexpr int kMaxCluster = 8;
+constexpr int kSpBlocksPerSm = 1;       // the grid aims at this many blocks an SM
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled, and nothing read, when `valid` is
+// false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared, zero-filled without a read when `valid` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four int8 values (little-endian in `w`) as exact fp32: each byte, biased
+// by 128, becomes the low mantissa byte of 2^23, and 2^23 + 128 comes off.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+template <int D, bool Q8>
+struct SpCfg {
+  static constexpr int RS = D + 8;                // padded bf16 row (elements)
+  static constexpr int KT = D / 16;               // k-steps of Q K^T
+  static constexpr int DT = D / 8;                // n8 tiles of O
+  static constexpr bool QREGS = D <= 128;         // Q fragments in registers
+  static constexpr int ROW_BYTES = Q8 ? D : 2 * RS;                     // a staged row
+  static constexpr int TILE = kSpTile * ROW_BYTES;                      // a K or V tile
+  static constexpr int STAGE = 2 * TILE + (Q8 ? 2 * kSpTile * 4 : 0);   // K, V (and scales)
+  static constexpr int WBUF = Q8 ? kSpWarps * 2 * 16 * RS * 2 : 0;      // dequantized slices
+  static constexpr int OS = D + 4;                                      // merge row (floats)
+  static constexpr int MERGE = kSpWarps * kSpRows * (OS + 2) * 4;       // warps' (m, l, O)
+  static constexpr int PART = (kSpRows * D + 2 * kSpRows) * 4;          // the block's (m, l, O)
+  // the tiles while the block streams; the warps' states and the block's
+  // after it
+  static constexpr int WORK = (kSpStages * STAGE + WBUF) > MERGE + PART
+                                  ? kSpStages * STAGE + WBUF : MERGE + PART;
+  static constexpr int QBYTES = kSpRows * RS * 2;
+  static constexpr int SMEM = QBYTES + WORK;
+  static_assert(D % 16 == 0 && D <= kMaxD, "head dim");
+};
+
+// One cluster per (batch, kv-head, group of 16 q-heads); see the notes at
+// the top.  Q8: int8 K/V with per-token fp32 scales, dequantized in bf16.
+template <int D, bool Q8>
+__global__ void __launch_bounds__(kSpThreads)
+decode_split_kernel(const bf16* __restrict__ q, long long q_sb, long long q_sh,
+                    const void* __restrict__ k, const void* __restrict__ v, long long kv_sb,
+                    long long kv_sh, long long kv_st, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, long long s_sb, long long s_sh,
+                    long long s_st, const int32_t* __restrict__ kv_len, bf16* __restrict__ out,
+                    long long o_sb, long long o_sh, int hq, int hkv, int t_max, float scale,
+                    float softcap) {
+  using C = SpCfg<D, Q8>;
+  constexpr int RS = C::RS, CPR = D / 8;  // 16-byte chunks a bf16 row
+  typedef typename std::conditional<Q8, int8_t, bf16>::type TKV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                 // kSpRows x RS
+  unsigned char* work = smem_raw + C::QBYTES;                   // stages (+ buffers) / merge
+  float* part = reinterpret_cast<float*>(work + C::MERGE);      // m[16], l[16], O[16][D]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int bk = blockIdx.x / cs;
+  const int b = bk / hkv, kvh = bk % hkv;
+  const int group = hq / hkv;
+  const int h0 = kvh * group + blockIdx.y * kSpRows;
+  const int gn = min(kSpRows, group - (int)blockIdx.y * kSpRows);  // q-heads here
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+
+  // this block's tokens: a contiguous share of the row's kv_len
+  const int len = max(0, min(kv_len[b], t_max));
+  const int chunk = ((len + cs - 1) / cs + 15) / 16 * 16;
+  const int t_lo = min(len, rank * chunk), t_hi = min(len, t_lo + chunk);
+  const int n_tiles = (t_hi - t_lo + kSpTile - 1) / kSpTile;
+
+  const bf16* qb = q + b * q_sb;
+  for (int i = tid; i < kSpRows * CPR; i += kSpThreads) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = r < gn;
+    cp_async16(qs + r * RS + c, ok ? qb + (h0 + r) * q_sh + c : qb, ok);
+  }
+  cp_async_commit();
+
+  const TKV* kb = static_cast<const TKV*>(k) + b * kv_sb + kvh * kv_sh;
+  const TKV* vb = static_cast<const TKV*>(v) + b * kv_sb + kvh * kv_sh;
+  auto stage_k = [&](int st) { return work + st * C::STAGE; };
+  auto stage_v = [&](int st) { return work + st * C::STAGE + C::TILE; };
+  // an int8 tile's per-token scales, K then V
+  auto stage_s = [&](int st) { return reinterpret_cast<float*>(work + st * C::STAGE + 2 * C::TILE); };
+  const float* ksb = k_scale + b * s_sb + kvh * s_sh;
+  const float* vsb = v_scale + b * s_sb + kvh * s_sh;
+  // tokens [j0, j0 + kSpTile) into `st`; those at or past t_hi are
+  // zero-filled without a read
+  auto load_kv = [&](int st, int j0) {
+    constexpr int CH = Q8 ? D / 16 : CPR;  // 16-byte chunks a row
+    unsigned char* kd = stage_k(st);
+    unsigned char* vd = stage_v(st);
+    for (int i = tid; i < kSpTile * CH; i += kSpThreads) {
+      const int r = i / CH, c = (i % CH) * 16 / (int)sizeof(TKV);
+      const bool ok = j0 + r < t_hi;
+      const long long off = ok ? (long long)(j0 + r) * kv_st + c : 0;
+      cp_async16(kd + r * C::ROW_BYTES + c * sizeof(TKV), kb + off, ok);
+      cp_async16(vd + r * C::ROW_BYTES + c * sizeof(TKV), vb + off, ok);
+    }
+    if constexpr (Q8) {
+      if (tid < 2 * kSpTile) {
+        const int r = tid % kSpTile;
+        const bool ok = j0 + r < t_hi;
+        const float* src = tid < kSpTile ? ksb : vsb;
+        cp_async4(stage_s(st) + tid, ok ? src + (long long)(j0 + r) * s_st : src, ok);
+      }
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kSpStages - 1; ++st) {
+    if (st < n_tiles) load_kv(st, t_lo + st * kSpTile);
+    cp_async_commit();
+  }
+
+  const float scale_log2 = scale * kLog2e;
+  uint32_t qf[C::QREGS ? C::KT : 1][4];
+  float o[C::DT][4];
+#pragma unroll
+  for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+  // ldmatrix lane addressing: A (Q) fragments, B (K) fragments of two n8
+  // tiles, B (V, transposed) fragments of two n8 tiles
+  const int a_row = (lane / 8 % 2) * 8 + lane % 8, a_col = lane / 16 * 8;
+  const int k_row = lane / 16 * 8 + lane % 8, k_col = lane / 8 % 2 * 8;
+  const int v_row = lane / 8 % 2 * 8 + lane % 8, v_col = lane / 16 * 8;
+  bf16* wk = reinterpret_cast<bf16*>(work + kSpStages * C::STAGE) + warp * 2 * 16 * RS;
+  bf16* wv = wk + 16 * RS;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = t_lo + it * kSpTile;
+    // Q and tile `it` have landed, and every warp is done with tile it - 1,
+    // whose stage the next load refills
+    cp_async_wait<kSpStages - 2>();
+    __syncthreads();
+    if (it + kSpStages - 1 < n_tiles)
+      load_kv((it + kSpStages - 1) % kSpStages, j0 + (kSpStages - 1) * kSpTile);
+    cp_async_commit();
+    if constexpr (C::QREGS) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < C::KT; ++kk) ldmatrix_x4(qf[kk], qs + a_row * RS + kk * 16 + a_col);
+      }
+    }
+    const int w0 = j0 + warp * 16;  // the warp's first token
+    if (w0 >= t_hi) continue;
+    const int st = it % kSpStages;
+    const bf16* kt;
+    const bf16* vt;
+    if constexpr (Q8) {
+      // dequantize the warp's 16 rows: bf16(bf16(k) * bf16(scale)), zeros
+      // past t_hi (whose scales are not read)
+      const int8_t* ki = reinterpret_cast<const int8_t*>(stage_k(st)) + warp * 16 * D;
+      const int8_t* vi = reinterpret_cast<const int8_t*>(stage_v(st)) + warp * 16 * D;
+      const float* sc = stage_s(st) + warp * 16;  // zero past t_hi
+      for (int i = lane; i < 16 * D / 16; i += 32) {
+        const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+        const float ks = bf16r(sc[r]);
+        const float vs = bf16r(sc[kSpTile + r]);
+        const uint4 kw = *reinterpret_cast<const uint4*>(ki + r * D + c);
+        const uint4 vw = *reinterpret_cast<const uint4*>(vi + r * D + c);
+        const uint32_t kq[4] = {kw.x, kw.y, kw.z, kw.w}, vq[4] = {vw.x, vw.y, vw.z, vw.w};
+        uint32_t kp[8], vp[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float kf[4], vf[4];
+          i8x4_to_f32(kq[e], kf);
+          i8x4_to_f32(vq[e], vf);
+          kp[2 * e] = pack_bf16(kf[0] * ks, kf[1] * ks);
+          kp[2 * e + 1] = pack_bf16(kf[2] * ks, kf[3] * ks);
+          vp[2 * e] = pack_bf16(vf[0] * vs, vf[1] * vs);
+          vp[2 * e + 1] = pack_bf16(vf[2] * vs, vf[3] * vs);
+        }
+        *reinterpret_cast<uint4*>(wk + r * RS + c) = make_uint4(kp[0], kp[1], kp[2], kp[3]);
+        *reinterpret_cast<uint4*>(wk + r * RS + c + 8) = make_uint4(kp[4], kp[5], kp[6], kp[7]);
+        *reinterpret_cast<uint4*>(wv + r * RS + c) = make_uint4(vp[0], vp[1], vp[2], vp[3]);
+        *reinterpret_cast<uint4*>(wv + r * RS + c + 8) = make_uint4(vp[4], vp[5], vp[6], vp[7]);
+      }
+      __syncwarp();
+      kt = wk;
+      vt = wv;
+    } else {
+      kt = reinterpret_cast<const bf16*>(stage_k(st)) + warp * 16 * RS;
+      vt = reinterpret_cast<const bf16*>(stage_v(st)) + warp * 16 * RS;
+    }
+
+    // S (q-heads x the warp's 16 tokens) = Q K^T
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KT; ++kk) {
+      uint32_t a[4];
+      if constexpr (C::QREGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, qs + a_row * RS + kk * 16 + a_col);
+      }
+      uint32_t bk[4];
+      ldmatrix_x4(bk, kt + k_row * RS + kk * 16 + k_col);
+      mma_bf16(s[0], a, bk[0], bk[1]);
+      mma_bf16(s[1], a, bk[2], bk[3]);
+    }
+
+    // scale, softcap and mask in fp32, in base 2; the tile's row max
+    const bool edge = w0 + 16 > t_hi;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (softcap > 0.f) x = softcap * tanhf(s[j][e] * scale / softcap) * kLog2e;
+        if (edge && w0 + j * 8 + 2 * tig + (e & 1) >= t_hi) x = kNegInf;
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < C::DT; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // p (fp32 into l, bf16 into the PV A fragments), then O += P V
+    float p[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float pe = x == kNegInf ? 0.f : exp2f(x - m[e / 2]);
+        l[e / 2] += pe;
+        p[j][e] = pe;
+      }
+    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+    for (int dp = 0; dp < C::DT / 2; ++dp) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, vt + v_row * RS + dp * 16 + v_col);
+      mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+      mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+    }
+    if constexpr (Q8) __syncwarp();  // the buffer is refilled next tile
+  }
+
+  // the warps' states (rows < gn) into shared memory, merged in warp order
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages
+  float* wm = reinterpret_cast<float*>(work);  // [warps][16]
+  float* wl = wm + kSpWarps * kSpRows;         // [warps][16]
+  float* wo = wl + kSpWarps * kSpRows;         // [warps][16][OS]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = g + 8 * r;
+    if (row >= gn) continue;
+    if (tig == 0) {
+      wm[warp * kSpRows + row] = m[r];
+      wl[warp * kSpRows + row] = l[r];
+    }
+    float* orow = wo + (warp * kSpRows + row) * C::OS + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < C::DT; ++j) {
+      orow[j * 8] = o[j][2 * r];
+      orow[j * 8 + 1] = o[j][2 * r + 1];
+    }
+  }
+  __syncthreads();
+  float* pm = part;                  // [16]
+  float* pl = part + kSpRows;        // [16]
+  float* po = part + 2 * kSpRows;    // [16][D]
+  for (int i = tid; i < gn * D; i += kSpThreads) {
+    const int row = i / D, c = i % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kSpWarps; ++w) mm = fmaxf(mm, wm[w * kSpRows + row]);
+    float ll = 0.f, oo = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSpWarps; ++w) {
+      const float lw = wl[w * kSpRows + row];
+      const float f = lw == 0.f ? 0.f : exp2f(wm[w * kSpRows + row] - mm);
+      ll += lw * f;
+      oo += wo[(w * kSpRows + row) * C::OS + c] * f;
+    }
+    po[row * D + c] = oo;
+    if (c == 0) {
+      pm[row] = mm;
+      pl[row] = ll;
+    }
+  }
+
+  // the cluster's blocks merge in rank order, each finishing every cs-th
+  // group of the outputs
+  cluster.sync();
+  for (int i = rank * kSpThreads + tid; i < gn * D; i += cs * kSpThreads) {
+    const int row = i / D, c = i % D;
+    // every rank's (m, l, o) read at once, so the remote loads overlap
+    float rm[kMaxCluster], rl[kMaxCluster], ro[kMaxCluster];
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j) {
+      if (j < cs) {
+        rm[j] = cluster.map_shared_rank(pm, j)[row];
+        rl[j] = cluster.map_shared_rank(pl, j)[row];
+        ro[j] = cluster.map_shared_rank(po, j)[row * D + c];
+      }
+    }
+    float mm = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j)
+      if (j < cs) mm = fmaxf(mm, rm[j]);
+    float ll = 0.f, oo = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j) {
+      if (j < cs) {
+        const float f = rl[j] == 0.f ? 0.f : exp2f(rm[j] - mm);
+        ll += rl[j] * f;
+        oo += ro[j] * f;
+      }
+    }
+    out[b * o_sb + (h0 + row) * o_sh + c] = __float2bfloat16(ll == 0.f ? 0.f : oo / ll);
+  }
+  cluster.sync();  // no block leaves while another reads its state
+}
+
+int sm_count() {
+  static std::atomic<int> count[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 132;
+  int c = count[dev].load(std::memory_order_relaxed);
+  if (c == 0) {
+    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) c = 132;
+    count[dev].store(c, std::memory_order_relaxed);
+  }
+  return c;
+}
+
+// cudaFuncSetAttribute once for each kernel and device, not on every launch.
+template <typename Kernel>
+int set_smem_once(Kernel kernel, int bytes, std::atomic<int> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  done[dev].store(1, std::memory_order_release);
+  return 0;
+}
+
+template <int D, bool Q8>
+int launch_split(const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
+                 long long kv_sb, long long kv_sh, long long kv_st, const void* k_scale,
+                 const void* v_scale, long long s_sb, long long s_sh, long long s_st,
+                 const void* kv_len, void* out, long long o_sb, long long o_sh, int b, int hq,
+                 int hkv, int t_max, float scale, float softcap, cudaStream_t stream) {
+  using C = SpCfg<D, Q8>;
+  static std::atomic<int> done[kMaxDevices];
+  const int err = set_smem_once(decode_split_kernel<D, Q8>, C::SMEM, done);
+  if (err) return err;
+  const int groups = (hq / hkv + kSpRows - 1) / kSpRows;
+  const int rows = b * hkv * groups;
+  const int want = (kSpBlocksPerSm * sm_count() + rows - 1) / rows;
+  const int most = max(1, (t_max + kSpTile - 1) / kSpTile);  // a tile a block at least
+  const int cs = max(1, min(kMaxCluster, min(want, most)));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * hkv * cs, groups);
+  cfg.blockDim = dim3(kSpThreads);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_split_kernel<D, Q8>, static_cast<const bf16*>(q), q_sb, q_sh, k, v, kv_sb,
+      kv_sh, kv_st, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      s_sb, s_sh, s_st, static_cast<const int32_t*>(kv_len), static_cast<bf16*>(out), o_sb,
+      o_sh, hq, hkv, t_max, scale, softcap);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32 q (or a bf16 q off the split kernel's shapes): a block per q-head
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxD = 256;
 constexpr int kCols = kMaxD / 32;      // head-dim columns per lane
-constexpr float kNegInf = -1.0e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -58,10 +557,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename TKV> __device__ __forceinline__ float round_p(float p) { return p; }
 template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
   return __bfloat162float(__float2bfloat16(p));
-}
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 // Q8: int8 K/V with per-row scales, dequantized in q's dtype (the JAX
@@ -186,6 +681,24 @@ int launch(const void* q, long long q_sb, long long q_sh, const void* k,
   return (int)cudaGetLastError();
 }
 
+// Does a bf16 q over this cache take the split kernel: a head dim it is
+// instantiated for, and every row it copies 16-byte aligned (a stride of a
+// dim of size 1 is never used).
+bool split_shape(const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
+                 long long kv_sb, long long kv_sh, long long kv_st, int kv_el, int b, int hq,
+                 int hkv, int t_max, int d) {
+  if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256) return false;
+  auto al = [](long long x) { return x % 16 == 0; };
+  if (!al((long long)(uintptr_t)q) || !al((long long)(uintptr_t)k) ||
+      !al((long long)(uintptr_t)v))
+    return false;
+  if ((b > 1 && !al(2 * q_sb)) || (hq > 1 && !al(2 * q_sh))) return false;
+  if ((b > 1 && !al(kv_el * kv_sb)) || (hkv > 1 && !al(kv_el * kv_sh)) ||
+      (t_max > 1 && !al(kv_el * kv_st)))
+    return false;
+  return true;
+}
+
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (K/V only, with scales).
@@ -198,6 +711,25 @@ static int decode_attention_impl(
     int t_max, int d, float scale, float softcap, void* stream) {
   if (d > kMaxD || hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 1 && (kv_dtype == 1 || kv_dtype == 2) &&
+      split_shape(q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, kv_dtype == 1 ? 2 : 1, b, hq, hkv,
+                  t_max, d)) {
+#define SPLIT_ARGS q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, k_scale, v_scale, s_sb, s_sh, \
+    s_st, kv_len, out, o_sb, o_sh, b, hq, hkv, t_max, scale, softcap, s
+#define SPLIT(D)                                                   \
+  case D:                                                          \
+    return kv_dtype == 2 ? launch_split<D, true>(SPLIT_ARGS)       \
+                         : launch_split<D, false>(SPLIT_ARGS);
+    switch (d) {
+      SPLIT(16)
+      SPLIT(32)
+      SPLIT(64)
+      SPLIT(128)
+      SPLIT(256)
+    }
+#undef SPLIT
+#undef SPLIT_ARGS
+  }
 #define DECODE_ARGS q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, k_scale, v_scale, \
     s_sb, s_sh, s_st, kv_len, out, o_sb, o_sh, b, hq, hkv, t_max, d, scale,     \
     softcap, s

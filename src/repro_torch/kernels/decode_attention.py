@@ -7,8 +7,12 @@ layer slice as it is, or the backend's (B, T, Hkv, D) buffer through
 ``transpose(1, 2)``: the kernel takes K/V strides, so neither layout is
 copied.  With ``k_scale`` / ``v_scale`` (B, Hkv, T) the cache is int8 and
 is dequantized inside the kernel in q's dtype, as the JAX package's
-stacked whole model dequantizes its int8 cache in the model dtype.  The
-plain version is :func:`repro_torch.kernels.ref.decode_attention`.
+stacked whole model dequantizes its int8 cache in the model dtype.  A bf16
+q over a bf16 or int8 cache (head dims 16-256 in powers of two, 16-byte
+aligned rows) runs a split-KV kernel with one thread-block cluster per
+(batch, kv-head); an fp32 q, and any other bf16 shape, a kernel with one
+block per (batch, q-head).  Either is one launch.  The plain version is
+:func:`repro_torch.kernels.ref.decode_attention`.
 """
 
 from __future__ import annotations

@@ -8,8 +8,11 @@ with ``wstream="q8"`` quantizes each offloaded column shard once at load
 pinned rings, copies the pair to the card and computes the device share
 with :func:`q8_matmul` — the dequant happens inside the kernel
 (``csrc/q8_matmul.cu``), so no fp copy of a streamed weight ever exists
-in device memory.  The plain version is
-:func:`repro_torch.kernels.ref.q8_matmul`.
+in device memory.  One C entry picks the kernel by M: up to 16 rows (the
+decode steps) a weight-streaming kernel split across a thread-block
+cluster, above that a tiled SGEMM; either is one launch.  The plain
+version is :func:`repro_torch.kernels.ref.q8_matmul`, the per-element
+limit between them :func:`repro_torch.kernels.ref.q8_matmul_limit`.
 """
 
 from __future__ import annotations

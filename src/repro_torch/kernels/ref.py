@@ -479,6 +479,38 @@ def _product_bound(xf, wf):
     return z, _MM_UNITS * unit
 
 
+# How many units of ``u (sqrt(sum_k t_k^2) + |z|)`` (t_k = x_k q_k, z their
+# exact sum) an fp32 sum of an int8-weight product may lie from the exact
+# product (:func:`q8_matmul_limit`).  The kernels of ``csrc/q8_matmul.cu``,
+# which sum in blocks, use 0.32-0.78 of the limit at every shape of
+# ``chip_smoke.py``'s q8 run, and the plain version over x kept to 16
+# significant bits (what a two-term bf16 split of x carries) lies beyond
+# it in about half of the elements; the earlier SGEMM, one fp32 chain per
+# output over all K, lay 1.7-5.6x beyond it (``tools/kernel_probe.py``,
+# one H100 80GB HBM3, 700 W): this limit holds the kernels to blocked sums.
+_Q8_UNITS = 32.0
+
+
+def q8_matmul_limit(x, q, scale, want):
+    """Per-element limit on |kernel - :func:`q8_matmul`| (``want``) for an
+    fp32 computation of the same product that sums in blocks.  Not
+    ``_product_bound``'s own limit, whose sqrt(K) factor lets a sequential
+    fp32 sum pass and so also passes x kept to 16 significant bits (a
+    two-term bf16 split) at K = 4096 and above: the exact product z (fp64,
+    from :func:`_product_bound` over fp64 operands) splits the distance
+    into the plain version's own, measured, ``|want - z s|``, and the
+    kernel's, at most ``_Q8_UNITS`` units of ``u (sqrt(sum t_k^2) + |z|)``
+    (``_product_bound``'s unit without its sqrt(K)) before the column
+    scale and one rounding of ``z s`` after it."""
+    kk = max(x.shape[-1], 1)
+    z, dz = _product_bound(x.double(), q.double())
+    unit = dz / (_MM_UNITS * math.sqrt(kk))
+    s = scale.double()[None, :]
+    own = (want.double() - z * s).abs()
+    return (own + _SLACK * (_Q8_UNITS * unit + _U32 * z.abs()) * s.abs()
+            ).float()
+
+
 def matmul_limit(x, w, want, bias=None, *, activation=None):
     """Per-element limit on |kernel - :func:`matmul`| (``want``), for
     another fp32 summation of the same products: the two sums' distance

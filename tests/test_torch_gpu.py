@@ -6,13 +6,14 @@ port is installed:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances: 2e-5 for fp32 pages, 2e-4 for int8 pages, 1e-5 relative for
-the int8-weight matmul (fp32 arithmetic; different summation orders);
-for the dense-cache kernels, RMSNorm and the dense matmuls, element by
-element, the limits of ``ref.decode_attention_limit``,
+Tolerances: 2e-5 for fp32 pages, 2e-4 for int8 pages; for the int8-weight
+matmul, the dense-cache kernels, RMSNorm and the dense matmuls, element by
+element, the limits of ``ref.q8_matmul_limit``,
+``ref.decode_attention_limit``,
 ``ref.flash_attention_limit``, ``ref.rmsnorm_limit``,
 ``ref.matmul_limit`` and ``ref.gated_matmul_limit``: fp32 summation
-order, one step of a bf16 output,
+order (for the int8-weight matmul, a blocked sum's distance from the
+exact product beside the plain version's own), one step of a bf16 output,
 and, over a bf16 cache, the most that rounding p to bf16 before the PV
 product can move the output (the kernels round p, the plain versions do
 not).  A bf16 RMSNorm output is also held bit-equal to the plain version
@@ -123,8 +124,34 @@ def test_q8_matmul_kernel(cuda, m, k, n):
     got = ops.q8_matmul(x, q, s)
     want = ref.q8_matmul(x, q, s)
     torch.cuda.synchronize()
-    tol = 1e-5 * float(want.abs().max())
-    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    _assert_within(got, want, ref.q8_matmul_limit(x, q, s, want))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4096, 2560), (4, 4096, 2560), (16, 4096, 2560), (17, 4096, 2560),
+    (4, 4096, 1000), (4, 4097, 640), (4, 16384, 2560), (3, 200, 1001),
+    (8, 4096, 10112), (2, 48, 24)])
+def test_q8_matmul_split_kernel(cuda, m, k, n):
+    """The streaming kernel (M <= 16; M = 17 the SGEMM) at decode widths, N
+    no multiple of the 64-column slab (1000; 1001 and 24 also not of 16,
+    the byte-load path), K no multiple of the cluster's split (4097) and
+    K = 16384 at N = 2560: within ``ref.q8_matmul_limit``, one launch, and
+    the same bits from a second call."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.q8_matmul import quantize_weights_np
+    rng = np.random.default_rng(m * 31 + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    q, s = quantize_weights_np(rng.standard_normal((k, n))
+                               .astype(np.float32))
+    x, q, s = x.to(cuda), torch.from_numpy(q).to(cuda), \
+        torch.from_numpy(s).to(cuda)
+    before = ops.launch_counts()["q8_matmul"]
+    got = ops.q8_matmul(x, q, s)
+    assert ops.launch_counts()["q8_matmul"] == before + 1
+    want = ref.q8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.q8_matmul_limit(x, q, s, want))
+    assert torch.equal(ops.q8_matmul(x, q, s), got)
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -253,6 +280,48 @@ def test_decode_attention_kernel(cuda, qdt, kvdt, layout, hq, hkv, d,
             v[i, :, int(lens[i]):] = float("nan")
         again = ops.decode_attention(q, k, v, lens, **kw)
         torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+@pytest.mark.parametrize("hq,hkv,d,t,softcap", [
+    (32, 8, 128, 528, None), (8, 8, 64, 300, None), (16, 2, 256, 300, 30.0),
+    (32, 4, 128, 4096, None), (20, 1, 64, 130, 50.0)])
+def test_decode_attention_split_kernel(cuda, kvdt, layout, hq, hkv, d, t,
+                                       softcap):
+    """The split-KV kernel (bf16 q over a bf16 or int8 cache): group sizes
+    1, 4, 8 and 20 (two clusters of q-heads), head dims 64, 128, 256, T
+    no multiple of the 64-token tile, kv_len of 0, 1, 16 and 64 tokens +-
+    1 (the block and tile edges) and T, within
+    ``ref.decode_attention_limit``, one launch, the same bits from a second
+    call and with NaN in every row past kv_len (int8: NaN scales)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(hq + d + t)
+    lens = [0, 1, 15, 17, 63, 65, t - 1, t]
+    b = len(lens)
+    k, v, ks, vs = _dense_cache(gen, b, hkv, t, d, kvdt, layout, cuda)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs, softcap=softcap)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, kl, **kw)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    want = ref.decode_attention(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, d)
+    _assert_within(got, want,
+                   ref.decode_attention_limit(q, k, v, kl, want, **kw))
+    assert not bool(got[0].float().any())          # kv_len 0 writes 0
+    assert torch.equal(ops.decode_attention(q, k, v, kl, **kw), got)
+    for i, n in enumerate(lens):
+        if kvdt == torch.int8:
+            ks[i, :, n:] = float("nan")
+            vs[i, :, n:] = float("nan")
+        else:
+            k[i, :, n:] = float("nan")
+            v[i, :, n:] = float("nan")
+    assert torch.equal(ops.decode_attention(q, k, v, kl, **kw), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
