@@ -22,8 +22,9 @@
 //   a NaN there reaches no output; a row with no valid key writes 0.
 //
 // bf16 q over a bf16 or int8 cache (head dims 16/32/64/128/256, 16-byte
-//   aligned rows): a split-KV kernel with one thread-block cluster per
-//   (batch, kv-head).  The cluster's blocks (1-8, chosen so that the grid
+//   aligned rows; the wrapper refuses any other bf16 shape): a split-KV
+//   kernel with one thread-block cluster per (batch, kv-head).  The
+//   cluster's blocks (1-8, chosen so that the grid
 //   holds about one block per SM) take contiguous ranges of the row's
 //   kv_len tokens; the q-heads of the GQA group (up to 16, the rows of one
 //   mma tile; a larger group takes several clusters) share every K/V row
@@ -43,21 +44,18 @@
 //   contributes l = 0, which the merge weights by 0 (it never forms
 //   exp(-inf - -inf)).  No atomics: two calls give the same bits.
 //
-// fp32 q (and a bf16 q at another head dim or alignment): one block of 16
-//   warps per (batch, q-head); warp w takes tokens w, w + 16, ..., its lanes
-//   own head-dim columns lane + 32 i, each warp keeps its own online softmax
-//   in registers, and the 16 partial states merge once through shared
+// fp32 q over an fp32 or int8 cache: one block of 16 warps per (batch,
+//   q-head); warp w takes tokens w, w + 16, ..., its lanes own head-dim
+//   columns lane + 32 i, each warp keeps its own online softmax in
+//   registers, and the 16 partial states merge once through shared
 //   memory.  The q-heads of a GQA group re-read the same rows, which the
 //   50 MB L2 absorbs.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
-#include <atomic>
 #include <type_traits>
 
+#include "device_helpers.h"
 #include "launch_args.h"
 
 namespace cg = cooperative_groups;
@@ -69,7 +67,6 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxD = 256;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -86,63 +83,6 @@ constexpr int kSpStages = 2;            // K/V tiles in shared memory
 constexpr int kSpRows = 16;             // q-heads a block: the rows of an mma tile
 constexpr int kMaxCluster = 8;
 constexpr int kSpBlocksPerSm = 1;       // the grid aims at this many blocks an SM
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled, and nothing read, when `valid` is
-// false.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-// 4 bytes global -> shared, zero-filled without a read when `valid` is false.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Four int8 values (little-endian in `w`) as exact fp32: each byte, biased
-// by 128, becomes the low mantissa byte of 2^23, and 2^23 + 128 comes off.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
-}
 
 template <int D, bool Q8>
 struct SpCfg {
@@ -472,32 +412,6 @@ decode_split_kernel(const bf16* __restrict__ q, long long q_sb, long long q_sh,
   cluster.sync();  // no block leaves while another reads its state
 }
 
-int sm_count() {
-  static std::atomic<int> count[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 132;
-  int c = count[dev].load(std::memory_order_relaxed);
-  if (c == 0) {
-    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) c = 132;
-    count[dev].store(c, std::memory_order_relaxed);
-  }
-  return c;
-}
-
-// cudaFuncSetAttribute once for each kernel and device, not on every launch.
-template <typename Kernel>
-int set_smem_once(Kernel kernel, int bytes, std::atomic<int> (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (done[dev].load(std::memory_order_acquire)) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  done[dev].store(1, std::memory_order_release);
-  return 0;
-}
-
 template <int D, bool Q8>
 int launch_split(const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
                  long long kv_sb, long long kv_sh, long long kv_st, const void* k_scale,
@@ -505,12 +419,13 @@ int launch_split(const void* q, long long q_sb, long long q_sh, const void* k, c
                  const void* kv_len, void* out, long long o_sb, long long o_sh, int b, int hq,
                  int hkv, int t_max, float scale, float softcap, cudaStream_t stream) {
   using C = SpCfg<D, Q8>;
-  static std::atomic<int> done[kMaxDevices];
-  const int err = set_smem_once(decode_split_kernel<D, Q8>, C::SMEM, done);
+  static std::atomic<int> sms[kMaxDevices];
+  int sm_count = 0;
+  const int err = kernel_setup(decode_split_kernel<D, Q8>, C::SMEM, sms, sm_count);
   if (err) return err;
   const int groups = (hq / hkv + kSpRows - 1) / kSpRows;
   const int rows = b * hkv * groups;
-  const int want = (kSpBlocksPerSm * sm_count() + rows - 1) / rows;
+  const int want = (kSpBlocksPerSm * sm_count + rows - 1) / rows;
   const int most = max(1, (t_max + kSpTile - 1) / kSpTile);  // a tile a block at least
   const int cs = max(1, min(kMaxCluster, min(want, most)));
   cudaLaunchConfig_t cfg = {};
@@ -535,7 +450,7 @@ int launch_split(const void* q, long long q_sb, long long q_sh, const void* k, c
 }
 
 // ---------------------------------------------------------------------------
-// fp32 q (or a bf16 q off the split kernel's shapes): a block per q-head
+// fp32 q: a block per q-head
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 16;
@@ -543,38 +458,21 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kCols = kMaxD / 32;      // head-dim columns per lane
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// p as the PV product sees it: rounded to the value dtype for bf16 caches;
-// fp32 and dequantized int8 values take it unrounded.
-template <typename TKV> __device__ __forceinline__ float round_p(float p) { return p; }
-template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-// Q8: int8 K/V with per-row scales, dequantized in q's dtype (the JAX
-// package's stacked-cache rule, models/model.py:481-485).  Under a bf16 q
-// (DQ16) that is bf16(bf16(k) * bf16(scale)) and p rounds like a bf16
-// cache; under an fp32 q the scales apply in fp32.
-template <typename TQ, typename TKV, bool Q8>
+// Q8: int8 K/V with per-row scales applied in fp32 (the JAX package's
+// stacked-cache rule under an fp32 q, models/model.py:481-485).
+template <typename TKV, bool Q8>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
+decode_kernel(const float* __restrict__ q, long long q_sb, long long q_sh,
               const TKV* __restrict__ k, const TKV* __restrict__ v,
               long long kv_sb, long long kv_sh, long long kv_st,
               const float* __restrict__ k_scale,
               const float* __restrict__ v_scale,
               long long s_sb, long long s_sh, long long s_st,
-              const int32_t* __restrict__ kv_len, TQ* __restrict__ out,
+              const int32_t* __restrict__ kv_len, float* __restrict__ out,
               long long o_sb, long long o_sh, int hq, int hkv, int t_max,
               int d, float scale, float softcap) {
-  constexpr bool DQ16 = Q8 && std::is_same<TQ, __nv_bfloat16>::value;
   __shared__ float m_s[kWarps];
   __shared__ float l_s[kWarps];
   __shared__ float acc_s[kWarps][kMaxD];
@@ -592,7 +490,7 @@ decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
 #pragma unroll
   for (int i = 0; i < kCols; ++i) {
     const int c = lane + 32 * i;
-    qr[i] = c < d ? to_f(q[b * q_sb + h * q_sh + c]) * scale : 0.f;
+    qr[i] = c < d ? q[b * q_sb + h * q_sh + c] * scale : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf;
@@ -608,10 +506,6 @@ decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
       const long long si = b * s_sb + kvh * s_sh + t * s_st;
       ksc = k_scale[si];
       vsc = v_scale[si];
-      if (DQ16) {
-        ksc = bf16r(ksc);
-        vsc = bf16r(vsc);
-      }
     }
     float kv[kCols], vv[kCols];
 #pragma unroll
@@ -619,23 +513,19 @@ decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
       const int c = lane + 32 * i;
       kv[i] = c < d ? to_f(kr[c]) : 0.f;
       vv[i] = c < d ? to_f(vr[c]) : 0.f;
-      if (DQ16) {
-        kv[i] = bf16r(kv[i] * ksc);
-        vv[i] = bf16r(vv[i] * vsc);
-      }
     }
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) s += qr[i] * kv[i];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (Q8 && !DQ16) s *= ksc;
+    if (Q8) s *= ksc;
     if (softcap > 0.f) s = softcap * tanhf(s / softcap);
     const float m_new = fmaxf(m, s);
     const float alpha = expf(m - m_new);
     const float p = expf(s - m_new);
     l = l * alpha + p;
-    const float pv = DQ16 ? bf16r(p) : round_p<TKV>(p) * vsc;
+    const float pv = p * vsc;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) acc[i] = acc[i] * alpha + pv * vv[i];
     m = m_new;
@@ -661,29 +551,29 @@ decode_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh,
       lt += l_s[w] * f;
       at += acc_s[w][c] * f;
     }
-    out[b * o_sb + h * o_sh + c] = from_f<TQ>(at / (lt == 0.f ? 1.f : lt));
+    out[b * o_sb + h * o_sh + c] = at / (lt == 0.f ? 1.f : lt);
   }
 }
 
-template <typename TQ, typename TKV, bool Q8>
+template <typename TKV, bool Q8>
 int launch(const void* q, long long q_sb, long long q_sh, const void* k,
            const void* v, long long kv_sb, long long kv_sh, long long kv_st,
            const void* k_scale, const void* v_scale, long long s_sb,
            long long s_sh, long long s_st, const void* kv_len, void* out,
            long long o_sb, long long o_sh, int b, int hq, int hkv, int t_max,
            int d, float scale, float softcap, cudaStream_t stream) {
-  decode_kernel<TQ, TKV, Q8><<<b * hq, kThreads, 0, stream>>>(
-      static_cast<const TQ*>(q), q_sb, q_sh, static_cast<const TKV*>(k),
+  decode_kernel<TKV, Q8><<<b * hq, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), q_sb, q_sh, static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), kv_sb, kv_sh, kv_st,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       s_sb, s_sh, s_st, static_cast<const int32_t*>(kv_len),
-      static_cast<TQ*>(out), o_sb, o_sh, hq, hkv, t_max, d, scale, softcap);
+      static_cast<float*>(out), o_sb, o_sh, hq, hkv, t_max, d, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-// Does a bf16 q over this cache take the split kernel: a head dim it is
+// Does a bf16 q over this cache fit the split kernel: a head dim it is
 // instantiated for, and every row it copies 16-byte aligned (a stride of a
-// dim of size 1 is never used).
+// dim of size 1 is never used).  The wrapper refuses anything else first.
 bool split_shape(const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
                  long long kv_sb, long long kv_sh, long long kv_st, int kv_el, int b, int hq,
                  int hkv, int t_max, int d) {
@@ -702,6 +592,8 @@ bool split_shape(const void* q, long long q_sb, long long q_sh, const void* k, c
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (K/V only, with scales).
+// A bf16 q takes the split kernel or is refused; an fp32 q the per-q-head
+// kernel.
 static int decode_attention_impl(
     const void* q, long long q_sb, long long q_sh, int q_dtype,
     const void* k, const void* v, long long kv_sb, long long kv_sh,
@@ -711,9 +603,11 @@ static int decode_attention_impl(
     int t_max, int d, float scale, float softcap, void* stream) {
   if (d > kMaxD || hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 1 && (kv_dtype == 1 || kv_dtype == 2) &&
-      split_shape(q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, kv_dtype == 1 ? 2 : 1, b, hq, hkv,
-                  t_max, d)) {
+  if (q_dtype == 1) {
+    if ((kv_dtype != 1 && kv_dtype != 2) ||
+        !split_shape(q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, kv_dtype == 1 ? 2 : 1, b, hq,
+                     hkv, t_max, d))
+      return (int)cudaErrorInvalidValue;
 #define SPLIT_ARGS q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, k_scale, v_scale, s_sb, s_sh, \
     s_st, kv_len, out, o_sb, o_sh, b, hq, hkv, t_max, scale, softcap, s
 #define SPLIT(D)                                                   \
@@ -729,16 +623,13 @@ static int decode_attention_impl(
     }
 #undef SPLIT
 #undef SPLIT_ARGS
+    return (int)cudaErrorInvalidValue;
   }
 #define DECODE_ARGS q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, k_scale, v_scale, \
     s_sb, s_sh, s_st, kv_len, out, o_sb, o_sh, b, hq, hkv, t_max, d, scale,     \
     softcap, s
-  if (q_dtype == 0 && kv_dtype == 0) return launch<float, float, false>(DECODE_ARGS);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(DECODE_ARGS);
-  if (q_dtype == 0 && kv_dtype == 2) return launch<float, int8_t, true>(DECODE_ARGS);
-  if (q_dtype == 1 && kv_dtype == 2)
-    return launch<__nv_bfloat16, int8_t, true>(DECODE_ARGS);
+  if (q_dtype == 0 && kv_dtype == 0) return launch<float, false>(DECODE_ARGS);
+  if (q_dtype == 0 && kv_dtype == 2) return launch<int8_t, true>(DECODE_ARGS);
 #undef DECODE_ARGS
   return (int)cudaErrorInvalidValue;
 }

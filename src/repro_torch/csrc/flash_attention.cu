@@ -50,82 +50,19 @@
 //   query row, each scoring 8 of the tile's keys and keeping D / 4
 //   accumulator columns in registers.
 
-#include <atomic>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "device_helpers.h"
 #include "launch_args.h"
-
 
 namespace {
 
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxDevices = 64;
-
-// cudaFuncSetAttribute once for each kernel and device, not on every launch.
-template <typename Kernel>
-int set_smem_once(Kernel kernel, int bytes, std::atomic<int> (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (done[dev].load(std::memory_order_acquire)) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  done[dev].store(1, std::memory_order_release);
-  return 0;
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled, and nothing read, when `valid` is
-// false.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = kTcWarps * 32;
@@ -346,8 +283,9 @@ int launch_tc(const void* q, long long q_sb, long long q_sh, long long q_ss, con
               long long o_sb, long long o_sh, long long o_ss, int b, int hq, int hkv, int sq,
               int skv, float scale, float softcap, int causal, int window,
               cudaStream_t stream) {
-  static std::atomic<int> done[kMaxDevices];
-  const int err = set_smem_once(flash_tc_kernel<D>, TcCfg<D>::SMEM, done);
+  static std::atomic<int> sms[kMaxDevices];
+  int sm_count = 0;
+  const int err = kernel_setup(flash_tc_kernel<D>, TcCfg<D>::SMEM, sms, sm_count);
   if (err) return err;
   const dim3 grid(b * hq, (sq + kTcRows - 1) / kTcRows);
   flash_tc_kernel<D><<<grid, kTcThreads, TcCfg<D>::SMEM, stream>>>(
@@ -499,8 +437,9 @@ int launch_f32(const void* q, long long q_sb, long long q_sh, long long q_ss, co
                long long o_sb, long long o_sh, long long o_ss, int b, int hq, int hkv, int sq,
                int skv, int d, float scale, float softcap, int causal, int window,
                cudaStream_t stream) {
-  static std::atomic<int> done[kMaxDevices];
-  const int err = set_smem_once(flash_f32_kernel, f32_smem(kMaxD), done);
+  static std::atomic<int> sms[kMaxDevices];
+  int sm_count = 0;
+  const int err = kernel_setup(flash_f32_kernel, f32_smem(kMaxD), sms, sm_count);
   if (err) return err;
   const dim3 grid(b * hq, (sq + kBlockQ - 1) / kBlockQ);
   flash_f32_kernel<<<grid, kThreads, f32_smem(d), stream>>>(

@@ -34,7 +34,7 @@
 //   Every edge (any M <= 16, N, K) is masked in the kernel; rows that are
 //   not 16-byte aligned (N % 16 != 0) take byte loads.  The slab width,
 //   the ring's depth and the blocks an SM were chosen on the card among
-//   the variants that tools/kernel_probe.py builds (PERF.md).
+//   variants of this kernel (PERF.md).
 //
 // M > 16 (prefill): a shared-memory tiled SGEMM.  A block of 256 threads
 //   owns a 64 x 64 output tile and walks K in steps of 16, staging the x
@@ -48,11 +48,8 @@
 //   terms) is left for a later change.
 
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
-#include <atomic>
-
+#include "device_helpers.h"
 #include "launch_args.h"
 
 namespace cg = cooperative_groups;
@@ -70,7 +67,6 @@ constexpr int kXFloats = 8192;          // staged x (32 KB), also the reduction 
 constexpr int kUnroll = 4;              // k rows a thread copies per batch
 constexpr int kStages = 4;              // batches in a thread's ring (3 in flight)
 constexpr int kMaxCluster = 8;          // portable cluster size
-constexpr int kMaxDevices = 64;
 constexpr int kBlocksPerSm = 2;         // the grid aims at this many blocks an SM
 
 constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
@@ -96,22 +92,6 @@ struct StreamCfg {
   static_assert(kSWarps * OUT <= kXFloats, "reduction buffer");
   static_assert(KEEP >= 1 && TPR <= 32, "lanes");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// 4 bytes global -> shared, zero-filled without a read when `valid` is false.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
 
 // The weights of k row `k` at this thread's columns [col, col + 4 * WORDS)
 // into its shared-memory slot, zeros where the row or a column lies outside
@@ -146,16 +126,6 @@ __device__ __forceinline__ void stage_row(uint32_t* slot, const int8_t* __restri
       slot[j] = word;
     }
   }
-}
-
-// Four int8 values (little-endian in `w`) as exact fp32: each byte, biased
-// by 128, becomes the low mantissa byte of 2^23, and 2^23 + 128 comes off.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
 }
 
 // One step of the warp's recursive halving and the steps after it: lanes
@@ -346,44 +316,19 @@ q8_stream_kernel(const float* __restrict__ x,      // (M, K)
   cluster.sync();  // no block leaves while another reads its partial sums
 }
 
-// cudaFuncSetAttribute once for each kernel and device, not on every launch.
-template <typename Kernel>
-int set_smem_once(Kernel kernel, int bytes, std::atomic<int> (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (done[dev].load(std::memory_order_acquire)) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  done[dev].store(1, std::memory_order_release);
-  return 0;
-}
-
-int sm_count() {
-  static std::atomic<int> count[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 132;
-  int c = count[dev].load(std::memory_order_relaxed);
-  if (c == 0) {
-    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) c = 132;
-    count[dev].store(c, std::memory_order_relaxed);
-  }
-  return c;
-}
-
 template <int MT, bool VEC>
 int launch_stream(const float* x, const int8_t* q, const float* scale, float* y, int m, int n,
                   int k, cudaStream_t stream) {
   using C = StreamCfg<MT>;
+  static std::atomic<int> sms[kMaxDevices];
+  int sm_count = 0;
+  const int serr = kernel_setup(q8_stream_kernel<MT, VEC>, C::SMEM, sms, sm_count);
+  if (serr) return serr;
   const int slabs = (n + C::SLAB - 1) / C::SLAB;
-  const int want = (kBlocksPerSm * sm_count() + slabs - 1) / slabs;
+  const int want = (kBlocksPerSm * sm_count + slabs - 1) / slabs;
   // at least one full batch of k rows for every thread of a block
   const int most = max(1, k / (kUnroll * C::RPS));
   const int cs = max(1, min(kMaxCluster, min(want, most)));
-  static std::atomic<int> done[kMaxDevices];
-  const int serr = set_smem_once(q8_stream_kernel<MT, VEC>, C::SMEM, done);
-  if (serr) return serr;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(slabs * cs);
   cfg.blockDim = dim3(kSThreads);

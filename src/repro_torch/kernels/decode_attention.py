@@ -8,11 +8,11 @@ layer slice as it is, or the backend's (B, T, Hkv, D) buffer through
 copied.  With ``k_scale`` / ``v_scale`` (B, Hkv, T) the cache is int8 and
 is dequantized inside the kernel in q's dtype, as the JAX package's
 stacked whole model dequantizes its int8 cache in the model dtype.  A bf16
-q over a bf16 or int8 cache (head dims 16-256 in powers of two, 16-byte
-aligned rows) runs a split-KV kernel with one thread-block cluster per
-(batch, kv-head); an fp32 q, and any other bf16 shape, a kernel with one
-block per (batch, q-head).  Either is one launch.  The plain version is
-:func:`repro_torch.kernels.ref.decode_attention`.
+q over a bf16 or int8 cache runs a split-KV kernel with one thread-block
+cluster per (batch, kv-head), at the head dims ``BF16_HEAD_DIMS`` with
+16-byte aligned rows (any other bf16 shape is refused); an fp32 q a kernel
+with one block per (batch, q-head).  Either is one launch.  The plain
+version is :func:`repro_torch.kernels.ref.decode_attention`.
 """
 
 from __future__ import annotations
@@ -51,14 +51,38 @@ def check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must have a unit stride in its last dim")
 
 
+# head dims of the bf16 tensor-core kernels' instantiations (the split
+# decode kernel's and flash attention's)
+BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def check_bf16_operands(q, k, v) -> None:
+    """The bf16 tensor-core kernels move 16-byte chunks: their head dims
+    are ``BF16_HEAD_DIMS``, and every base pointer and stride but the last
+    of q, k and v is a multiple of 16 bytes (a stride of a dim of size 1
+    is never used)."""
+    d = q.shape[-1]
+    if d not in BF16_HEAD_DIMS:
+        raise ValueError(f"bf16 head dim {d} is not one of {BF16_HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        el = x.element_size()
+        if x.data_ptr() % 16 or any(
+                st * el % 16 for st, n in zip(x.stride()[:-1], x.shape[:-1])
+                if n > 1):
+            raise ValueError(f"{name} must be 16-byte aligned with strides "
+                             f"in multiples of 16 bytes, got strides "
+                             f"{x.stride()} of {el}-byte elements")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
                      softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, D) fp32 or bf16; k/v (B, Hkv, T, D) of q's dtype, or int8
-    with ``k_scale``/``v_scale`` (B, Hkv, T) fp32 dequantized in q's
-    dtype; kv_len (B,) int32
+    """q (B, Hq, D) fp32 or bf16 (D in ``BF16_HEAD_DIMS``, 16-byte aligned
+    rows); k/v (B, Hkv, T, D) of q's dtype, or int8 with
+    ``k_scale``/``v_scale`` (B, Hkv, T) fp32 dequantized in q's dtype;
+    kv_len (B,) int32
     -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current
     stream; every call counts in ``decode_attention.launches``."""
     if q.dim() != 3 or k.dim() != 4:
@@ -96,6 +120,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("kv_len must be a contiguous (B,) int32 tensor")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_rows(name, x)
+    if q.dtype == torch.bfloat16:
+        check_bf16_operands(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b == 0 or hq == 0:
         return out

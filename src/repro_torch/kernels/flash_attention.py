@@ -19,8 +19,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (DTYPE_CODES, check_device,
-                                                  check_rows)
+from repro_torch.kernels.decode_attention import (DTYPE_CODES,
+                                                  check_bf16_operands,
+                                                  check_device, check_rows)
 
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p, _LL, _LL, _LL,
@@ -30,31 +31,12 @@ _ARGTYPES = ([ctypes.c_void_p, _LL, _LL, _LL,
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-# head dims of the bf16 (tensor-core) kernel's instantiations
-BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
-
-
-def _check_tensor_core_operands(q, k, v) -> None:
-    """The bf16 kernel moves 16-byte chunks: its head dims are
-    ``BF16_HEAD_DIMS``, and every base pointer and (batch, head, row)
-    stride of q, k and v is a multiple of 16 bytes (a stride of a dim of
-    size 1 is never used)."""
-    d = q.shape[-1]
-    if d not in BF16_HEAD_DIMS:
-        raise ValueError(f"bf16 head dim {d} is not one of {BF16_HEAD_DIMS}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16 or any(
-                st % 8 for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1):
-            raise ValueError(f"{name} must be 16-byte aligned with strides "
-                             f"in multiples of 8 elements, got strides "
-                             f"{x.stride()}")
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D); fp32 (D <= 256) or bf16 (D
-    in ``BF16_HEAD_DIMS``, 16-byte aligned rows), one dtype
+    in ``decode_attention.BF16_HEAD_DIMS``, 16-byte aligned rows), one
+    dtype
     -> (B, Hq, Sq, D), a view whose ``transpose(1, 2)`` is contiguous.
     Launches the CUDA kernel on the current stream; every call counts in
     ``flash_attention.launches``."""
@@ -81,7 +63,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_rows(name, x)
     if q.dtype == torch.bfloat16:
-        _check_tensor_core_operands(q, k, v)
+        check_bf16_operands(q, k, v)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=dev).transpose(1, 2)
     if b == 0 or hq == 0 or sq == 0:

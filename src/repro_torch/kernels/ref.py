@@ -486,8 +486,8 @@ def _product_bound(xf, wf):
 # ``chip_smoke.py``'s q8 run, and the plain version over x kept to 16
 # significant bits (what a two-term bf16 split of x carries) lies beyond
 # it in about half of the elements; the earlier SGEMM, one fp32 chain per
-# output over all K, lay 1.7-5.6x beyond it (``tools/kernel_probe.py``,
-# one H100 80GB HBM3, 700 W): this limit holds the kernels to blocked sums.
+# output over all K, lay 1.7-5.6x beyond it (one H100 80GB HBM3, 700 W;
+# PERF.md): this limit holds the kernels to blocked sums.
 _Q8_UNITS = 32.0
 
 

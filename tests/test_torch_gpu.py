@@ -192,6 +192,16 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         decode_attention.decode_attention(q, k.transpose(2, 3),
                                           k.transpose(2, 3), lens)
+    # a bf16 q runs only the split kernel: another head dim, or a row off
+    # 16-byte alignment, raises instead of taking another kernel
+    kb = torch.zeros((2, 2, 8, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention.decode_attention(q[..., :48].bfloat16(), kb, kb,
+                                          lens)
+    qb = torch.zeros((2, 4, 72), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention.decode_attention(qb[..., 4:68], k.bfloat16(),
+                                          k.bfloat16(), lens)
     with pytest.raises(TypeError):
         flash_attention.flash_attention(k.double(), k.double(), k.double())
     with pytest.raises(ValueError):

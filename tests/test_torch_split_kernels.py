@@ -5,9 +5,10 @@ surrounds the kernels: the plain versions against the JAX package's
 Pallas kernels in interpret mode at the group sizes and head dims the
 split kernel takes, the statistical limit ``ref.q8_matmul_limit`` (a
 blocked fp32 sum passes it; the plain version over x rounded to bf16 or
-kept to 16 significant bits does not), and the wrappers' refusal of CPU
-tensors before anything touches CUDA.  Inputs come from numpy with a
-seed and go to both sides.
+kept to 16 significant bits does not), the wrappers' refusal of CPU
+tensors before anything touches CUDA, and the decode wrapper's refusal of
+a bf16 q at a shape the split kernel does not take.  Inputs come from
+numpy with a seed and go to both sides.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -156,3 +157,48 @@ def test_decode_wrapper_refuses_cpu_tensors_first(monkeypatch, kv_dtype, hq,
     with pytest.raises(ValueError):
         decode_attention.decode_attention(
             q, kv, kv, torch.full((b,), t, dtype=torch.int32), **kw)
+
+
+def _padded(shape, dtype, pad, offset=0):
+    """A zero tensor of ``shape`` whose last dim is a view into rows of
+    ``shape[-1] + pad`` elements, starting ``offset`` elements in."""
+    *lead, d = shape
+    base = torch.zeros((*lead, d + pad), dtype=dtype)
+    return base[..., offset:offset + d]
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("bf16 d 128", True), ("int8 d 64", True), ("bthd layout", True),
+    ("d 48", False), ("d 8", False), ("q off 16 bytes", False),
+    ("bf16 token stride 68", False), ("int8 token stride 72", False),
+    ("v off 16 bytes", False)])
+def test_decode_refuses_bf16_shapes_off_the_split_kernel(case, ok):
+    """A bf16 q has one kernel, the split one: head dims in
+    ``BF16_HEAD_DIMS`` with every base pointer and stride but the last a
+    multiple of 16 bytes.  Anything else is refused with ``ValueError``
+    (on the card before the launch) rather than run by another kernel."""
+    from repro_torch.kernels.decode_attention import check_bf16_operands
+    b, hq, hkv, t = 2, 8, 2, 40
+    d = {"d 48": 48, "d 8": 8, "int8 d 64": 64}.get(case, 128)
+    kv_dt = torch.int8 if case.startswith("int8") else torch.bfloat16
+    q = torch.zeros((b, hq, d), dtype=torch.bfloat16)
+    k = torch.zeros((b, hkv, t, d), dtype=kv_dt)
+    v = torch.zeros((b, hkv, t, d), dtype=kv_dt)
+    if case == "bthd layout":
+        k = torch.zeros((b, t, hkv, d), dtype=kv_dt).transpose(1, 2)
+        v = torch.zeros((b, t, hkv, d), dtype=kv_dt).transpose(1, 2)
+    elif case == "q off 16 bytes":
+        q = _padded((b, hq, d), torch.bfloat16, 8, offset=4)
+    elif case.endswith("token stride 68") or case.endswith("stride 72"):
+        pad = 68 - 64 if kv_dt == torch.bfloat16 else 72 - 64
+        k = _padded((b, hkv, t, 64), kv_dt, pad)
+        v = _padded((b, hkv, t, 64), kv_dt, pad)
+        q = torch.zeros((b, hq, 64), dtype=torch.bfloat16)
+    elif case == "v off 16 bytes":
+        v = torch.zeros(b * hkv * t * d + 4, dtype=kv_dt)[4:].view(
+            b, hkv, t, d)
+    if ok:
+        check_bf16_operands(q, k, v)
+    else:
+        with pytest.raises(ValueError):
+            check_bf16_operands(q, k, v)

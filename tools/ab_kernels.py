@@ -1,0 +1,272 @@
+"""Compare builds of the port's kernels on one card, in one process: host
+time per call, device time per call, and Mistral-NeMo-12B's resident
+one-shot decode (``chip_smoke.py``'s phase 3b) with each build in turn.
+The kernels: ``decode_attention`` and ``q8_matmul`` at their decode
+shapes, bf16 ``flash_attention`` and ``gated_matmul`` at 3b's prefill.
+
+    python tools/ab_kernels.py --other parent=.archive_check/parent \\
+        [--other name=DIR ...] [--pairs 10] [--out chiprun_out/ab.json]
+
+``DIR`` is another checkout of the repo, such as a ``git archive`` of a
+commit unpacked in a gitignored directory.  Its sources are built with
+the port's nvcc flags beside the tree's, and every build is called through
+the tree's own wrappers: the wrapper's entry in ``build``'s table of C
+functions is swapped, so the argument layout is the wrapper's (the builds'
+C signatures must agree).
+
+Per kernel shape, builds in turns, forward then backward, ``--rounds``
+times (medians printed): ``wrapper_us``, the host's time to issue one
+wrapper call (100 calls back to back, timed before the device is waited
+for); ``entry_us``, the same for the C entry alone, called with one call's
+packed arguments; ``device_ms``, 20 calls in a CUDA graph
+(``chip_smoke.device_ms``).  Then ``--pairs`` pairs of 3b runs, the first
+``--other`` build against the tree's in alternating order (other, tree;
+tree, other; ...), over a bf16 and an int8 cache, each reading the
+generator's decode tok/s.  Prints a line per reading and a JSON line of
+them all.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
+from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
+from repro_torch.kernels import hete_matmul as k_mm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import q8_matmul as k_q8  # noqa: E402
+
+# (library, C symbol) -> the wrapper's argument types
+ENTRIES = {("decode_attention", "decode_attention"): k_dense._ARGTYPES,
+           ("q8_matmul", "q8_matmul_f32"): k_q8._ARGTYPES,
+           ("flash_attention", "flash_attention"): k_flash._ARGTYPES,
+           ("hete_matmul", "hete_gated_matmul"): k_mm._ARGTYPES}
+LIBRARIES = sorted({lib for lib, _ in ENTRIES})
+CALLS = 100
+
+
+def build_others(others) -> dict:
+    """The libraries of each checkout in ``others`` ({name: DIR}), built
+    into ``_build/ab/<name>`` (one nvcc each, all started together), their
+    entries looked up like ``build.c_function``.  A build that fails is
+    logged and left out."""
+    procs = {}
+    for name, tree in others.items():
+        out = build.BUILD_DIR / "ab" / name
+        out.mkdir(parents=True, exist_ok=True)
+        for lib in LIBRARIES:
+            src = os.path.join(tree, "src", "repro_torch", "csrc",
+                               lib + ".cu")
+            so = out / f"lib{lib}.so"
+            procs[name, lib] = (so, subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    builds, failed = {}, set()
+    for (name, lib), (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            cs.log(f"nvcc failed for {name}/{lib}, build left out:\n{log}")
+            failed.add(name)
+            continue
+        dll = ctypes.CDLL(str(so))
+        for (elib, symbol), argtypes in ENTRIES.items():
+            if elib != lib:
+                continue
+            c = getattr(dll, symbol)
+            c.argtypes = [ctypes.c_char_p]
+            c.restype = ctypes.c_int
+            builds.setdefault(name, {})[elib, symbol] = build.CFunction(
+                c, symbol, argtypes)
+    return {n: fns for n, fns in builds.items() if n not in failed}
+
+
+def use(fns: dict) -> None:
+    """Route the wrappers to one build's C functions."""
+    for key in ENTRIES:
+        build._fns[key] = fns[key]
+
+
+def packed_call(call):
+    """The C function and packed arguments of one wrapper call."""
+    seen = {}
+    launch = build.launch
+
+    def grab(fn, index, *args):
+        seen["fn"] = fn
+        seen["buf"] = fn.pack(*args, torch._C._cuda_getCurrentRawStream(index))
+        return launch(fn, index, *args)
+
+    build.launch = grab
+    try:
+        call()
+    finally:
+        build.launch = launch
+    fn, buf = seen["fn"], seen["buf"]
+    return lambda: fn.fn(buf)
+
+
+def host_us(fn) -> float:
+    """The host's time to issue one call: ``CALLS`` calls back to back,
+    timed before the device is waited for (fewer calls than the launch
+    queue holds, so a device slower than the host does not stall them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CALLS):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / CALLS * 1e6
+
+
+def shapes(gen):
+    """(name, wrapper call) at 3b's decode shapes, phase 3's q8 decode
+    shapes, and 3b's bf16 prefill shapes of flash attention and the gated
+    MLP."""
+    cfg = cs.get_config("mistral-nemo-12b")
+    b, t = 4, cs.ONESHOT_PROMPT + cs.ONESHOT_NEW
+    kl = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
+    out = []
+    for kv_dt in (torch.bfloat16, torch.int8):
+        k, v, ks, vs = cs.dense_cache(gen, b, cfg.n_kv_heads, t, cfg.hd,
+                                      kv_dt, "bhtd")
+        q = torch.randn((b, cfg.n_heads, cfg.hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out.append((f"decode {str(kv_dt)[6:]} cache",
+                    lambda q=q, k=k, v=v, ks=ks, vs=vs: k_dense.decode_attention(
+                        q, k, v, kl, k_scale=ks, v_scale=vs)))
+    for m, k, n in ((4, 4096, 2560), (4, 4096, 10112), (4, 16384, 2560)):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(n, generator=gen, device="cuda") * 0.01
+        out.append((f"q8 {m}x{k}x{n}",
+                    lambda x=x, w=w, s=s: k_q8.q8_matmul(x, w, s)))
+    s = cs.ONESHOT_PROMPT
+    q = torch.randn((b, s, cfg.n_heads, cfg.hd), generator=gen,
+                    device="cuda").to(torch.bfloat16).transpose(1, 2)
+    kv = torch.randn((b, s, cfg.n_kv_heads, cfg.hd), generator=gen,
+                     device="cuda").to(torch.bfloat16).transpose(1, 2)
+    out.append((f"flash bf16 S {s}",
+                lambda: k_flash.flash_attention(q, kv, kv, causal=True)))
+    x = torch.randn((b * s, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    wg, wu = (torch.randn((cfg.d_model, cfg.d_ff), generator=gen,
+                          device="cuda").mul(0.02).to(torch.bfloat16)
+              for _ in range(2))
+    out.append((f"gated bf16 {b * s}x{cfg.d_model}x{cfg.d_ff}",
+                lambda: k_mm.gated_matmul(x, wg, wu, activation="silu")))
+    return out
+
+
+def time_kernels(builds, rounds):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for name, call in shapes(gen):
+        got = {b: {"wrapper_us": [], "entry_us": [], "device_ms": []}
+               for b in builds}
+        for r in range(rounds):
+            order = list(builds) if r % 2 == 0 else list(builds)[::-1]
+            for b in order:
+                use(builds[b])
+                entry = packed_call(call)
+                got[b]["wrapper_us"].append(host_us(call))
+                got[b]["entry_us"].append(host_us(entry))
+                got[b]["device_ms"].append(cs.device_ms(call)[0])
+        for b, d in got.items():
+            row = {"shape": name, "build": b,
+                   **{key: float(np.median(vals)) for key, vals in d.items()},
+                   "all": d}
+            rows.append(row)
+            cs.log(f"{name:28s} {b:10s} wrapper {row['wrapper_us']:.2f} us, "
+                   f"C entry {row['entry_us']:.2f} us, device "
+                   f"{row['device_ms']:.4f} ms")
+    return rows
+
+
+def decode_pairs(builds, other, pairs):
+    """3b's one-shot generate, ``other`` and the tree's build alternating;
+    decode tok/s of each run with a bf16 and an int8 cache."""
+    cfg = cs.get_config("mistral-nemo-12b")
+    params = cs.M.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(cs.SEED), device="cuda")
+    rng = np.random.default_rng(cs.SEED)
+    prompts = [list(rng.integers(0, cfg.vocab_size, cs.ONESHOT_PROMPT))
+               for _ in range(4)]
+    runs = []
+    for kv_dtype in (None, "int8"):
+        run_cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+        for b in (other, "tree"):           # warm-up, not recorded
+            use(builds[b])
+            with cs.LLM(run_cfg, params) as llm:
+                llm.generate(prompts, max_new=cs.ONESHOT_NEW)
+        for i in range(pairs):
+            order = (other, "tree") if i % 2 == 0 else ("tree", other)
+            for b in order:
+                use(builds[b])
+                llm = cs.LLM(run_cfg, params)
+                ops.reset_launch_counts()
+                llm.generate(prompts, max_new=cs.ONESHOT_NEW)
+                n = ops.launch_counts()["decode_attention"]
+                m = llm.last_metrics
+                llm.close()
+                run = {"cache": kv_dtype or "bf16", "pair": i, "build": b,
+                       "decode_tok_s": m["tokens_per_s"],
+                       "decode_s": m["decode_s"],
+                       "decode_attention_launches": n}
+                runs.append(run)
+                cs.log(f"3b {run['cache']} pair {i} {b:10s} "
+                       f"{run['decode_tok_s']:.3f} tok/s "
+                       f"({n} decode_attention launches)")
+    return runs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", action="append", default=[],
+                    help="name=DIR of another checkout (repeatable)")
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    cs.log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip())
+    build.build(LIBRARIES)
+    others = dict(o.split("=", 1) for o in args.other)
+    builds = {"tree": {key: build.c_function(*key, argtypes)
+                       for key, argtypes in ENTRIES.items()},
+              **build_others(others)}
+    result = {"kernels": time_kernels(builds, args.rounds)}
+    first = next(iter(others), None)
+    if first in builds and args.pairs:
+        result["decode_pairs"] = decode_pairs(builds, first, args.pairs)
+    use(builds["tree"])
+    line = json.dumps(result)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
