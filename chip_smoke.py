@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    so the prefill kernel sees ``kv_offset > 0`` — once with fp32 weights
    on the wire and fp32 pages, once with ``wstream="q8"`` and int8 pages.
    Kernel launch counters are zeroed just before and read just after each
-   run, the q8 run's ``q8_matmul`` calls also tallied by (M, K, N); neither
+   run, the q8 run's ``q8_matmul`` calls also tallied by (M, K, N) and
+   both runs' paged attention calls by (B, S, each row's kv end); neither
    matmul kernel may launch on the HeteGen split.  The fp
    run's prefill logits are held against the port's ``ResidentBackend``
    on the card;
@@ -73,8 +74,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    plain version and (where one exists) a single PyTorch library call,
    beside the least time the card could take (bytes over 3.35 TB/s or
    FLOPs over the peak for the dtype — 67 TFLOP/s fp32, 989 TFLOP/s bf16 —
-   whichever is larger); the paged kernels also in bf16 at 3e's shapes,
-   within the ``ref.paged_*_limit`` bounds; ``q8_matmul`` at every (M, K,
+   whichever is larger); the paged kernels in fp32 at a long-context
+   shape and at phase 3's two most frequent shapes of each run, and in
+   bf16 at 3e's shapes, within the ``ref.paged_*_limit`` bounds (the fp32
+   prefill limit shown to reject q and k rounded to TF32; two prefill
+   calls must give the same bits); ``q8_matmul`` at every (M, K,
    N) that phase 3's q8 run launched it (tallied there, each with its own
    launches), within ``ref.q8_matmul_limit`` (shown to reject the plain
    version over x rounded to bf16 and over x kept to 16 significant bits),
@@ -82,8 +86,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 4b. the same for the dense-cache kernels (flash-decode, flash attention,
    RMSNorm) at the shapes of 3b and 3c, held element by element within
    the ``ref.*_limit`` bounds (each attention limit shown to reject an
-   off-by-one mask, and the bf16 flash limit scores rounded to bf16
-   before the softmax; two flash-decode calls must give the same bits);
+   off-by-one mask, the bf16 flash limit scores rounded to bf16
+   before the softmax, the fp32 one q and k rounded to TF32; two
+   flash-decode calls must give the same bits);
    a bf16 RMSNorm output must also be bit-equal to
    the plain version but for at most ``ref.RMSNORM_UNEQUAL_MAX`` of its
    elements, a check shown to reject squares rounded to bf16, x * rsqrt
@@ -104,7 +109,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    3b's and 3e's (bf16, SiLU), each within ``ref.matmul_limit`` /
    ``ref.gated_matmul_limit`` (shown to reject a sum missing its last K
    block and a result without its bias, or the activation on the up
-   product, and in fp32 the products of operands rounded to TF32), timed
+   product, and in fp32 the products of operands rounded to TF32; two
+   calls must give the same bits), timed
    beside the plain version, ``torch.matmul`` of the same product alone
    (``product_ms``) and, for ``matmul``, the library call
    ``torch._addmm_activation`` (bias, product and ReLU or GELU in one
@@ -421,57 +427,98 @@ def kernel_entry(name, source, replaces, launches, got, want, limit,
     return entry
 
 
-def check_kernels(cfg, launches, q8_shapes):
+def paged_key(q, k_pages, v_pages, block_tables, lens, *_, **__):
+    """(B, S, each row's kv end) of a paged attention call: S is 1 at
+    decode (q (B, Hq, D)); a row's kv end is kv_offset + S at prefill and
+    kv_len at decode.  Reading ``lens`` waits for the device."""
+    s = q.shape[2] if q.dim() == 4 else 1
+    shift = s if q.dim() == 4 else 0
+    return (q.shape[0], s, tuple(int(n) + shift for n in lens.tolist()))
+
+
+def top_shapes(tally, n=2):
+    """The ``n`` most frequent shapes of a paged tally, ties to the one
+    with the most keys."""
+    return sorted(tally, key=lambda k: (-tally[k], -sum(k[2])))[:n]
+
+
+def paged_entry(name, kind, gen, hq, hkv, d, b, s, ends, q8, dtype,
+                launches):
+    """One paged kernel (``kind`` "prefill" or "decode") on random pages
+    and q at B rows of S queries whose kv ends are ``ends``: within its
+    ``ref.paged_*_attention_limit``, the same bits from two calls (prefill),
+    the prefill limit shown to reject q and k rounded to TF32 (fp32
+    pages); timed beside its plain version and the bound."""
+    kp, vp, ks, vs, bt = paged_inputs(gen, b, hq, hkv, d, list(ends), q8,
+                                      dtype)
+    kw = dict(k_scale=ks, v_scale=vs)
+    el = torch.finfo(dtype).bits // 8
+    if kind == "prefill":
+        q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+        lens = torch.tensor([e - s for e in ends], dtype=torch.int32,
+                            device="cuda")
+        kernel, plain = k_prefill.paged_prefill_attention, \
+            ref.paged_prefill_attention
+        limit_fn = ref.paged_prefill_attention_limit
+        flops = 4 * hq * d * sum(e - s + r + 1 for e in ends
+                                 for r in range(s))
+        source, replaces = "paged_prefill_attention.cu", \
+            "src/repro/kernels/paged_prefill.py:197"
+    else:
+        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+        lens = torch.tensor(list(ends), dtype=torch.int32, device="cuda")
+        kernel, plain = k_decode.paged_decode_attention, \
+            ref.paged_decode_attention
+        limit_fn = ref.paged_decode_attention_limit
+        flops = 4 * hq * d * sum(ends)
+        source, replaces = "paged_decode_attention.cu", \
+            "src/repro/kernels/paged_attention.py:160"
+    got = kernel(q, kp, vp, bt, lens, **kw)
+    if kind == "prefill":
+        check(torch.equal(kernel(q, kp, vp, bt, lens, **kw), got),
+              f"{name}: two calls differ")
+    want = plain(q, kp, vp, bt, lens, **kw)
+    limit = limit_fn(q, kp, vp, bt, lens, want, **kw)
+    if kind == "prefill" and dtype == torch.float32 and not q8:
+        rejects(plain(tf32(q), tf32(kp), vp, bt, lens), want, limit,
+                f"{name}, q and k rounded to TF32")
+    nbytes = 2 * q.numel() * el + kv_bytes(list(ends), hkv, d, q8, el) \
+        + bt.numel() * 4 + 4 * b
+    return kernel_entry(
+        name, "src/repro_torch/csrc/" + source, replaces, launches, got,
+        want, limit, lambda: kernel(q, kp, vp, bt, lens, **kw),
+        lambda: plain(q, kp, vp, bt, lens, **kw), None, nbytes, flops,
+        FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+
+
+def check_kernels(cfg, launches, q8_shapes, paged_shapes):
+    """Phase 4: the paged kernels at long-context shapes (fp32 and int8
+    pages), at phase 3's two most frequent shapes of each run, and at
+    3e's; ``q8_matmul`` at every shape phase 3's q8 run launched it."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    b, hq, hkv, d = 4, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     entries = []
-
-    # paged decode: B 4, kv_len up to a few thousand, fp32 and int8 pages
-    lens = [512, 1100, 2048, 3001]
-    for q8 in (False, True):
-        kp, vp, ks, vs, bt = paged_inputs(gen, b, hq, hkv, d, lens, q8)
-        q = torch.randn((b, hq, d), generator=gen, device="cuda")
-        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        kw = dict(k_scale=ks, v_scale=vs)
-        got = k_decode.paged_decode_attention(q, kp, vp, bt, kl, **kw)
-        want = ref.paged_decode_attention(q, kp, vp, bt, kl, **kw)
-        nbytes = q.numel() * 4 * 2 + kv_bytes(lens, hkv, d, q8) \
-            + bt.numel() * 4 + 16
-        flops = 4 * hq * d * sum(lens)
-        entries.append(kernel_entry(
-            "paged_decode_attention" + ("_q8" if q8 else ""),
-            "src/repro_torch/csrc/paged_decode_attention.cu",
-            "src/repro/kernels/paged_attention.py:160",
-            launches["paged_decode_attention"][q8], got, want,
-            2e-4 if q8 else 2e-5,
-            lambda: k_decode.paged_decode_attention(q, kp, vp, bt, kl, **kw),
-            lambda: ref.paged_decode_attention(q, kp, vp, bt, kl, **kw),
-            None, nbytes, flops))
-
-    # paged prefill: 4 chunks of 64 queries at kv offsets past page edges
-    s = 64
-    offs = [0, 64, 517, 1500]
-    for q8 in (False, True):
-        kp, vp, ks, vs, bt = paged_inputs(gen, b, hq, hkv, d,
-                                          [o + s for o in offs], q8)
-        q = torch.randn((b, hq, s, d), generator=gen, device="cuda")
-        ko = torch.tensor(offs, dtype=torch.int32, device="cuda")
-        kw = dict(k_scale=ks, v_scale=vs)
-        got = k_prefill.paged_prefill_attention(q, kp, vp, bt, ko, **kw)
-        want = ref.paged_prefill_attention(q, kp, vp, bt, ko, **kw)
-        nbytes = q.numel() * 4 * 2 + kv_bytes([o + s for o in offs], hkv, d,
-                                              q8) + bt.numel() * 4 + 16
-        flops = 4 * hq * d * sum((o + r + 1) for o in offs for r in range(s))
-        entries.append(kernel_entry(
-            "paged_prefill_attention" + ("_q8" if q8 else ""),
-            "src/repro_torch/csrc/paged_prefill_attention.cu",
-            "src/repro/kernels/paged_prefill.py:197",
-            launches["paged_prefill_attention"][q8], got, want,
-            2e-4 if q8 else 2e-5,
-            lambda: k_prefill.paged_prefill_attention(q, kp, vp, bt, ko,
-                                                      **kw),
-            lambda: ref.paged_prefill_attention(q, kp, vp, bt, ko, **kw),
-            None, nbytes, flops))
+    for kind in ("decode", "prefill"):
+        name = f"paged_{kind}_attention"
+        for q8 in (False, True):
+            tag = "_q8" if q8 else ""
+            # long context, logged beside the main path's own shapes:
+            # decode kv_len up to a few thousand, prefill 4 chunks of 64
+            # queries at kv offsets past page edges
+            if kind == "decode":
+                b, s, ends = 4, 1, (512, 1100, 2048, 3001)
+            else:
+                b, s, ends = 4, 64, tuple(o + 64 for o in (0, 64, 517, 1500))
+            entries.append(paged_entry(
+                name + tag, kind, gen, hq, hkv, d, b, s, ends, q8,
+                torch.float32, launches[name][q8]))
+            tally = paged_shapes[kind][q8]
+            for shape in top_shapes(tally):
+                b, s, ends = shape
+                entries.append(paged_entry(
+                    f"{name}{tag}_b{b}_s{s}_kv{'-'.join(map(str, ends))}",
+                    kind, gen, hq, hkv, d, b, s, ends, q8, torch.float32,
+                    tally[shape]))
 
     entries += check_paged_bf16(launches)
 
@@ -520,51 +567,20 @@ def check_paged_bf16(launches):
     cfg = get_config("mistral-nemo-12b")
     gen = torch.Generator(device="cuda").manual_seed(99)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    bf = torch.bfloat16
-    lens = [n + PAGED_NEW - 1 for n in PAGED_PROMPTS]
+    lens = tuple(n + PAGED_NEW - 1 for n in PAGED_PROMPTS)
     s = max(PAGED_PROMPTS)
     entries = []
     for q8 in (False, True):
         tag = "_bf16" + ("_q8" if q8 else "")
         kv = "int8" if q8 else "bf16"
-        kp, vp, ks, vs, bt = paged_inputs(gen, len(lens), hq, hkv, d, lens,
-                                          q8, bf)
-        q = torch.randn((len(lens), hq, d), generator=gen,
-                        device="cuda").to(bf)
-        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        kw = dict(k_scale=ks, v_scale=vs)
-        got = k_decode.paged_decode_attention(q, kp, vp, bt, kl, **kw)
-        want = ref.paged_decode_attention(q, kp, vp, bt, kl, **kw)
-        entries.append(kernel_entry(
-            "paged_decode_attention" + tag,
-            "src/repro_torch/csrc/paged_decode_attention.cu",
-            "src/repro/kernels/paged_attention.py:160",
-            launches["paged_decode_attention_3e"][kv], got, want,
-            ref.paged_decode_attention_limit(q, kp, vp, bt, kl, want, **kw),
-            lambda: k_decode.paged_decode_attention(q, kp, vp, bt, kl, **kw),
-            lambda: ref.paged_decode_attention(q, kp, vp, bt, kl, **kw),
-            None, 2 * q.numel() * 2 + kv_bytes(lens, hkv, d, q8, 2)
-            + bt.numel() * 4 + 4 * len(lens), 4 * hq * d * sum(lens),
-            BF16_FLOPS))
-
-        kp, vp, ks, vs, bt = paged_inputs(gen, 1, hq, hkv, d, [s], q8, bf)
-        q = torch.randn((1, hq, s, d), generator=gen, device="cuda").to(bf)
-        ko = torch.zeros(1, dtype=torch.int32, device="cuda")
-        kw = dict(k_scale=ks, v_scale=vs)
-        got = k_prefill.paged_prefill_attention(q, kp, vp, bt, ko, **kw)
-        want = ref.paged_prefill_attention(q, kp, vp, bt, ko, **kw)
-        entries.append(kernel_entry(
-            "paged_prefill_attention" + tag,
-            "src/repro_torch/csrc/paged_prefill_attention.cu",
-            "src/repro/kernels/paged_prefill.py:197",
-            launches["paged_prefill_attention_3e"][kv], got, want,
-            ref.paged_prefill_attention_limit(q, kp, vp, bt, ko, want, **kw),
-            lambda: k_prefill.paged_prefill_attention(q, kp, vp, bt, ko,
-                                                      **kw),
-            lambda: ref.paged_prefill_attention(q, kp, vp, bt, ko, **kw),
-            None, 2 * q.numel() * 2 + kv_bytes([s], hkv, d, q8, 2)
-            + bt.numel() * 4 + 4, 4 * hq * d * s * (s + 1) // 2,
-            BF16_FLOPS))
+        entries.append(paged_entry(
+            "paged_decode_attention" + tag, "decode", gen, hq, hkv, d,
+            len(lens), 1, lens, q8, torch.bfloat16,
+            launches["paged_decode_attention_3e"][kv]))
+        entries.append(paged_entry(
+            "paged_prefill_attention" + tag, "prefill", gen, hq, hkv, d, 1,
+            s, (s,), q8, torch.bfloat16,
+            launches["paged_prefill_attention_3e"][kv]))
     return entries
 
 
@@ -757,17 +773,18 @@ def rows_width(x, *_):
 def tally_rows(fn, names=("rmsnorm",), key=rows_width):
     """Run ``fn()`` with the calls of each ``ops.<name>`` on CUDA tensors
     tallied by shape, ``key(*operands)`` ((rows, width) of the first
-    operand by default; the model and the engine call the ``ops`` entry
-    points, which launch the kernels on CUDA tensors), so that each shape
-    gets its own launches; returns ``fn()``'s result and ``{name: {shape:
-    calls}}``."""
+    operand by default; ``key`` may also be a dict by name; the model and
+    the engine call the ``ops`` entry points, which launch the kernels on
+    CUDA tensors), so that each shape gets its own launches; returns
+    ``fn()``'s result and ``{name: {shape: calls}}``."""
     tally = {name: {} for name in names}
     inner = {name: getattr(ops, name) for name in names}
+    keys = key if isinstance(key, dict) else {name: key for name in names}
 
     def tallied(name):
         def fn_(x, *a, **kw):
             if x.is_cuda:
-                shape = key(x, *a)
+                shape = keys[name](x, *a)
                 rows = tally[name]
                 rows[shape] = rows.get(shape, 0) + 1
             return inner[name](x, *a, **kw)
@@ -1262,6 +1279,9 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
         if dtype == torch.bfloat16:
             rejects(flash_scores_bf16(q, k, v), want, limit,
                     f"{name}, scores rounded to bf16 before the softmax")
+        else:
+            rejects(ref.flash_attention(tf32(q), tf32(k), v), want, limit,
+                    f"{name}, q and k rounded to TF32")
         el = q.element_size()
         return kernel_entry(
             name, src + "flash_attention.cu",
@@ -1509,6 +1529,7 @@ def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
         log(f"kernel {name}: its fp32 sum lies {units:.3f} units from "
             f"cuBLAS's (the limit allows {ref._MM_UNITS})")
     got = kernel()
+    check(torch.equal(kernel(), got), f"{name}: two calls differ")
     el = x.element_size()
     nbytes = (x.numel() + sum(w.numel() for w in ws) + m * n
               + (n if bias else 0)) * el
@@ -1612,14 +1633,28 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    _, l_fp, _ = run_main_path(cfg, host_params, prompts, wstream="fp",
-                               kv_dtype=None)
+    paged = ("paged_prefill_attention", "paged_decode_attention")
+    keys = {name: paged_key for name in paged}
+    (_, l_fp, _), fp_tally = tally_rows(
+        lambda: run_main_path(cfg, host_params, prompts, wstream="fp",
+                              kv_dtype=None), paged, keys)
+    keys["q8_matmul"] = lambda x, q, *_: (*x.shape, q.shape[1])
     (_, l_q8, _), q8_tally = tally_rows(
         lambda: run_main_path(cfg, host_params, prompts, wstream="q8",
-                              kv_dtype="int8"),
-        ("q8_matmul",), key=lambda x, q, *_: (*x.shape, q.shape[1]))
+                              kv_dtype="int8"), ("q8_matmul", *paged), keys)
     q8_shapes = q8_tally["q8_matmul"]
     log(f"q8 run: q8_matmul launches by (M, K, N) {q8_shapes}")
+    paged_shapes = {}
+    for name in paged:
+        kind = name.split("_")[1]
+        paged_shapes[kind] = {False: fp_tally[name], True: q8_tally[name]}
+        for run, counts, tally in (("fp", l_fp, fp_tally),
+                                   ("q8", l_q8, q8_tally)):
+            log(f"{run} run: {name} launches by (B, S, kv ends) "
+                f"{tally[name]}")
+            check(sum(tally[name].values()) == counts[name],
+                  f"{run} run: {name} calls by shape do not add up to its "
+                  f"launches")
     for run, counts in (("fp", l_fp), ("q8", l_q8)):
         check(counts["paged_decode_attention"] > 0,
               f"{run} run never launched paged_decode_attention")
@@ -1646,7 +1681,8 @@ def main() -> int:
         launches[kind + "_3e"] = {kv: counts_3b["3e"][kv][kind]
                                   for kv in ("bf16", "int8")}
 
-    entries = timed("4", check_kernels, cfg, launches, q8_shapes)
+    entries = timed("4", check_kernels, cfg, launches, q8_shapes,
+                    paged_shapes)
     entries += timed("4b", check_dense_kernels,
                      get_config("mistral-nemo-12b"), cfg, counts_3b,
                      counts_3c)

@@ -34,13 +34,25 @@
 //     other (the row tile is the grid's fastest index), so the weights come
 //     from device memory about once.
 //   * fp32 (no TF32: the plain version's limits assume fp32 products): the
-//     CUDA cores.  M > 8 runs a register-tiled SGEMM (128 x 128 output tile,
-//     8 x 8 a thread; 128 x 64 and 8 x 4 a weight when gated) with the next
-//     K step prefetched into registers while the current one is multiplied.
-//     M <= 8 runs a weight-streaming kernel: a block owns 64 columns, its
-//     256 threads read float4s of the weights, each thread four K rows at a
-//     time against every row of x, and the partial sums meet in shared
-//     memory.
+//     CUDA cores.  M > 8 runs a pipelined SGEMM: a 128 x 256 output tile
+//     (128 x 128 a weight when gated), 8 x 16 a thread, 256 threads and
+//     one block an SM (128 blocks in one wave at 256 x 16384).  K advances
+//     16 at a time (256 barriers at K = 4096) through a three-stage
+//     cp.async ring that holds x's tile and the weights' as they lie; each
+//     thread then writes the x chunks it copied transposed into one of two
+//     buffers, and each k step reads two float4 of x and four of the
+//     weights for 128 FMAs.  On the card (one H100, 700 W) this beat
+//     128 x 128 tiles with register-prefetched 8-deep steps, and variants
+//     with x read along K, 32-deep steps, squarer warp tiles,
+//     double-buffered fragments, 256-row tiles and two blocks an SM
+//     (tools/matmul_variants.py, PERF.md).  M <= 8 streams
+//     the weights with 16-byte read-only loads, two batches of four k rows
+//     in flight a thread, each batch against every row of x; a block owns
+//     16 columns, so N / 16 blocks (1024 at N = 16384) keep each SM holding
+//     several: 64-column blocks, and per-thread cp.async rings of 16 to 64
+//     columns, moved fewer bytes a second.  The partial sums
+//     meet by shuffles and in shared memory in a fixed order.  Neither
+//     kernel uses atomics: two calls give the same bits.
 //   Every load and store of x, the weights and y is 16 bytes wide, so K, N
 //   and x's row stride are multiples of 8 (bf16) or 4 (fp32) elements and
 //   the operands are 16-byte aligned; the entry points refuse anything else.
@@ -69,16 +81,6 @@ __device__ __forceinline__ float apply_act(float y, int act) {
     default:
       return y;
   }
-}
-
-// 16 bytes of read-only global memory.  Volatile, so the compiler keeps
-// the load where it is written instead of sinking it to its first use.
-__device__ __forceinline__ float4 ldg16(const float* p) {
-  float4 v;
-  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p));
-  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -257,58 +259,88 @@ int launch_tc(const void* x, long long lda, const void* w0, const void* w1, cons
 }
 
 // ---------------------------------------------------------------------------
-// fp32, M > 8: register-tiled SGEMM on the CUDA cores
+// fp32, M > 8: a pipelined SGEMM on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kFpThreads = 256;   // a 16 x 16 grid of threads
-constexpr int kFpBM = 128, kFpBK = 8;
+constexpr int kFpBM = 128;        // rows a block
+constexpr int kFpBN = 256;        // columns a block, over its weights
+constexpr int kFpBK = 16;         // K a stage
+constexpr int kFpStages = 3;      // stages of the ring
+constexpr int kFpAV = kFpBM * kFpBK / 4 / kFpThreads;  // x chunks a thread copies a stage
 
-// Rows {ty*4 + i%4 + 64*(i/4)} and columns {tx*4 + j%4 + 64*(j/4)} of the
-// block tile belong to thread (ty, tx): float4 reads of shared memory, and
-// a warp's 16 tx cover 64 contiguous columns.
-template <int BN, bool GATED>
-__global__ void __launch_bounds__(kFpThreads, 2)   // 128 registers: two blocks an SM
+template <bool GATED>
+struct FpCfg {
+  static constexpr int NW = GATED ? 2 : 1;
+  static constexpr int BN = kFpBN / NW;          // columns a block, per weight
+  static constexpr int TN = BN / 16;             // columns a thread holds, per weight
+  static constexpr int XT = kFpBK * kFpBM;       // x's tile, transposed (floats)
+  static constexpr int B_TILE = kFpBK * kFpBN;   // the weights' tiles (floats)
+  // two transposed x tiles, then the ring: the weights' tiles, x's raw tiles
+  static constexpr int SMEM = (2 * XT + kFpStages * (B_TILE + XT)) * 4;
+  static_assert(TN % 4 == 0 && kFpAV * 4 * kFpThreads == kFpBM * kFpBK, "tiles");
+};
+
+// Thread (ty, tx) owns rows {ty*4 + i%4 + 64*(i/4)} and, of each weight,
+// columns {tx*4 + j%4 + 64*(j/4)} of the block tile: 8 rows x 16 columns
+// (8 a weight when gated), 128 accumulators, so one block of 256 threads
+// an SM.  Both operands go through a three-stage cp.async ring as they lie
+// in memory, zero-filled without a read outside the matrices (K and N are
+// multiples of 4, so a 16-byte chunk is all inside or all outside).
+// Thread t copies x's chunks of row t % 128 and, once they have landed,
+// writes them transposed (xt[k][row]) into one of two buffers, so that
+// each k step reads two float4 of x and four of the weights for 128 FMAs,
+// with no bank conflict.
+template <bool GATED>
+__global__ void __launch_bounds__(kFpThreads, 1)
 fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restrict__ w0,
                 const float* __restrict__ w1, const float* __restrict__ bias,
                 float* __restrict__ y, int m, int n, int k, int act) {
-  constexpr int NW = GATED ? 2 : 1;
-  constexpr int TN = BN / 16;               // columns a thread holds, per weight
-  constexpr int BCH = BN / 4;               // float4 chunks in a weight row
-  static_assert(NW * kFpBK * BCH == kFpThreads, "one B chunk per thread");
-  __shared__ __align__(16) float as[2][kFpBK][kFpBM];
-  __shared__ __align__(16) float bs[2][NW][kFpBK][BN];
-
+  using C = FpCfg<GATED>;
+  constexpr int NW = C::NW, BN = C::BN, TN = C::TN;
+  extern __shared__ __align__(16) float fsmem[];
+  float* xt = fsmem;                       // [2][BK][BM]
+  float* bs = xt + 2 * C::XT;              // [stage][g][BK][BN]
+  float* xr = bs + kFpStages * C::B_TILE;  // [stage][BM][BK]
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int m0 = blockIdx.x * kFpBM, n0 = blockIdx.y * BN;
+  const int arow = tid % kFpBM, akc = tid / kFpBM;  // x chunks (akc + 2v) * 4 of row arow
+  const float* const w[2] = {w0, w1};
 
-  // this thread's share of each staged tile
-  const int ar = tid / 2, ak = (tid % 2) * 4;               // x: 4 k of one row
-  const int bg = tid / (kFpBK * BCH), brem = tid % (kFpBK * BCH);
-  const int br = brem / BCH, bc = (brem % BCH) * 4;         // w: 4 columns of one row
-  float ra[4], rb[4];
-
-  // k and n are multiples of 4, so a float4 is all in range or all out.
-  // The next tile's loads must stay in flight while the current one is
-  // multiplied: each fetch reads a valid address through ldg16 (the
-  // compiler sank a plain load to the stash, which then waited on it), and
-  // the zero fill of the ragged edges waits for the stash.
-  bool oka = false, okb = false;
-  auto fetch = [&](int k0) {
-    const int row = m0 + ar, kc = k0 + ak;
-    oka = row < m && kc < k;
-    const float4 va = ldg16(oka ? x + (long long)row * lda + kc : x);
-    ra[0] = va.x; ra[1] = va.y; ra[2] = va.z; ra[3] = va.w;
-    const int kr = k0 + br, col = n0 + bc;
-    const float* wg = bg ? w1 : w0;
-    okb = kr < k && col < n;
-    const float4 vb = ldg16(okb ? wg + (long long)kr * n + col : wg);
-    rb[0] = vb.x; rb[1] = vb.y; rb[2] = vb.z; rb[3] = vb.w;
-  };
-  auto stash = [&](int buf) {
+  auto load = [&](int st, int k0) {
+    float* xd = xr + st * C::XT;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) as[buf][ak + e][ar] = oka ? ra[e] : 0.f;
-    *reinterpret_cast<float4*>(&bs[buf][bg][br][bc]) =
-        okb ? make_float4(rb[0], rb[1], rb[2], rb[3]) : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int v = 0; v < kFpAV; ++v) {
+      const int kc = (akc + 2 * v) * 4;
+      const bool ok = m0 + arow < m && k0 + kc < k;
+      cp_async16(xd + arow * kFpBK + kc, ok ? x + (long long)(m0 + arow) * lda + k0 + kc : x,
+                 ok);
+    }
+    float* bd = bs + st * C::B_TILE;
+#pragma unroll
+    for (int g = 0; g < NW; ++g) {
+#pragma unroll
+      for (int c = tid; c < kFpBK * BN / 4; c += kFpThreads) {
+        const int r = c / (BN / 4), nc = (c % (BN / 4)) * 4;
+        const bool ok = k0 + r < k && n0 + nc < n;
+        cp_async16(bd + (g * kFpBK + r) * BN + nc,
+                   ok ? w[g] + (long long)(k0 + r) * n + n0 + nc : w[g], ok);
+      }
+    }
+  };
+  // the chunks this thread copied into stage `st`, transposed into buffer `buf`
+  auto transpose = [&](int st, int buf) {
+    const float* xs = xr + st * C::XT;
+#pragma unroll
+    for (int v = 0; v < kFpAV; ++v) {
+      const int kc = (akc + 2 * v) * 4;
+      const float4 t = *reinterpret_cast<const float4*>(xs + arow * kFpBK + kc);
+      float* d = xt + (buf * kFpBK + kc) * kFpBM + arow;
+      d[0] = t.x;
+      d[kFpBM] = t.y;
+      d[2 * kFpBM] = t.z;
+      d[3 * kFpBM] = t.w;
+    }
   };
 
   float acc[NW][8][TN];
@@ -320,27 +352,34 @@ fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restr
       for (int j = 0; j < TN; ++j) acc[g][i][j] = 0.f;
 
   const int ktiles = (k + kFpBK - 1) / kFpBK;
-  if (ktiles > 0) {
-    fetch(0);
-    stash(0);
+#pragma unroll
+  for (int s = 0; s < kFpStages - 1; ++s) {
+    if (s < ktiles) load(s, s * kFpBK);
+    cp_async_commit();
   }
-  __syncthreads();
+  cp_async_wait<kFpStages - 2>();
+  if (ktiles > 0) transpose(0, 0);
   for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < ktiles) fetch((kt + 1) * kFpBK);
+    cp_async_wait<kFpStages - 2>();
+    __syncthreads();  // tile kt is in xt[kt & 1] and its stage; every thread is done with kt - 1
+    const int nk = kt + kFpStages - 1;
+    if (nk < ktiles) load(nk % kFpStages, nk * kFpBK);
+    cp_async_commit();
+
+    const float* at = xt + (kt & 1) * C::XT;
+    const float* bt = bs + (kt % kFpStages) * C::B_TILE;
 #pragma unroll
     for (int kk = 0; kk < kFpBK; ++kk) {
-      float a[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[cur][kk][64 + ty * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      const float4 a0 = *reinterpret_cast<const float4*>(at + kk * kFpBM + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(at + kk * kFpBM + 64 + ty * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
       for (int g = 0; g < NW; ++g) {
         float b[TN];
 #pragma unroll
         for (int q = 0; q < TN / 4; ++q) {
-          const float4 v = *reinterpret_cast<const float4*>(&bs[cur][g][kk][q * 64 + tx * 4]);
+          const float4 v =
+              *reinterpret_cast<const float4*>(bt + (g * kFpBK + kk) * BN + q * 64 + tx * 4);
           b[4 * q] = v.x; b[4 * q + 1] = v.y; b[4 * q + 2] = v.z; b[4 * q + 3] = v.w;
         }
 #pragma unroll
@@ -349,9 +388,12 @@ fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restr
           for (int j = 0; j < TN; ++j) acc[g][i][j] = fmaf(a[i], b[j], acc[g][i][j]);
       }
     }
-    if (kt + 1 < ktiles) stash(cur ^ 1);
-    __syncthreads();
+    if (kt + 1 < ktiles) {
+      cp_async_wait<kFpStages - 2>();  // tile kt + 1's chunks this thread copied
+      transpose((kt + 1) % kFpStages, (kt + 1) & 1);
+    }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -381,20 +423,25 @@ fp_tiled_kernel(const float* __restrict__ x, long long lda, const float* __restr
 // fp32, M <= 8: stream the weights
 // ---------------------------------------------------------------------------
 
-constexpr int kSkCols = 64;                 // columns a block owns
-constexpr int kSkGroups = kFpThreads / 16;  // K groups of 16 threads, 4 rows each
+constexpr int kSkCols = 16;                  // columns a block owns
+constexpr int kSkGroups = kFpThreads / 4;    // K groups of 4 threads (a float4 each)
+constexpr int kSkWarps = kFpThreads / 32;
 
+// A block owns 16 columns (1024 blocks at N = 16384, so that each SM holds
+// several and keeps many loads in flight); thread (kg, c4) reads rows kb..kb
+// + 3 of its float4 of columns for kb = 4 kg, 4 kg + 256, ..., two such
+// batches in flight, each against every row of x.  The 8 K groups of a warp
+// meet by shuffles, the warps in shared memory, in a fixed order.
 template <int MR, bool GATED>
 __global__ void __launch_bounds__(kFpThreads)
 fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __restrict__ w0,
                  const float* __restrict__ w1, const float* __restrict__ bias,
                  float* __restrict__ y, int m, int n, int k, int act) {
   constexpr int NW = GATED ? 2 : 1;
-  constexpr int kWarps = kFpThreads / 32;
-  __shared__ float red[kWarps][NW][MR][kSkCols];
+  __shared__ float red[kSkWarps][NW][MR][kSkCols];
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int c4 = tid % 16, kg = tid / 16;
+  const int c4 = tid % 4, kg = tid / 4;
   const int n0 = blockIdx.x * kSkCols, col = n0 + c4 * 4;
   const float* const w[2] = {w0, w1};
 
@@ -433,14 +480,17 @@ fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __rest
     }
   }
 
-  // lanes l and l ^ 16 hold the same columns for neighbouring K groups
+  // lanes l, l ^ 4, l ^ 8, ... hold the same columns for the warp's 8 K groups
 #pragma unroll
   for (int g = 0; g < NW; ++g)
 #pragma unroll
     for (int r = 0; r < MR; ++r)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][r][e] += __shfl_xor_sync(0xffffffffu, acc[g][r][e], 16);
-  if (lane < 16) {
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int sh = 4; sh < 32; sh *= 2)
+          acc[g][r][e] += __shfl_xor_sync(0xffffffffu, acc[g][r][e], sh);
+  if (lane < 4) {
 #pragma unroll
     for (int g = 0; g < NW; ++g)
 #pragma unroll
@@ -457,7 +507,7 @@ fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __rest
     for (int g = 0; g < NW; ++g) {
       s[g] = 0.f;
 #pragma unroll
-      for (int q = 0; q < kWarps; ++q) s[g] += red[q][g][r][c];
+      for (int q = 0; q < kSkWarps; ++q) s[g] += red[q][g][r][c];
     }
     float v;
     if (GATED) {
@@ -469,6 +519,15 @@ fp_skinny_kernel(const float* __restrict__ x, long long lda, const float* __rest
   }
 }
 
+template <int MR, bool GATED>
+int launch_skinny(const float* x, long long lda, const float* w0, const float* w1,
+                  const float* bias, float* y, int m, int n, int k, int act,
+                  cudaStream_t stream) {
+  fp_skinny_kernel<MR, GATED><<<(n + kSkCols - 1) / kSkCols, kFpThreads, 0, stream>>>(
+      x, lda, w0, w1, bias, y, m, n, k, act);
+  return (int)cudaGetLastError();
+}
+
 template <bool GATED>
 int launch_fp(const void* x, long long lda, const void* w0, const void* w1, const void* bias,
               void* y, int m, int n, int k, int act, cudaStream_t stream) {
@@ -478,21 +537,19 @@ int launch_fp(const void* x, long long lda, const void* w0, const void* w1, cons
   const float* bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
   if (m <= 8) {
-    const unsigned blocks = (unsigned)((n + kSkCols - 1) / kSkCols);
-#define SK_LAUNCH(MR)                                                                    \
-  fp_skinny_kernel<MR, GATED><<<blocks, kFpThreads, 0, stream>>>(xf, lda, w0f, w1f, bf, \
-                                                                  yf, m, n, k, act)
-    if (m <= 1) SK_LAUNCH(1);
-    else if (m <= 2) SK_LAUNCH(2);
-    else if (m <= 4) SK_LAUNCH(4);
-    else SK_LAUNCH(8);
-#undef SK_LAUNCH
-  } else {
-    constexpr int BN = GATED ? 64 : 128;
-    dim3 grid((m + kFpBM - 1) / kFpBM, (n + BN - 1) / BN);
-    fp_tiled_kernel<BN, GATED><<<grid, kFpThreads, 0, stream>>>(xf, lda, w0f, w1f, bf, yf,
-                                                                 m, n, k, act);
+    if (m <= 1) return launch_skinny<1, GATED>(xf, lda, w0f, w1f, bf, yf, m, n, k, act, stream);
+    if (m <= 2) return launch_skinny<2, GATED>(xf, lda, w0f, w1f, bf, yf, m, n, k, act, stream);
+    if (m <= 4) return launch_skinny<4, GATED>(xf, lda, w0f, w1f, bf, yf, m, n, k, act, stream);
+    return launch_skinny<8, GATED>(xf, lda, w0f, w1f, bf, yf, m, n, k, act, stream);
   }
+  using C = FpCfg<GATED>;
+  static std::atomic<int> sms[kMaxDevices];
+  int sm_count = 0;
+  const int err = kernel_setup(fp_tiled_kernel<GATED>, C::SMEM, sms, sm_count);
+  if (err) return err;
+  const dim3 grid((m + kFpBM - 1) / kFpBM, (n + C::BN - 1) / C::BN);
+  fp_tiled_kernel<GATED><<<grid, kFpThreads, C::SMEM, stream>>>(xf, lda, w0f, w1f, bf, yf, m, n,
+                                                                 k, act);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,11 @@ the pages named by ``block_tables[b]`` (optionally within a sliding
 ``window``, optionally softcapped).  The chunk's own K/V must already be
 written to the pages.  Pages are fp32 or bf16 under a q of their dtype;
 with ``k_scale`` / ``v_scale`` they are int8 and are dequantized in fp32
-inside the kernel.  The plain version is
+inside the kernel.  Each q dtype has one kernel: a bf16 q runs on the
+tensor cores at the head dims ``decode_attention.BF16_HEAD_DIMS`` with
+16-byte aligned rows, an fp32 q on the CUDA cores at head dims that are a
+multiple of 4 (of 16 over int8 pages) up to 256; any other shape raises
+``ValueError``.  The plain version is
 :func:`repro_torch.kernels.ref.paged_prefill_attention`.
 """
 
@@ -19,7 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import DTYPE_CODES
+from repro_torch.kernels.decode_attention import (DTYPE_CODES,
+                                                  check_bf16_operands)
 from repro_torch.kernels.paged_attention import _ptr, check_operands
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
@@ -38,13 +43,23 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     int8 with fp32 scales; block_tables (B, nb) int32; kv_offset (B,) int32
     -> (B, Hq, S, D) in q's dtype.  Launches the CUDA kernel
     on the current stream; every call counts in
-    ``paged_prefill_attention.launches``."""
+    ``paged_prefill_attention.launches``.  Raises ``ValueError`` on a
+    head dim or an alignment its kernel does not take."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Hq, S, D), got {tuple(q.shape)}")
     check_operands(q, k_pages, v_pages, block_tables, kv_offset, k_scale,
                    v_scale)
     b, hq, s, d = q.shape
     _, hkv, ps, _ = k_pages.shape
+    if q.dtype == torch.bfloat16:
+        check_bf16_operands(q, k_pages, v_pages)
+    else:
+        lanes = 16 if k_scale is not None else 4
+        if d % lanes:
+            raise ValueError(f"an fp32 q takes head dims in multiples of "
+                             f"{lanes} over {k_pages.dtype} pages, got {d}")
+        if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+            raise ValueError("q and the pages must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     out = torch.empty_like(q)

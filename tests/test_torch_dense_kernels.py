@@ -287,6 +287,48 @@ def test_flash_limit_rejects_bf16_scores():
     assert bool(beyond.any())
 
 
+def _tf32(t):
+    """t with the low 13 bits of each fp32 mantissa cleared: TF32's 10."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["flash", "paged_prefill"])
+def test_fp32_attention_limits_reject_tf32(kind):
+    """The fp32 attention limits reject attention whose q and k were
+    rounded to TF32 (what a TF32 tensor-core route would compute): at D 128
+    over 71 keys (cell 3's longest chunk) some element of the plain version
+    over TF32 operands lies beyond ``flash_attention_limit`` and
+    ``paged_prefill_attention_limit`` (the share is printed)."""
+    rng = np.random.default_rng(21)
+    b, hq, hkv, d, s, ps = 2, 4, 2, 128, 32, 16
+    q = torch.from_numpy(rng.standard_normal((b, hq, s, d))
+                         .astype(np.float32))
+    if kind == "flash":
+        t = 71
+        k, v = (torch.from_numpy(rng.standard_normal((b, hkv, t, d))
+                                 .astype(np.float32)) for _ in range(2))
+        q = torch.from_numpy(rng.standard_normal((b, hq, t, d))
+                             .astype(np.float32))
+        want = R.flash_attention(q, k, v)
+        lim = R.flash_attention_limit(q, k, v, want)
+        bad = R.flash_attention(_tf32(q), _tf32(k), v)
+    else:
+        nb = 5
+        kp, vp = (torch.from_numpy(rng.standard_normal((1 + b * nb, hkv, ps,
+                                                         d))
+                                   .astype(np.float32)) for _ in range(2))
+        bt = torch.from_numpy((rng.permutation(b * nb) + 1)
+                              .reshape(b, nb).astype(np.int32))
+        off = torch.tensor([0, 71 - s], dtype=torch.int32)
+        want = R.paged_prefill_attention(q, kp, vp, bt, off)
+        lim = R.paged_prefill_attention_limit(q, kp, vp, bt, off, want)
+        bad = R.paged_prefill_attention(_tf32(q), _tf32(kp), vp, bt, off)
+    beyond = (bad - want).abs() > lim
+    print(f"{kind}, q and k in TF32: {float(beyond.float().mean()):.3g} of "
+          f"elements beyond the limit")
+    assert bool(beyond.any())
+
+
 def _rms_faults(x, w, eps):
     """Plain RMSNorms with one fault each (all within one bf16 step of the
     plain version, so within ``rmsnorm_limit``), and one sound reordering

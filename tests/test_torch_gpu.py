@@ -101,6 +101,8 @@ def test_paged_prefill_kernel(cuda, hq, hkv, d, offs, window, softcap, q8):
     torch.cuda.synchronize()
     tol = 2e-4 if q8 else 2e-5
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.equal(ops.paged_prefill_attention(q, kp, vp, bt, off, **kw),
+                       got)
     if not q8:
         for i in range(b):
             dead = bt[i, -(-(offs[i] + s) // ps):].long()
@@ -545,6 +547,99 @@ def test_paged_kernels_bf16(cuda, kind, q8):
     _assert_within(got, want, limit)
 
 
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("hq,hkv,d,s,offs,window,softcap", [
+    (8, 2, 128, 37, (3, 50), None, None),
+    (8, 2, 64, 37, (0, 21), 9, 30.0),
+    (4, 4, 16, 37, (16, 5), None, 25.0),
+    (32, 8, 128, 512, (0,), None, None)])
+def test_paged_prefill_bf16_tensor_cores(cuda, hq, hkv, d, s, offs, window,
+                                         softcap, q8):
+    """A bf16 q over bf16 or int8 pages (the tensor-core kernel, GQA
+    groups of 4 and 1) at ragged S (37) and at 3e's S (512, 32 / 8 heads),
+    with a window and a softcap: within ``ref.paged_prefill_attention_
+    limit``, one launch, the same bits from a second call, and the same
+    bits again with NaN (int8: NaN scales) in every page past a row's last
+    diagonal and in the trash page."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    ps = 16
+    nb = max(-(-(o + s) // ps) for o in offs) + 1
+    b = len(offs)
+    kp, vp, ks, vs, bt = _pool(gen, b, hkv, nb, ps, d, q8, cuda)
+    if not q8:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    q = torch.randn((b, hq, s, d), generator=gen, device=cuda).bfloat16()
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs, softcap=softcap, window=window)
+    before = ops.launch_counts()["paged_prefill_attention"]
+    got = ops.paged_prefill_attention(q, kp, vp, bt, off, **kw)
+    assert ops.launch_counts()["paged_prefill_attention"] == before + 1
+    want = ref.paged_prefill_attention(q, kp, vp, bt, off, **kw)
+    limit = ref.paged_prefill_attention_limit(q, kp, vp, bt, off, want,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_within(got, want, limit)
+    assert torch.equal(ops.paged_prefill_attention(q, kp, vp, bt, off, **kw),
+                       got)
+    # every page wholly past a row's last diagonal, and the trash page
+    dead = [bt[i, -(-(o + s) // ps):].long() for i, o in enumerate(offs)]
+    for pages in dead + [torch.zeros(1, dtype=torch.long, device=cuda)]:
+        for t in ((ks, vs) if q8 else (kp, vp)):
+            t[pages] = float("nan")
+    assert torch.equal(ops.paged_prefill_attention(q, kp, vp, bt, off, **kw),
+                       got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [4, 8, 32])
+def test_paged_prefill_page_sizes(cuda, ps, dtype):
+    """Pages of 4, 8 and 32 tokens (a 32-key tile spans several pages, or
+    one page): both kernels within ``ref.paged_prefill_attention_limit``
+    at ragged S and a kv offset inside a page, and the same bits with NaN
+    in every page past a row's last diagonal."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(ps)
+    hq, hkv, d, s, offs = 8, 2, 64, 37, (3, 45)
+    nb = max(-(-(o + s) // ps) for o in offs) + 1
+    kp, vp, _, _, bt = _pool(gen, len(offs), hkv, nb, ps, d, False, cuda)
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    q = torch.randn((len(offs), hq, s, d), generator=gen,
+                    device=cuda).to(dtype)
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    got = ops.paged_prefill_attention(q, kp, vp, bt, off)
+    want = ref.paged_prefill_attention(q, kp, vp, bt, off)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.paged_prefill_attention_limit(
+        q, kp, vp, bt, off, want))
+    for i, o in enumerate(offs):
+        dead = bt[i, -(-(o + s) // ps):].long()
+        kp[dead] = float("nan")
+        vp[dead] = float("nan")
+    assert torch.equal(ops.paged_prefill_attention(q, kp, vp, bt, off), got)
+
+
+def test_paged_prefill_refuses_unsupported_operands(cuda):
+    """One kernel per q dtype and no fallback: a bf16 q at a head dim
+    outside ``BF16_HEAD_DIMS`` (48, 96), an fp32 q at a head dim that is
+    no multiple of 4, or of 16 over int8 pages, raises ``ValueError``."""
+    from repro_torch.kernels import paged_prefill
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    off = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for d, dtype, q8 in ((48, torch.bfloat16, False),
+                         (96, torch.bfloat16, True),
+                         (6, torch.float32, False),
+                         (20, torch.float32, True)):
+        kp, vp, ks, vs, bt = _pool(gen, 1, 2, 2, 16, d, q8, cuda)
+        if not q8:
+            kp, vp = kp.to(dtype), vp.to(dtype)
+        q = torch.zeros((1, 4, 8, d), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError):
+            paged_prefill.paged_prefill_attention(q, kp, vp, bt, off,
+                                                  k_scale=ks, v_scale=vs)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups", [1, 2])
 @pytest.mark.parametrize("nc,chunk,p,n", [(1, 128, 64, 128), (4, 16, 16, 16),
@@ -637,6 +732,26 @@ def test_matmul_kernels(cuda, m, k, n, dtype):
         torch.cuda.synchronize()
         _assert_within(got, want, ref.gated_matmul_limit(x, w, wu, want,
                                                          activation=act))
+
+
+@pytest.mark.parametrize("m", [256, 4])
+def test_matmul_f32_fc1_shapes(cuda, m):
+    """fp32 ``matmul`` at OPT-6.7B's fc1 (K 4096, N 16384, bias, ReLU) at
+    3f's prefill (256 rows, the pipelined SGEMM) and decode (4 rows, the
+    weight-streaming kernel): within ``ref.matmul_limit`` and the same bits
+    from a second call."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    k, n = 4096, 16384
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) / k ** 0.5
+    b = torch.randn(n, generator=gen, device=cuda)
+    got = ops.matmul(x, w, b, activation="relu")
+    want = ref.matmul(x, w, b, activation="relu")
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.matmul_limit(x, w, want, b,
+                                               activation="relu"))
+    assert torch.equal(ops.matmul(x, w, b, activation="relu"), got)
 
 
 def test_matmul_wrappers_raise(cuda):

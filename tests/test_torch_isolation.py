@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 _PROBE = r"""
@@ -54,3 +56,24 @@ def test_chip_smoke_imports_only_torch_numpy_and_the_port():
     assert tops <= {"__future__", "argparse", "dataclasses", "json", "math",
                     "os", "subprocess", "sys", "time", "numpy", "torch",
                     "repro_torch"}
+
+
+def _import_tops(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            tops.add(node.module.split(".")[0])
+    return tops
+
+
+@pytest.mark.parametrize("tool", ["ab_kernels.py", "matmul_variants.py"])
+def test_card_tools_import_neither_jax_nor_repro(tool):
+    """The card-side measurement tools run where only the port is
+    installed: they import no ``jax`` and nothing of ``repro``."""
+    tops = _import_tops(os.path.join(ROOT, "tools", tool))
+    assert "jax" not in tops and "jaxlib" not in tops and "repro" not in tops
+    assert "repro_torch" in tops or "chip_smoke" in tops

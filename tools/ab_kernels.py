@@ -1,11 +1,15 @@
 """Compare builds of the port's kernels on one card, in one process: host
-time per call, device time per call, and Mistral-NeMo-12B's resident
-one-shot decode (``chip_smoke.py``'s phase 3b) with each build in turn.
-The kernels: ``decode_attention`` and ``q8_matmul`` at their decode
-shapes, bf16 ``flash_attention`` and ``gated_matmul`` at 3b's prefill.
+time per call, device time per call, and whole runs of ``chip_smoke.py``'s
+cells with each build in turn.  The kernels: ``decode_attention`` and
+``q8_matmul`` at their decode shapes, bf16 ``flash_attention`` and
+``gated_matmul`` at 3b's prefill, ``paged_prefill_attention`` at 3e's
+prefill (bf16 and int8 pages), at cell 3's two chunk shapes and at the
+long-context shape (fp32 and int8 pages), and fp32 ``matmul`` at 3f's
+fc1 shapes.
 
     python tools/ab_kernels.py --other parent=.archive_check/parent \\
-        [--other name=DIR ...] [--pairs 10] [--out chiprun_out/ab.json]
+        [--other name=DIR ...] [--pairs 10] [--runs 3e,3f] \\
+        [--out FILE]
 
 ``DIR`` is another checkout of the repo, such as a ``git archive`` of a
 commit unpacked in a gitignored directory.  Its sources are built with
@@ -19,11 +23,13 @@ times (medians printed): ``wrapper_us``, the host's time to issue one
 wrapper call (100 calls back to back, timed before the device is waited
 for); ``entry_us``, the same for the C entry alone, called with one call's
 packed arguments; ``device_ms``, 20 calls in a CUDA graph
-(``chip_smoke.device_ms``).  Then ``--pairs`` pairs of 3b runs, the first
-``--other`` build against the tree's in alternating order (other, tree;
-tree, other; ...), over a bf16 and an int8 cache, each reading the
-generator's decode tok/s.  Prints a line per reading and a JSON line of
-them all.
+(``chip_smoke.device_ms``).  Then ``--pairs`` pairs of each run in
+``--runs``, the first ``--other`` build against the tree's in alternating
+order (other, tree; tree, other; ...): 3b, Mistral-NeMo-12B's resident
+one-shot over a bf16 and an int8 cache (decode tok/s); 3e, the same
+weights through the paged batcher over bf16 and int8 pages (tok/s of the
+whole run); 3f, OPT-6.7B resident in fp32 (prefill s and decode tok/s).
+Prints a line per reading and a JSON line of them all.
 """
 
 from __future__ import annotations
@@ -49,13 +55,17 @@ from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.kernels import hete_matmul as k_mm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_prefill as k_prefill  # noqa: E402
 from repro_torch.kernels import q8_matmul as k_q8  # noqa: E402
 
 # (library, C symbol) -> the wrapper's argument types
 ENTRIES = {("decode_attention", "decode_attention"): k_dense._ARGTYPES,
            ("q8_matmul", "q8_matmul_f32"): k_q8._ARGTYPES,
            ("flash_attention", "flash_attention"): k_flash._ARGTYPES,
-           ("hete_matmul", "hete_gated_matmul"): k_mm._ARGTYPES}
+           ("hete_matmul", "hete_gated_matmul"): k_mm._ARGTYPES,
+           ("hete_matmul", "hete_matmul"): k_mm._ARGTYPES,
+           ("paged_prefill_attention", "paged_prefill_attention"):
+               k_prefill._ARGTYPES}
 LIBRARIES = sorted({lib for lib, _ in ENTRIES})
 CALLS = 100
 
@@ -136,8 +146,9 @@ def host_us(fn) -> float:
 
 def shapes(gen):
     """(name, wrapper call) at 3b's decode shapes, phase 3's q8 decode
-    shapes, and 3b's bf16 prefill shapes of flash attention and the gated
-    MLP."""
+    shapes, 3b's bf16 prefill shapes of flash attention and the gated
+    MLP, the paged prefill at 3e's shape and cell 3's, and fp32 fc1 at
+    3f's."""
     cfg = cs.get_config("mistral-nemo-12b")
     b, t = 4, cs.ONESHOT_PROMPT + cs.ONESHOT_NEW
     kl = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
@@ -163,14 +174,54 @@ def shapes(gen):
     kv = torch.randn((b, s, cfg.n_kv_heads, cfg.hd), generator=gen,
                      device="cuda").to(torch.bfloat16).transpose(1, 2)
     out.append((f"flash bf16 S {s}",
-                lambda: k_flash.flash_attention(q, kv, kv, causal=True)))
+                lambda q=q, kv=kv: k_flash.flash_attention(q, kv, kv,
+                                                          causal=True)))
     x = torch.randn((b * s, cfg.d_model), generator=gen,
                     device="cuda").to(torch.bfloat16)
     wg, wu = (torch.randn((cfg.d_model, cfg.d_ff), generator=gen,
                           device="cuda").mul(0.02).to(torch.bfloat16)
               for _ in range(2))
     out.append((f"gated bf16 {b * s}x{cfg.d_model}x{cfg.d_ff}",
-                lambda: k_mm.gated_matmul(x, wg, wu, activation="silu")))
+                lambda x=x: k_mm.gated_matmul(x, wg, wu, activation="silu")))
+    out += prefill_shapes(gen)
+    opt = cs.get_config("opt-6.7b")
+    w = torch.randn((opt.d_model, opt.d_ff), generator=gen,
+                    device="cuda") / opt.d_model ** 0.5
+    bias = torch.randn(opt.d_ff, generator=gen, device="cuda")
+    for m in (b * cs.OFFLOAD_PROMPT, b):
+        x = torch.randn((m, opt.d_model), generator=gen, device="cuda")
+        out.append((f"matmul f32 {m}x{opt.d_model}x{opt.d_ff}",
+                    lambda x=x: k_mm.matmul(x, w, bias, activation="relu")))
+    return out
+
+
+def prefill_shapes(gen):
+    """``paged_prefill_attention`` at 3e's prefill (B 1, S 512, Mistral's
+    heads) over bf16 and int8 pages, and with OPT-6.7B's heads in fp32
+    over fp32 and int8 pages at cell 3's two chunk shapes (a first chunk
+    of 32 rows at offset 0, a second of 31 rows at offset 32) and at the
+    long-context shape of ``chip_smoke.py``'s row (4 chunks of 64 rows at
+    offsets 0, 64, 517, 1500)."""
+    mis, opt = cs.get_config("mistral-nemo-12b"), cs.get_config("opt-6.7b")
+    rows = [("3e", mis, torch.bfloat16, 1, 512, (0,)),
+            ("cell 3 S 32", opt, torch.float32, 1, cs.CHUNK, (0,)),
+            ("cell 3 S 31 at 32", opt, torch.float32, 1, cs.CHUNK - 1,
+             (cs.CHUNK,)),
+            ("long context", opt, torch.float32, 4, 64, (0, 64, 517, 1500))]
+    out = []
+    for label, cfg, dtype, b, s, offs in rows:
+        for q8 in (False, True):
+            kp, vp, ks, vs, bt = cs.paged_inputs(
+                gen, b, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                [o + s for o in offs], q8, dtype)
+            q = torch.randn((b, cfg.n_heads, s, cfg.hd), generator=gen,
+                            device="cuda").to(dtype)
+            off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            pages = "int8" if q8 else str(dtype)[6:]
+            out.append((f"prefill {label} {pages} pages",
+                        lambda q=q, kp=kp, vp=vp, bt=bt, off=off, ks=ks,
+                        vs=vs: k_prefill.paged_prefill_attention(
+                            q, kp, vp, bt, off, k_scale=ks, v_scale=vs)))
     return out
 
 
@@ -199,41 +250,96 @@ def time_kernels(builds, rounds):
     return rows
 
 
-def decode_pairs(builds, other, pairs):
-    """3b's one-shot generate, ``other`` and the tree's build alternating;
-    decode tok/s of each run with a bf16 and an int8 cache."""
+def _alternate(builds, other, pairs, label, run):
+    """``pairs`` pairs of ``run()`` (a dict of readings), ``other`` and
+    the tree's build in alternating order, after one warm-up run of each."""
+    for b in (other, "tree"):
+        use(builds[b])
+        run()
+    out = []
+    for i in range(pairs):
+        for b in ((other, "tree") if i % 2 == 0 else ("tree", other)):
+            use(builds[b])
+            got = {"run": label, "pair": i, "build": b, **run()}
+            out.append(got)
+            cs.log(f"{label} pair {i} {b:10s} " + ", ".join(
+                f"{k} {v:.4f}" for k, v in got.items()
+                if isinstance(v, float)))
+    return out
+
+
+def mistral_pairs(builds, other, pairs, runs):
+    """3b's one-shot generate (decode tok/s) over a bf16 and an int8
+    cache, and 3e's paged batcher (tok/s of the run) over bf16 and int8
+    pages, with Mistral-NeMo-12B's weights made once."""
     cfg = cs.get_config("mistral-nemo-12b")
     params = cs.M.init_params(cfg, torch.Generator(device="cuda")
                               .manual_seed(cs.SEED), device="cuda")
     rng = np.random.default_rng(cs.SEED)
     prompts = [list(rng.integers(0, cfg.vocab_size, cs.ONESHOT_PROMPT))
                for _ in range(4)]
-    runs = []
+    paged = [list(rng.integers(0, cfg.vocab_size, n))
+             for n in cs.PAGED_PROMPTS]
+    out = []
     for kv_dtype in (None, "int8"):
         run_cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
-        for b in (other, "tree"):           # warm-up, not recorded
-            use(builds[b])
+        kv = kv_dtype or "bf16"
+
+        def oneshot():
             with cs.LLM(run_cfg, params) as llm:
-                llm.generate(prompts, max_new=cs.ONESHOT_NEW)
-        for i in range(pairs):
-            order = (other, "tree") if i % 2 == 0 else ("tree", other)
-            for b in order:
-                use(builds[b])
-                llm = cs.LLM(run_cfg, params)
                 ops.reset_launch_counts()
                 llm.generate(prompts, max_new=cs.ONESHOT_NEW)
-                n = ops.launch_counts()["decode_attention"]
                 m = llm.last_metrics
-                llm.close()
-                run = {"cache": kv_dtype or "bf16", "pair": i, "build": b,
-                       "decode_tok_s": m["tokens_per_s"],
-                       "decode_s": m["decode_s"],
-                       "decode_attention_launches": n}
-                runs.append(run)
-                cs.log(f"3b {run['cache']} pair {i} {b:10s} "
-                       f"{run['decode_tok_s']:.3f} tok/s "
-                       f"({n} decode_attention launches)")
-    return runs
+                return {"decode_tok_s": m["tokens_per_s"],
+                        "decode_s": m["decode_s"],
+                        "decode_attention_launches":
+                            ops.launch_counts()["decode_attention"]}
+
+        def batcher():
+            with cs.LLM(cfg, params, paged=True, kv_dtype=kv_dtype,
+                        max_slots=4, page_size=cs.PAGE_SIZE,
+                        max_len=max(cs.PAGED_PROMPTS) + cs.PAGED_NEW) as llm:
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                outs = llm.generate(paged, max_new=cs.PAGED_NEW)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                return {"tok_s": sum(len(o.tokens) for o in outs) / wall,
+                        "wall_s": wall,
+                        "paged_prefill_launches":
+                            ops.launch_counts()["paged_prefill_attention"]}
+
+        if "3b" in runs:
+            out += _alternate(builds, other, pairs, f"3b {kv} cache", oneshot)
+        if "3e" in runs:
+            out += _alternate(builds, other, pairs, f"3e {kv} pages", batcher)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def opt_pairs(builds, other, pairs):
+    """3f: OPT-6.7B resident one-shot in fp32 (fc1 on ``matmul``),
+    prefill s and decode tok/s."""
+    cfg = cs.get_config("opt-6.7b")
+    params = cs.M.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(cs.SEED), device="cuda")
+    prompts = cs.offload_prompts(cfg.vocab_size, cs.SEED)
+
+    def oneshot():
+        with cs.LLM(cfg, params) as llm:
+            ops.reset_launch_counts()
+            llm.generate(prompts, max_new=cs.OFFLOAD_NEW)
+            m = llm.last_metrics
+            return {"prefill_s": m["prefill_s"],
+                    "decode_tok_s": m["tokens_per_s"],
+                    "matmul_launches": ops.launch_counts()["matmul"]}
+
+    out = _alternate(builds, other, pairs, "3f fp32", oneshot)
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -242,6 +348,8 @@ def main(argv=None) -> int:
                     help="name=DIR of another checkout (repeatable)")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--runs", default="3e,3f",
+                    help="cells to alternate, of 3b, 3e, 3f")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -256,8 +364,13 @@ def main(argv=None) -> int:
               **build_others(others)}
     result = {"kernels": time_kernels(builds, args.rounds)}
     first = next(iter(others), None)
+    runs = set(args.runs.split(",")) if args.runs else set()
     if first in builds and args.pairs:
-        result["decode_pairs"] = decode_pairs(builds, first, args.pairs)
+        result["pairs"] = []
+        if runs & {"3b", "3e"}:
+            result["pairs"] += mistral_pairs(builds, first, args.pairs, runs)
+        if "3f" in runs:
+            result["pairs"] += opt_pairs(builds, first, args.pairs)
     use(builds["tree"])
     line = json.dumps(result)
     if args.out:
