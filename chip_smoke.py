@@ -73,8 +73,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    counters were read, so they do not count), with CUDA-event times of kernel,
    plain version and (where one exists) a single PyTorch library call,
    beside the least time the card could take (bytes over 3.35 TB/s or
-   FLOPs over the peak for the dtype — 67 TFLOP/s fp32, 989 TFLOP/s bf16 —
-   whichever is larger); the paged kernels in fp32 at a long-context
+   FLOPs over the peak for the dtype — 67 TFLOP/s fp32, 989 TFLOP/s bf16;
+   for ``q8_matmul`` and fp32 flash attention the least work at fp32
+   accuracy, three bf16 products at 989 or three TF32 products at 495
+   TFLOP/s, or the fp32 FLOPs at 67, whichever is faster — whichever of
+   bytes and FLOPs is larger); the paged kernels in fp32 at a long-context
    shape and at phase 3's two most frequent shapes of each run, and in
    bf16 at 3e's shapes, within the ``ref.paged_*_limit`` bounds (the fp32
    prefill limit shown to reject q and k rounded to TF32; two prefill
@@ -88,7 +91,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    the ``ref.*_limit`` bounds (each attention limit shown to reject an
    off-by-one mask, the bf16 flash limit scores rounded to bf16
    before the softmax, the fp32 one q and k rounded to TF32; two
-   flash-decode calls must give the same bits);
+   flash-decode calls and two flash-attention calls must give the same
+   bits);
    a bf16 RMSNorm output must also be bit-equal to
    the plain version but for at most ``ref.RMSNORM_UNEQUAL_MAX`` of its
    elements, a check shown to reject squares rounded to bf16, x * rsqrt
@@ -168,6 +172,13 @@ from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM data sheet, fp32 without TC
 BF16_FLOPS = 989e12                # H100 SXM data sheet, dense bf16 TC
+TF32_FLOPS = 495e12                # H100 SXM data sheet, dense TF32 TC
+# The least work that reaches fp32 accuracy on this card: three bf16 (q8:
+# int8 weights exact in bf16, x as three bf16 terms) or three TF32 (fp32
+# attention, 3xTF32) tensor-core products per product, or one fp32 FMA on
+# the CUDA cores, whichever is faster
+Q8_PEAK = max(BF16_FLOPS / 3, FP32_FLOPS)
+F32_ATTN_PEAK = max(TF32_FLOPS / 3, FP32_FLOPS)
 PAGE_SIZE = 16
 MAX_NEW = 8                        # new tokens per request
 CHUNK = 32                         # chunk_tokens of the chunked prefill
@@ -556,7 +567,7 @@ def q8_entry(gen, m, k, n, launches):
         "src/repro/kernels/q8_matmul.py:85", launches, got, want, limit,
         lambda: k_q8.q8_matmul(x, qw, sc), lambda: ref.q8_matmul(x, qw, sc),
         library_q8(x, qw, sc), m * k * 4 + k * n + n * 4 + m * n * 4,
-        2 * m * n * k)
+        2 * m * n * k, Q8_PEAK)
 
 
 def check_paged_bf16(launches):
@@ -1270,6 +1281,8 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
         q = torch.randn((b, s, hq, d), generator=gen, device="cuda") \
             .to(dtype).transpose(1, 2)
         got = k_flash.flash_attention(q, k, v)
+        check(torch.equal(k_flash.flash_attention(q, k, v), got),
+              f"{name}: two calls differ")
         want = ref.flash_attention(q, k, v)
         limit = ref.flash_attention_limit(q, k, v, want)
         bad = want.clone()                       # query i misses key i
@@ -1291,7 +1304,7 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
             sdpa(q, k, v, is_causal=True),
             (2 * q.numel() + 2 * k.numel()) * el,
             4 * b * hq * d * s * (s + 1) // 2,
-            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            BF16_FLOPS if dtype == torch.bfloat16 else F32_ATTN_PEAK)
 
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     t3b = ONESHOT_PROMPT + ONESHOT_NEW

@@ -44,13 +44,27 @@
 //   32, 64, 128, 256); every row stride and base pointer is a multiple of 16
 //   bytes (the wrapper refuses anything else).
 //
-// fp32 (no TF32: the plain version's limit allows fp32 reordering only):
-//   the CUDA cores.  One block of 128 threads per 32 query rows walks K/V
-//   tiles of 32 keys staged as fp32 in shared memory; four threads share a
-//   query row, each scoring 8 of the tile's keys and keeping D / 4
-//   accumulator columns in registers.
+// fp32: the CUDA cores, register-tiled (the fp32 design of
+//   csrc/paged_prefill_attention.cu over dense strides; the step over a
+//   tile is csrc/f32_attention.h, shared with it).  A block of 128
+//   threads owns 32 query rows of one q-head; thread (tr, tk) = (tid / 16,
+//   tid % 16) owns rows tr + 8i (i < 4) throughout: in Q K^T the keys tk +
+//   16j (j < 2) of each 32-key tile, a 4 x 2 register patch summed over D by
+//   float4 reads (Q rows a broadcast within the half-warp, K rows padded so
+//   that the 16 lanes hit distinct banks); in P V the columns tk * 4 + 64c,
+//   a 4 x D/16 patch of the output.  K/V tiles go through a two-stage
+//   cp.async ring, the row max and sum reduce over the 16 lanes of the
+//   half-warp with shuffles, and P crosses shared memory to the same 16
+//   lanes (a __syncwarp, no barrier).  Any D up to 256, computed at a
+//   padded width of 64, 128 or 256 with zeros staged past D; rows 16-byte
+//   aligned are copied 16 bytes at a time, others 4.  At OPT-6.7B's prefill
+//   (B 4, S 64, 32 heads, D 128) this ran at 0.0146 ms on the card against
+//   0.0264 for a 3xTF32 tensor-core design of the same function
+//   (tools/flash_f32_3xtf32.cu: 4 warps an SM, 3 mma a product and the
+//   operand splits on its critical path; PERF.md).
 
 #include "device_helpers.h"
+#include "f32_attention.h"
 #include "launch_args.h"
 
 namespace {
@@ -296,142 +310,146 @@ int launch_tc(const void* q, long long q_sb, long long q_sh, long long q_ss, con
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: CUDA cores, register-tiled
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;
-constexpr int kBlockQ = 32;
-constexpr int kBlockK = 32;
-constexpr int kRowThreads = kThreads / kBlockQ;      // 4 threads per row
-constexpr int kKeysPerThread = kBlockK / kRowThreads;  // 8
-constexpr int kMaxD = 256;
-constexpr int kMaxAcc = kMaxD / kRowThreads;         // 64
+constexpr int kFThreads = 128;
+constexpr int kFRows = 32;        // query rows a block
+constexpr int kFKeys = kF32Keys;  // keys a tile
+constexpr int kFStages = 2;       // K/V tiles in shared memory
 
-constexpr int f32_smem(int d) {
-  return (int)sizeof(float) *
-         (kBlockQ * (d + 1) + kBlockK * (d + 1) + kBlockK * d + kBlockQ * (kBlockK + 1));
-}
+template <int DP>
+struct F32Cfg {
+  static constexpr int RS = DP + 4;         // padded fp32 row (floats)
+  static constexpr int CG = DP / 64;        // float4 column groups of P V
+  static constexpr int TILE = kFKeys * RS;  // one K or V tile (floats)
+  static constexpr int SMEM = (kFRows * RS + kFKeys * kF32PS + kFStages * 2 * TILE) * 4;
+  static constexpr int MIN_BLOCKS = DP <= 128 ? 2 : 1;
+  static_assert(DP % 64 == 0 && DP <= 256, "padded head dim");
+};
 
-__global__ void __launch_bounds__(kThreads)
-flash_f32_kernel(const float* __restrict__ q, long long q_sb, long long q_sh,
-                 long long q_ss, const float* __restrict__ k,
-                 const float* __restrict__ v, long long kv_sb, long long kv_sh,
-                 long long kv_ss, float* __restrict__ out, long long o_sb,
-                 long long o_sh, long long o_ss, int hq, int hkv, int sq,
-                 int skv, int d, float scale, float softcap, int causal,
-                 int window) {
-  extern __shared__ float smem[];
-  const int dp = d + 1;                          // padded row stride
-  float* qs = smem;                              // kBlockQ * dp
-  float* ks = qs + kBlockQ * dp;                 // kBlockK * dp
-  float* vs = ks + kBlockK * dp;                 // kBlockK * d
-  float* ps = vs + kBlockK * d;                  // kBlockQ * (kBlockK + 1)
+template <int DP>
+__global__ void __launch_bounds__(kFThreads, F32Cfg<DP>::MIN_BLOCKS)
+flash_f32_kernel(const float* __restrict__ q, long long q_sb, long long q_sh, long long q_ss,
+                 const float* __restrict__ k, const float* __restrict__ v, long long kv_sb,
+                 long long kv_sh, long long kv_ss, float* __restrict__ out, long long o_sb,
+                 long long o_sh, long long o_ss, int hq, int hkv, int sq, int skv, int d,
+                 float scale, float softcap, int causal, int window, int vec_in,
+                 int vec_out) {
+  using C = F32Cfg<DP>;
+  constexpr int RS = C::RS;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                  // kFRows x RS
+  float* ps = qs + kFRows * RS;     // kFKeys x kF32PS
+  float* ring = ps + kFKeys * kF32PS;  // kFStages of a K tile and a V tile
 
-  const int bh = blockIdx.x;
-  const int b = bh / hq;
-  const int h = bh % hq;
-  const int kvh = h / (hq / hkv);
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int r = tid / kRowThreads;               // this thread's query row
-  const int part = tid % kRowThreads;
-  const int qpos = q0 + r;
-  const int last_q = min(q0 + kBlockQ, sq) - 1;  // the tile's last row
-
+  const int b = blockIdx.x / hq, h = blockIdx.x % hq, kvh = h / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFRows;  // heaviest first
+  const int tid = threadIdx.x, tr = tid / 16, tk = tid % 16;
+  const int last_q = min(q0 + kFRows, sq) - 1;
+  // the key range any row of the block can see
+  const int k_hi = causal ? min(skv, last_q + 1) : skv;
+  int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  k_lo = (k_lo / kFKeys) * kFKeys;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kFKeys - 1) / kFKeys : 0;
   const float* qb = q + b * q_sb + h * q_sh;
-  for (int i = tid; i < kBlockQ * d; i += kThreads) {
-    const int rr = i / d, c = i % d;
-    qs[rr * dp + c] = q0 + rr < sq ? qb[(q0 + rr) * q_ss + c] * scale : 0.f;
-  }
-
-  // the key range any row of the tile can see
-  int k_lo = 0;
-  int k_hi = causal ? min(skv, last_q + 1) : skv;
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  k_lo = (k_lo / kBlockK) * kBlockK;
-
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
-
   const float* kb = k + b * kv_sb + kvh * kv_sh;
   const float* vb = v + b * kv_sb + kvh * kv_sh;
-  for (int j0 = k_lo; j0 < k_hi; j0 += kBlockK) {
-    __syncthreads();             // the previous tile's K/V/P are consumed
-    for (int i = tid; i < kBlockK * d; i += kThreads) {
-      const int t = i / d, c = i % d;
-      const int kpos = j0 + t;
-      const bool live = kpos < k_hi;
-      ks[t * dp + c] = live ? kb[kpos * kv_ss + c] : 0.f;
-      vs[t * d + c] = live ? vb[kpos * kv_ss + c] : 0.f;
-    }
-    __syncthreads();
 
-    float s[kKeysPerThread];
-    bool ok[kKeysPerThread];
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) s[j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      const float qv = qs[r * dp + c];
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j)
-        s[j] += qv * ks[(part + kRowThreads * j) * dp + c];
+  // rows [r0, r0 + n) of src (row stride ss) into dst, DP columns: zeros,
+  // unread, past d and at rows >= limit; 16-byte copies where every row is
+  // 16-byte aligned, 4-byte copies otherwise
+  auto copy_rows = [&](float* dst, const float* src, long long ss, int r0, int n, int limit) {
+    if (vec_in) {
+      for (int i = tid; i < n * (DP / 4); i += kFThreads) {
+        const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+        const bool ok = r0 + r < limit && c < d;
+        cp_async16(dst + r * RS + c, ok ? src + (r0 + r) * ss + c : src, ok);
+      }
+    } else {
+      for (int i = tid; i < n * DP; i += kFThreads) {
+        const int r = i / DP, c = i % DP;
+        const bool ok = r0 + r < limit && c < d;
+        cp_async4(dst + r * RS + c, ok ? src + (r0 + r) * ss + c : src, ok);
+      }
     }
-    float mx = kNegInf;
+  };
+  copy_rows(qs, qb, q_ss, q0, kFRows, sq);
+  cp_async_commit();
+  // keys at or past k_hi are zero-filled without a read
+  auto load_kv = [&](int st, int j0) {
+    float* kd = ring + st * 2 * C::TILE;
+    copy_rows(kd, kb, kv_ss, j0, kFKeys, k_hi);
+    copy_rows(kd + C::TILE, vb, kv_ss, j0, kFKeys, k_hi);
+  };
 #pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) {
-      const int kpos = j0 + part + kRowThreads * j;
-      bool valid = qpos < sq && kpos < skv;
-      if (causal) valid = valid && kpos <= qpos;
-      if (window > 0) valid = valid && kpos > qpos - window;
-      ok[j] = valid;
-      float sv = s[j];
-      if (softcap > 0.f) sv = softcap * tanhf(sv / softcap);
-      s[j] = valid ? sv : kNegInf;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float sum = 0.f;
+  for (int st = 0; st < kFStages - 1; ++st) {
+    if (st < n_tiles) load_kv(st, k_lo + st * kFKeys);
+    cp_async_commit();
+  }
+
+  int qpos[4];  // this thread's rows tr + 8i
 #pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) {
-      const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
-      sum += p;
-      ps[r * (kBlockK + 1) + part + kRowThreads * j] = p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = l * alpha + sum;
-    m = m_new;
-    __syncwarp();                // the row's P is written by its own warp
+  for (int i = 0; i < 4; ++i) qpos[i] = q0 + tr + 8 * i;
+  float o[4][4 * C::CG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * C::CG; ++c) o[i][c] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = k_lo + it * kFKeys;
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // tile `it` (and Q) landed; every thread is done with it - 1
+    if (it + kFStages - 1 < n_tiles)
+      load_kv((it + kFStages - 1) % kFStages, j0 + (kFStages - 1) * kFKeys);
+    cp_async_commit();
+    const float* kt = ring + (it % kFStages) * 2 * C::TILE;
+    const float* vt = kt + C::TILE;
+
+    f32_attention_tile<DP>(qs, kt, vt, ps, j0, tr, tk, scale, softcap,
+                           [&](int i, int kpos) {
+                             bool ok = kpos < skv;
+                             if (causal) ok = ok && kpos <= qpos[i];
+                             if (window > 0) ok = ok && kpos > qpos[i] - window;
+                             return ok;
+                           },
+                           o, m, l);
+  }
+  cp_async_wait<0>();
 
 #pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
-      const int c = part + kRowThreads * i;
-      if (c < d) {
-        float a = acc[i] * alpha;
-        for (int t = 0; t < kBlockK; ++t)
-          a += ps[r * (kBlockK + 1) + t] * vs[t * d + c];
-        acc[i] = a;
+  for (int i = 0; i < 4; ++i) {
+    if (qpos[i] >= sq) continue;
+    const float denom = l[i] == 0.f ? 1.f : l[i];
+    float* orow = out + b * o_sb + h * o_sh + qpos[i] * o_ss;
+#pragma unroll
+    for (int cg = 0; cg < C::CG; ++cg) {
+      const int c = cg * 64 + tk * 4;
+      const float r[4] = {o[i][4 * cg] / denom, o[i][4 * cg + 1] / denom,
+                          o[i][4 * cg + 2] / denom, o[i][4 * cg + 3] / denom};
+      if (vec_out) {
+        if (c < d) *reinterpret_cast<float4*>(orow + c) = make_float4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d) orow[c + e] = r[e];
       }
     }
   }
-
-  if (qpos < sq) {
-    const float denom = l == 0.f ? 1.f : l;
-    float* ob = out + b * o_sb + h * o_sh + qpos * o_ss;
-#pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
-      const int c = part + kRowThreads * i;
-      if (c < d) ob[c] = acc[i] / denom;
-    }
-  }
 }
 
+bool rows16(const void* p, long long sb, long long sh, long long ss) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 && sh % 4 == 0 && ss % 4 == 0;
+}
+
+template <int DP>
 int launch_f32(const void* q, long long q_sb, long long q_sh, long long q_ss, const void* k,
                const void* v, long long kv_sb, long long kv_sh, long long kv_ss, void* out,
                long long o_sb, long long o_sh, long long o_ss, int b, int hq, int hkv, int sq,
@@ -439,13 +457,16 @@ int launch_f32(const void* q, long long q_sb, long long q_sh, long long q_ss, co
                cudaStream_t stream) {
   static std::atomic<int> sms[kMaxDevices];
   int sm_count = 0;
-  const int err = kernel_setup(flash_f32_kernel, f32_smem(kMaxD), sms, sm_count);
+  const int err = kernel_setup(flash_f32_kernel<DP>, F32Cfg<DP>::SMEM, sms, sm_count);
   if (err) return err;
-  const dim3 grid(b * hq, (sq + kBlockQ - 1) / kBlockQ);
-  flash_f32_kernel<<<grid, kThreads, f32_smem(d), stream>>>(
+  const int vec_in = d % 4 == 0 && rows16(q, q_sb, q_sh, q_ss) &&
+                     rows16(k, kv_sb, kv_sh, kv_ss) && rows16(v, kv_sb, kv_sh, kv_ss);
+  const int vec_out = d % 4 == 0 && rows16(out, o_sb, o_sh, o_ss);
+  const dim3 grid(b * hq, (sq + kFRows - 1) / kFRows);
+  flash_f32_kernel<DP><<<grid, kFThreads, F32Cfg<DP>::SMEM, stream>>>(
       static_cast<const float*>(q), q_sb, q_sh, q_ss, static_cast<const float*>(k),
       static_cast<const float*>(v), kv_sb, kv_sh, kv_ss, static_cast<float*>(out), o_sb,
-      o_sh, o_ss, hq, hkv, sq, skv, d, scale, softcap, causal, window);
+      o_sh, o_ss, hq, hkv, sq, skv, d, scale, softcap, causal, window, vec_in, vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -460,11 +481,17 @@ static int flash_attention_impl(
     long long o_ss, int dtype, int b, int hq, int hkv, int sq, int skv,
     int d, float scale, float softcap, int causal, int window,
     void* stream) {
-  if (d > kMaxD || hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d > 256 || hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_f32(q, q_sb, q_sh, q_ss, k, v, kv_sb, kv_sh, kv_ss, out, o_sb, o_sh, o_ss,
-                      b, hq, hkv, sq, skv, d, scale, softcap, causal, window, s);
+  if (dtype == 0) {
+#define FLASH_F32(DP)                                                                          \
+  launch_f32<DP>(q, q_sb, q_sh, q_ss, k, v, kv_sb, kv_sh, kv_ss, out, o_sb, o_sh, o_ss, b, hq, \
+                 hkv, sq, skv, d, scale, softcap, causal, window, s)
+    if (d <= 64) return FLASH_F32(64);
+    if (d <= 128) return FLASH_F32(128);
+    return FLASH_F32(256);
+#undef FLASH_F32
+  }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
 #define FLASH_TC(D)                                                                     \
   case D:                                                                               \

@@ -58,13 +58,16 @@
 //   distinct banks); in P V the columns tk * 4 + 64c, a 4 x D/16 patch of
 //   the output.  The row max and sum are reduced over the 16 lanes of the
 //   half-warp with shuffles, and P goes through shared memory to the same
-//   16 lanes, so it needs a __syncwarp and no barrier.  int8 pages are
+//   16 lanes, so it needs a __syncwarp and no barrier (the step over a tile
+//   is csrc/f32_attention.h, shared with flash attention's fp32 route).
+//   int8 pages are
 //   widened and scaled in fp32 as they leave the ring (k * scale, as the
 //   plain version dequantizes).  D a multiple of 4 up to 256 (of 16 over
 //   int8 pages), computed at a padded width of 64, 128 or 256 with zeros
 //   staged past D.
 
 #include "device_helpers.h"
+#include "f32_attention.h"
 #include "launch_args.h"
 
 namespace {
@@ -419,7 +422,7 @@ paged_tc_kernel(Args a) {
 // ---------------------------------------------------------------------------
 
 constexpr int kFRows = 32;
-constexpr int kPS = kFRows + 4;  // padded row of the P tile (floats)
+static_assert(kKeys == kF32Keys, "f32_attention_tile walks tiles of kKeys");
 
 template <int DP, bool Q8>
 struct F32Cfg {
@@ -428,7 +431,7 @@ struct F32Cfg {
   static constexpr int TILE = kKeys * RS;  // one fp32 K or V tile (floats)
   static constexpr int RAW = kKeys * DP;   // one int8 K or V tile (bytes)
   static constexpr int Q_BYTES = kFRows * RS * 4;
-  static constexpr int P_BYTES = kKeys * kPS * 4;
+  static constexpr int P_BYTES = kKeys * kF32PS * 4;
   // Q, P; fp32 pages: the ring of K/V tiles; int8 pages: the ring of raw
   // tiles and their scales, and one widened K/V tile
   static constexpr int STAGE_BYTES = Q8 ? 2 * RAW + 2 * kKeys * 4 : 2 * TILE * 4;
@@ -444,7 +447,7 @@ paged_f32_kernel(Args a) {
   constexpr int RS = C::RS, CPR = DP / 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);                   // kFRows x RS
-  float* ps = reinterpret_cast<float*>(smem_raw + C::Q_BYTES);      // kKeys x kPS
+  float* ps = reinterpret_cast<float*>(smem_raw + C::Q_BYTES);      // kKeys x kF32PS
   unsigned char* ring = smem_raw + C::Q_BYTES + C::P_BYTES;
   float* wide = reinterpret_cast<float*>(ring + kStages * C::STAGE_BYTES);
 
@@ -479,7 +482,6 @@ paged_f32_kernel(Args a) {
     cp_async_commit();
   }
 
-  const float scale_log2 = a.scale * kLog2e;
   int qabs[4];  // this thread's rows tr + 8i, as kv positions
 #pragma unroll
   for (int i = 0; i < 4; ++i) qabs[i] = t.off + t.q0 + (tr + 8 * i) % t.pos;
@@ -529,87 +531,13 @@ paged_f32_kernel(Args a) {
       vt = kt + C::TILE;
     }
 
-    // S = Q K^T: rows tr + 8i, keys tk + 16j
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; c += 4) {
-      float4 qv[4], kv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qs + (tr + 8 * i) * RS + c);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) kv[j] = *reinterpret_cast<const float4*>(kt + (tk + 16 * j) * RS + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-
-    // scale, softcap and mask in fp32, base 2; the rows' max and sum over
-    // the 16 lanes of this half-warp
-    float alpha[4], p[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = j0 + tk + 16 * j;
-        float x = s[i][j] * scale_log2;
-        if (a.softcap > 0.f) x = a.softcap * tanhf(s[i][j] * a.scale / a.softcap) * kLog2e;
-        bool ok = kpos <= qabs[i];
-        if (a.window > 0) ok = ok && kpos > qabs[i] - a.window;
-        s[i][j] = ok ? x : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int sh = 1; sh < 16; sh *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
-      alpha[i] = exp2f(m[i] - mx);
-      m[i] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        p[i][j] = s[i][j] == kNegInf ? 0.f : exp2f(s[i][j] - mx);
-        sum += p[i][j];
-      }
-#pragma unroll
-      for (int sh = 1; sh < 16; sh *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, sh);
-      l[i] = l[i] * alpha[i] + sum;
-    }
-    // P to this half-warp's 16 lanes: P[key][tr * 4 + i]
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      *reinterpret_cast<float4*>(ps + (tk + 16 * j) * kPS + tr * 4) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    __syncwarp();
-
-    // O = alpha O + P V: rows tr + 8i, columns tk * 4 + 64c
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4 * C::CG; ++c) o[i][c] *= alpha[i];
-#pragma unroll 4
-    for (int key = 0; key < kKeys; ++key) {
-      const float4 pv = *reinterpret_cast<const float4*>(ps + key * kPS + tr * 4);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int cg = 0; cg < C::CG; ++cg) {
-        const float4 vv = *reinterpret_cast<const float4*>(vt + key * RS + cg * 64 + tk * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][4 * cg] = fmaf(pr[i], vv.x, o[i][4 * cg]);
-          o[i][4 * cg + 1] = fmaf(pr[i], vv.y, o[i][4 * cg + 1]);
-          o[i][4 * cg + 2] = fmaf(pr[i], vv.z, o[i][4 * cg + 2]);
-          o[i][4 * cg + 3] = fmaf(pr[i], vv.w, o[i][4 * cg + 3]);
-        }
-      }
-    }
-    __syncwarp();  // P is read; the next tile's P may overwrite it
+    f32_attention_tile<DP>(qs, kt, vt, ps, j0, tr, tk, a.scale, a.softcap,
+                           [&](int i, int kpos) {
+                             bool ok = kpos <= qabs[i];
+                             if (a.window > 0) ok = ok && kpos > qabs[i] - a.window;
+                             return ok;
+                           },
+                           o, m, l);
   }
   cp_async_wait<0>();
 

@@ -4,10 +4,11 @@
 //
 // Replaces: src/repro/kernels/q8_matmul.py · q8_matmul (_q8_kernel).
 //
-// What bounds it on the H100: at decode (M = batch, a handful of rows) the
-//   bytes, K * N int8 weight bytes read once against 2 * M FLOPs per byte;
-//   at prefill (M = a chunk's rows, tens to hundreds) the FLOPs on the fp32
-//   CUDA cores, 2 * M * N * K at 67 TFLOP/s.
+// What bounds it on the H100: the bytes, K * N int8 weight bytes read once.
+//   At decode (M = batch, a handful of rows) that is 2 * M FLOPs per byte;
+//   at prefill (M = a chunk's rows, tens) the fp32-accurate product on the
+//   tensor cores, three bf16 products per term at 989 TFLOP/s, still takes
+//   less time than the weights' bytes.
 //
 // One C entry, two kernels chosen by M:
 //
@@ -36,16 +37,31 @@
 //   the ring's depth and the blocks an SM were chosen on the card among
 //   variants of this kernel (PERF.md).
 //
-// M > 16 (prefill): a shared-memory tiled SGEMM.  A block of 256 threads
-//   owns a 64 x 64 output tile and walks K in steps of 16, staging the x
-//   tile (transposed) and the int8 weight tile, dequantized to fp32 as it
-//   lands in shared memory.  Each thread keeps a 4 x 4 register tile, summed
-//   in runs of 128 k rows that are then added in order (a two-level sum:
-//   its fp32 error stays near that of a blocked sum, which `ref.q8_matmul_
-//   limit` holds every route to), and applies the column scale once.
-//   Every edge is masked in the kernel.  A tensor-core path (an int8
-//   weight is exact in bf16 and an fp32 x splits exactly into three bf16
-//   terms) is left for a later change.
+// M > 16 (prefill): the tensor cores, at fp32 accuracy.  An int8 weight
+//   is exact in bf16, and an fp32 x is the exact sum of three bf16 terms
+//   (hi, x truncated to bf16; mid, the remainder truncated; lo, the rest),
+//   so x q is three bf16 mma.sync (m16n8k16, fp32 accumulate) per tile.
+//   The weights are the A operand (16 output columns x 16 k) and x's terms
+//   the B operand (16 k x 8 rows of x), so 18-32 rows fill 3 or 4 n8 tiles
+//   with little padding; above 32 rows, blocks of 32 rows.  A block of
+//   eight warps owns a 64-column slab and 24 or 32 rows of x; a stage of
+//   the ring holds 64 k rows of the weights (one 16-byte cp.async a
+//   thread) and of x, four stages with three in flight, one barrier a
+//   stage.  Each warp takes 32 columns and 16 of a stage's k rows; the
+//   mma's k slots map to its rows so that a thread reads its weights as
+//   four 32-bit words (4 columns of 4 k rows: byte permutes to fp32, whose
+//   top halves are the exact bf16) and its x as one float4 a tile, which it splits into
+//   the three terms itself.  The hi products go into one accumulator, mid
+//   and lo into another; every 8 k steps (128 k rows) of a warp the two are
+//   added into fp32 totals in shared memory (a blocked sum, as `ref.q8_
+//   matmul_limit` requires).  K splits across a thread-block cluster of 1-8
+//   blocks, as many as fit in one wave at two blocks an SM (two a slab
+//   where one would leave SMs half used); the four warps of a
+//   column half add in order, then the cluster's blocks in rank order
+//   through distributed shared memory, and the column scale is applied
+//   once.  No atomics: two calls give the same bits.  Every edge is masked
+//   in the kernel (any M > 16, K, N): rows of the weights off 16-byte
+//   alignment take byte loads, rows of x 4-byte cp.async.
 
 #include <cooperative_groups.h>
 
@@ -358,89 +374,272 @@ int launch_stream_m(const float* x, const int8_t* q, const float* scale, float* 
 }
 
 // ---------------------------------------------------------------------------
-// M > 16: shared-memory tiled SGEMM
+// M > 16: tensor cores, x split into three bf16 terms
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kTM = 4;
-constexpr int kTN = 4;
-constexpr int kRun = 8;  // K steps (128 k rows) summed apart, then added in order
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);   // 256
+constexpr int kTThreads = 256;           // eight warps: 2 column halves x 4 k steps
+constexpr int kTSlab = 64;               // columns a block
+constexpr int kTBK = 64;                 // k rows a stage (a warp's 16 of them)
+constexpr int kTStages = 4;              // stages in the ring (3 in flight)
+constexpr int kTRun = 8;                 // a warp's k steps (128 k rows) summed apart
+constexpr int kWRow = kTSlab + 16;       // padded bytes of a staged weight row
+constexpr int kXRow = kTBK + 16;         // padded floats of a staged x row
 
-__global__ void __launch_bounds__(kThreads)
-q8_matmul_kernel(const float* __restrict__ x,        // (M, K)
-                 const int8_t* __restrict__ q,       // (K, N)
-                 const float* __restrict__ scale,    // (N,)
-                 float* __restrict__ y,              // (M, N)
-                 int m, int n, int k) {
-  __shared__ float xs[kBK][kBM + 4];
-  __shared__ float ws[kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);
-  const int ty = tid / (kBN / kTN);
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+template <int NT>
+struct TcCfg {
+  static constexpr int MT = 8 * NT;                      // x rows a block
+  static constexpr int W_BYTES = kTBK * kWRow;
+  static constexpr int STAGE = W_BYTES + MT * kXRow * 4;
+  static constexpr int ACC = 2 * NT * 4;                 // a thread's sums
+  static constexpr int PART = MT * kTSlab;               // a block's outputs
+  static constexpr int SMEM = kTStages * STAGE + (kTThreads * ACC + PART) * 4;
+  static_assert(4 * PART * 4 <= kTStages * STAGE, "reduction buffer");
+};
 
-  float acc[kTM][kTN];
-  float tot[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = tot[i][j] = 0.f;
+// Two fp32 values as three bf16 pairs, each value the exact sum of its
+// three terms: hi is x truncated to bf16 (its top 16 bits), mid the
+// remainder truncated, lo the rest, which has at most 8 significant bits.
+// Each subtraction is exact (Sterbenz), truncation never overflows, and the
+// first value goes into the low half of each pair.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  const float r0 = x0 - __uint_as_float(u0 & 0xffff0000u);
+  const float r1 = x1 - __uint_as_float(u1 & 0xffff0000u);
+  const uint32_t v0 = __float_as_uint(r0), v1 = __float_as_uint(r1);
+  const float s0 = r0 - __uint_as_float(v0 & 0xffff0000u);
+  const float s1 = r1 - __uint_as_float(v1 & 0xffff0000u);
+  hi = __byte_perm(u0, u1, 0x7632);
+  mid = __byte_perm(v0, v1, 0x7632);
+  lo = __byte_perm(__float_as_uint(s0), __float_as_uint(s1), 0x7632);
+}
 
-  for (int k0 = 0, step = 0; k0 < k; k0 += kBK, ++step) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK;
-      const int c = i % kBK;
-      const int gm = m0 + r;
-      const int gk = k0 + c;
-      xs[c][r] = (gm < m && gk < k) ? x[(size_t)gm * k + gk] : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int r = i / kBN;
-      const int c = i % kBN;
-      const int gk = k0 + r;
-      const int gn = n0 + c;
-      ws[r][c] = (gk < k && gn < n)
-                     ? static_cast<float>(q[(size_t)gk * n + gn]) : 0.f;
-    }
-    __syncthreads();
+template <int NT, bool WVEC, bool XVEC>
+__global__ void __launch_bounds__(kTThreads, 2)
+q8_tc_kernel(const float* __restrict__ x,      // (M, K)
+             const int8_t* __restrict__ q,     // (K, N)
+             const float* __restrict__ scale,  // (N,)
+             float* __restrict__ y,            // (M, N)
+             int m, int n, int k, int kper) {
+  using C = TcCfg<NT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* tot = reinterpret_cast<float*>(smem_raw + kTStages * C::STAGE);  // [ACC][thread]
+  float* part = tot + C::ACC * kTThreads;                                 // [MT][kTSlab]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n0 = (blockIdx.x / cs) * kTSlab;
+  const int m0 = blockIdx.y * C::MT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ch = warp % 2, ks = warp / 2;  // column half, k step of a stage
+  const int kb = min(k, rank * kper), ke = min(k, kb + kper);
+  const int nchunks = (ke - kb + kTBK - 1) / kTBK;
+
+  auto wstage = [&](int s) { return reinterpret_cast<int8_t*>(smem_raw + s * C::STAGE); };
+  auto xstage = [&](int s) {
+    return reinterpret_cast<float*>(smem_raw + s * C::STAGE + C::W_BYTES);
+  };
+  // stage `s` <- k rows [k0, k0 + kTBK) of the weights (the slab's columns)
+  // and of x (the block's rows); zeros, unread, past ke, M or N
+  auto load = [&](int s, int c) {
+    const int k0 = kb + c * kTBK;
+    {
+      const int r = tid / 4, cc = (tid % 4) * 16, kr = k0 + r, col = n0 + cc;
+      int8_t* dst = wstage(s) + r * kWRow + cc;
+      if constexpr (WVEC) {
+        const bool ok = kr < ke && col < n;
+        cp_async16(dst, ok ? q + (size_t)kr * n + col : q, ok);
+      } else {
+        uint32_t w[4];
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM];
-      float w[kTN];
+        for (int j = 0; j < 4; ++j) {
+          w[j] = 0u;
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = xs[kk][ty + i * (kBM / kTM)];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) w[j] = ws[kk][tx + j * (kBN / kTN)];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] += a[i] * w[j];
-    }
-    if (step % kRun == kRun - 1) {
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          tot[i][j] += acc[i][j];
-          acc[i][j] = 0.f;
+          for (int b = 0; b < 4; ++b) {
+            const int cb = col + 4 * j + b;
+            const uint32_t byte =
+                (kr < ke && cb < n) ? (uint8_t)__ldg(q + (size_t)kr * n + cb) : 0u;
+            w[j] |= byte << (8 * b);
+          }
         }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
     }
-    __syncthreads();
-  }
+    for (int i = tid; i < C::MT * (kTBK / 4); i += kTThreads) {
+      const int r = i / (kTBK / 4), cc = (i % (kTBK / 4)) * 4;
+      const int row = m0 + r, kk = k0 + cc;
+      float* dst = xstage(s) + r * kXRow + cc;
+      if constexpr (XVEC) {
+        const bool ok = row < m && kk < ke;
+        cp_async16(dst, ok ? x + (size_t)row * k + kk : x, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = row < m && kk + e < ke;
+          cp_async4(dst + e, ok ? x + (size_t)row * k + kk + e : x, ok);
+        }
+      }
+    }
+  };
+
+  // hi terms, mid and lo terms: sums of the current run
+  float ah[2][NT][4], am[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ah[i][j][e] = am[i][j][e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < C::ACC; ++e) tot[e * kTThreads + tid] = 0.f;
+  // a run's sum into this thread's totals (its own slots: no barrier)
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tot[((i * NT + j) * 4 + e) * kTThreads + tid] += ah[i][j][e] + am[i][j][e];
+          ah[i][j][e] = am[i][j][e] = 0.f;
+        }
+  };
 
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gm = m0 + ty + i * (kBM / kTM);
+  for (int st = 0; st < kTStages - 1; ++st) {
+    if (st < nchunks) load(st, st);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<kTStages - 2>();
+    __syncthreads();  // stage c landed; every warp is done with stage c - 1
+    if (c + kTStages - 1 < nchunks) load((c + kTStages - 1) % kTStages, c + kTStages - 1);
+    cp_async_commit();
+    const int s = c % kTStages;
+    // The mma's 16 k slots map to this warp's 16 k rows so that a thread
+    // reads whole words: slots 2t, 2t + 1 are rows 4t, 4t + 1 and slots
+    // 2t + 8, 2t + 9 rows 4t + 2, 4t + 3, for the weights (A) and x (B)
+    // alike.  A thread's four columns 4g .. 4g + 3 of the warp's 32 are
+    // rows g and g + 8 of the first m16 tile (4g, 4g + 1) and of the second
+    // (4g + 2, 4g + 3).
+    const int8_t* wb = wstage(s) + (16 * ks + 4 * t) * kWRow + 32 * ch + 4 * g;
+    float f[4][4];  // [k row 4t + j][column 4g + c]
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gn = n0 + tx + j * (kBN / kTN);
-      if (gm < m && gn < n) y[(size_t)gm * n + gn] = (tot[i][j] + acc[i][j]) * scale[gn];
+    for (int j = 0; j < 4; ++j) i8x4_to_f32(*reinterpret_cast<const uint32_t*>(wb + j * kWRow), f[j]);
+    // an int8 value in fp32 has at most 8 significant bits: its top 16
+    // bits are its bf16, taken by a byte permute instead of a conversion
+    auto pair = [](float lo, float hi) {
+      return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+    };
+    uint32_t a[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      a[i][0] = pair(f[0][2 * i], f[1][2 * i]);
+      a[i][1] = pair(f[0][2 * i + 1], f[1][2 * i + 1]);
+      a[i][2] = pair(f[2][2 * i], f[3][2 * i]);
+      a[i][3] = pair(f[2][2 * i + 1], f[3][2 * i + 1]);
+    }
+    const float* xb = xstage(s) + g * kXRow + 16 * ks + 4 * t;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(xb + j * 8 * kXRow);
+      uint32_t bh[2], bm[2], bl[2];
+      split3(v.x, v.y, bh[0], bm[0], bl[0]);
+      split3(v.z, v.w, bh[1], bm[1], bl[1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_bf16(ah[i][j], a[i], bh[0], bh[1]);
+        mma_bf16(am[i][j], a[i], bl[0], bl[1]);
+        mma_bf16(am[i][j], a[i], bm[0], bm[1]);
+      }
+    }
+    if (c % kTRun == kTRun - 1) fold();
+  }
+  cp_async_wait<0>();
+  fold();
+
+  // the four k-step warps of each column half, added in order; then the
+  // cluster's blocks in rank order, each block finishing every cs-th group
+  // of the outputs
+  __syncthreads();  // every warp is done with the ring
+  float* red = reinterpret_cast<float*>(smem_raw);  // [ks][MT][kTSlab]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = j * 8 + 2 * t + (e & 1), col = 32 * ch + 4 * g + 2 * i + (e >> 1);
+        red[(ks * C::MT + row) * kTSlab + col] = tot[((i * NT + j) * 4 + e) * kTThreads + tid];
+      }
+  __syncthreads();
+  for (int o = tid; o < C::PART; o += kTThreads)
+    part[o] = ((red[o] + red[C::PART + o]) + red[2 * C::PART + o]) + red[3 * C::PART + o];
+  cluster.sync();
+  for (int o = rank * kTThreads + tid; o < C::PART; o += cs * kTThreads) {
+    const int r = m0 + o / kTSlab, col = n0 + o % kTSlab;
+    if (r < m && col < n) {
+      float p[kMaxCluster];
+#pragma unroll
+      for (int j = 0; j < kMaxCluster; ++j)
+        if (j < cs) p[j] = cluster.map_shared_rank(part, j)[o];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxCluster; ++j)
+        if (j < cs) sum += p[j];
+      y[(size_t)r * n + col] = sum * scale[col];
     }
   }
+  cluster.sync();  // no block leaves while another reads its partial sums
+}
+
+template <int NT, bool WVEC, bool XVEC>
+int launch_tc(const float* x, const int8_t* q, const float* scale, float* y, int m, int n,
+              int k, cudaStream_t stream) {
+  using C = TcCfg<NT>;
+  static std::atomic<int> sms[kMaxDevices];
+  int sm_count = 0;
+  const int serr = kernel_setup(q8_tc_kernel<NT, WVEC, XVEC>, C::SMEM, sms, sm_count);
+  if (serr) return serr;
+  const int slabs = (n + kTSlab - 1) / kTSlab, rows = (m + C::MT - 1) / C::MT;
+  // as many blocks as fit at two an SM (a block of a later wave would
+  // double the time: 0.0282 against 0.0206 ms at (32, 4096, 2944)), but
+  // two a slab where one a slab leaves an SM's second block idle (0.0650
+  // against 0.0781 at (32, 4096, 11776); PERF.md); each block keeps at
+  // least a full ring of stages
+  const int slots = kBlocksPerSm * sm_count, base = slabs * rows;
+  int cs = slots / base;
+  if (cs < 2) cs = (slots + base - 1) / base;
+  cs = max(1, min(cs, min(kMaxCluster, k / (kTStages * kTBK))));
+  const int kper = ((k + cs - 1) / cs + kTBK - 1) / kTBK * kTBK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(slabs * cs, rows);
+  cfg.blockDim = dim3(kTThreads);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, q8_tc_kernel<NT, WVEC, XVEC>, x, q, scale,
+                                             y, m, n, k, kper);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_tc_nt(const float* x, const int8_t* q, const float* scale, float* y, int m, int n,
+                 int k, bool wvec, bool xvec, cudaStream_t s) {
+  if (wvec) {
+    if (xvec) return launch_tc<NT, true, true>(x, q, scale, y, m, n, k, s);
+    return launch_tc<NT, true, false>(x, q, scale, y, m, n, k, s);
+  }
+  if (xvec) return launch_tc<NT, false, true>(x, q, scale, y, m, n, k, s);
+  return launch_tc<NT, false, false>(x, q, scale, y, m, n, k, s);
 }
 
 }  // namespace
@@ -448,20 +647,18 @@ q8_matmul_kernel(const float* __restrict__ x,        // (M, K)
 static int q8_matmul_f32_impl(const void* x, const void* q, const void* scale,
                               void* y, int m, int n, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const int8_t* qi = static_cast<const int8_t*>(q);
+  const float* sf = static_cast<const float*>(scale);
+  float* yf = static_cast<float*>(y);
+  const bool wvec = n % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   if (m <= 16) {
-    const float* xf = static_cast<const float*>(x);
-    const int8_t* qi = static_cast<const int8_t*>(q);
-    const float* sf = static_cast<const float*>(scale);
-    float* yf = static_cast<float*>(y);
-    if (n % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0)
-      return launch_stream_m<true>(xf, qi, sf, yf, m, n, k, s);
+    if (wvec) return launch_stream_m<true>(xf, qi, sf, yf, m, n, k, s);
     return launch_stream_m<false>(xf, qi, sf, yf, m, n, k, s);
   }
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  q8_matmul_kernel<<<grid, kThreads, 0, s>>>(
-      (const float*)x, (const int8_t*)q, (const float*)scale, (float*)y, m, n,
-      k);
-  return (int)cudaGetLastError();
+  const bool xvec = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (m <= 24) return launch_tc_nt<3>(xf, qi, sf, yf, m, n, k, wvec, xvec, s);
+  return launch_tc_nt<4>(xf, qi, sf, yf, m, n, k, wvec, xvec, s);
 }
 
 // Entry points: the arguments of the functions above, packed (launch_args.h).

@@ -10,7 +10,9 @@ with :func:`q8_matmul` — the dequant happens inside the kernel
 (``csrc/q8_matmul.cu``), so no fp copy of a streamed weight ever exists
 in device memory.  One C entry picks the kernel by M: up to 16 rows (the
 decode steps) a weight-streaming kernel split across a thread-block
-cluster, above that a tiled SGEMM; either is one launch.  The plain
+cluster, above that a kernel on the bf16 tensor cores with x split
+exactly into three bf16 terms (fp32 accuracy), also split across a
+cluster; either is one launch.  The plain
 version is :func:`repro_torch.kernels.ref.q8_matmul`, the per-element
 limit between them :func:`repro_torch.kernels.ref.q8_matmul_limit`.
 """

@@ -482,12 +482,13 @@ def _product_bound(xf, wf):
 # How many units of ``u (sqrt(sum_k t_k^2) + |z|)`` (t_k = x_k q_k, z their
 # exact sum) an fp32 sum of an int8-weight product may lie from the exact
 # product (:func:`q8_matmul_limit`).  The kernels of ``csrc/q8_matmul.cu``,
-# which sum in blocks, use 0.32-0.78 of the limit at every shape of
-# ``chip_smoke.py``'s q8 run, and the plain version over x kept to 16
-# significant bits (what a two-term bf16 split of x carries) lies beyond
-# it in about half of the elements; the earlier SGEMM, one fp32 chain per
-# output over all K, lay 1.7-5.6x beyond it (one H100 80GB HBM3, 700 W;
-# PERF.md): this limit holds the kernels to blocked sums.
+# which sum in blocks, use 0.33-0.75 of the limit at every shape of
+# ``chip_smoke.py``'s q8 run (0.37-0.39 at M <= 16; 0.33-0.75 for the
+# three-term bf16 tensor-core kernel above), and the plain version over x
+# kept to 16 significant bits (what a two-term bf16 split of x carries)
+# lies beyond it in about half of the elements; an earlier SGEMM, one fp32
+# chain per output over all K, lay 1.7-5.6x beyond it (one H100 80GB HBM3,
+# 700 W; PERF.md): this limit holds the kernels to blocked sums.
 _Q8_UNITS = 32.0
 
 

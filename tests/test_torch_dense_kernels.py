@@ -12,8 +12,11 @@ cache, the most that rounding p to bf16 before the PV product can move
 it (the Pallas kernels round p, the plain versions do not).  The CPU route of
 ``ops`` is the plain version and counts no launch; the CUDA wrappers
 raise on CPU tensors instead of falling back.  Controls: the flash limit
-rejects scores rounded to bf16 before the softmax, and the RMSNorm bit
-check (``ref.unequal_share``) three faults that stay within one bf16 step.
+rejects scores rounded to bf16 before the softmax, the fp32 attention
+limits q and k rounded to TF32 (while an emulation of 3xTF32 products,
+a tensor-core design measured for the fp32 route, stays within the
+flash limit), and the RMSNorm bit check
+(``ref.unequal_share``) three faults that stay within one bf16 step.
 """
 import math
 
@@ -327,6 +330,100 @@ def test_fp32_attention_limits_reject_tf32(kind):
     print(f"{kind}, q and k in TF32: {float(beyond.float().mean()):.3g} of "
           f"elements beyond the limit")
     assert bool(beyond.any())
+
+
+def _tf32_rna(t):
+    """fp32 t rounded to TF32 (to nearest, ties away from zero), as the
+    kernel rounds it: + 2^12 on the bit pattern, low 13 bits cleared."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(t):
+    big = _tf32_rna(t)
+    return big, _tf32_rna(t - big)
+
+
+def _rz(v):
+    """float64 -> float32, rounded toward zero."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _flash_3xtf32(q, k, v, *, causal=True, window=None, softcap=None):
+    """fp32 flash attention with the products of the 3xTF32 tensor-core
+    design (``tools/flash_f32_3xtf32.cu``, measured beside the port's
+    CUDA-core kernel), emulated: every operand split into a TF32
+    big and small term; per k step of 8 the exact products added to fp32
+    accumulators rounded toward zero (a pessimistic model of mma.sync),
+    S's cross terms in one and big * big in another, added at the end; P
+    V's three products small * big, big * small, big * big in one per
+    8 keys; the softmax in fp32 and base 2 with p = 0 for masked pairs and
+    the division by l last.  (The kernel's online rescaling between key
+    tiles, an fp32 reordering, is left out.)"""
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    kf, vf = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    skv = kf.shape[2]
+    (qb, qs), (kb, ks), (vb, vs) = (_split_tf32(t) for t in (q, kf, vf))
+    sb = sx = torch.zeros((b, hq, sq, skv))
+    for c in range(0, d, 8):
+        dd = slice(c, c + 8)
+
+        def prod(x, y):
+            return torch.einsum("bhqd,bhkd->bhqk", x[..., dd].double(),
+                                y[..., dd].double())
+        sx = _rz(sx.double() + prod(qs, kb))
+        sx = _rz(sx.double() + prod(qb, ks))
+        sb = _rz(sb.double() + prod(qb, kb))
+    s = sb + sx
+    log2e = 1.4426950408889634
+    x = s * (log2e / math.sqrt(d))
+    if softcap is not None:
+        x = softcap * torch.tanh(s / math.sqrt(d) / softcap) * log2e
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(skv)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    x = torch.where(ok, x, R.NEG_INF)
+    m = x.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp2(x - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    pb, ps = _split_tf32(p)
+    o = torch.zeros((b, hq, sq, d))
+    for c in range(0, skv, 8):
+        kk = slice(c, c + 8)
+        for x1, y1 in ((ps, vb), (pb, vs), (pb, vb)):
+            o = _rz(o.double() + torch.einsum(
+                "bhqk,bhkd->bhqd", x1[..., kk].double(), y1[:, :, kk].double()))
+    return o / torch.where(l == 0, 1.0, l)
+
+
+@pytest.mark.parametrize("d,s,causal,window,softcap", [
+    (128, 64, True, None, None), (128, 64, True, 16, None),
+    (128, 64, True, None, 30.0), (16, 64, True, 9, 20.0),
+    (16, 40, False, None, None)])
+def test_flash_3xtf32_emulation_within_limit(d, s, causal, window, softcap):
+    """An emulation of the 3xTF32 design's arithmetic (``_flash_3xtf32``)
+    lies within ``ref.flash_attention_limit``, so a tensor-core fp32 route
+    need not be plain fp32 to pass it: causal,
+    windowed and softcapped at OPT's head dim 128 over 64 keys, and at D
+    16 (the worst share of the limit is printed; the one-term TF32 control
+    above lies beyond the same limit)."""
+    rng = np.random.default_rng(d + s + (window or 0))
+    b, hq, hkv = 2, 8, 4
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = R.flash_attention(q, k, v, **kw)
+    lim = R.flash_attention_limit(q, k, v, want, **kw)
+    worst = float(((_flash_3xtf32(q, k, v, **kw) - want).abs() / lim).max())
+    print(f"3xTF32 at D {d}: {worst:.3f} of the limit at worst")
+    assert worst < 1.0
 
 
 def _rms_faults(x, w, eps):

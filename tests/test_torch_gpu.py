@@ -134,7 +134,8 @@ def test_q8_matmul_kernel(cuda, m, k, n):
     (4, 4096, 1000), (4, 4097, 640), (4, 16384, 2560), (3, 200, 1001),
     (8, 4096, 10112), (2, 48, 24)])
 def test_q8_matmul_split_kernel(cuda, m, k, n):
-    """The streaming kernel (M <= 16; M = 17 the SGEMM) at decode widths, N
+    """The streaming kernel (M <= 16; M = 17 the tensor-core kernel) at
+    decode widths, N
     no multiple of the 64-column slab (1000; 1001 and 24 also not of 16,
     the byte-load path), K no multiple of the cluster's split (4097) and
     K = 16384 at N = 2560: within ``ref.q8_matmul_limit``, one launch, and
@@ -147,6 +148,41 @@ def test_q8_matmul_split_kernel(cuda, m, k, n):
                                .astype(np.float32))
     x, q, s = x.to(cuda), torch.from_numpy(q).to(cuda), \
         torch.from_numpy(s).to(cuda)
+    before = ops.launch_counts()["q8_matmul"]
+    got = ops.q8_matmul(x, q, s)
+    assert ops.launch_counts()["q8_matmul"] == before + 1
+    want = ref.q8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.q8_matmul_limit(x, q, s, want))
+    assert torch.equal(ops.q8_matmul(x, q, s), got)
+
+
+# cell 3's prefill shapes of q8_matmul (chunk rows x each (K, N) of the
+# q8 wire), then the tensor-core kernel's edges: M past one 32-row block,
+# K no multiple of 16 or 4, N no multiple of 8 or 16
+_Q8_PREFILL = [(m, k, n) for m in (18, 24, 28, 31, 32)
+               for k, n in ((4096, 2944), (4096, 11776), (16384, 2944))]
+
+
+@pytest.mark.parametrize("m,k,n,offset", [
+    *((m, k, n, 0) for m, k, n in _Q8_PREFILL),
+    (17, 4097, 1001, 0), (37, 4097, 1001, 0), (200, 4097, 1001, 0),
+    (512, 4097, 1001, 0), (20, 4096, 2944, 1), (33, 96, 130, 1)])
+def test_q8_matmul_tensor_core_kernel(cuda, m, k, n, offset):
+    """The three-term bf16 tensor-core kernel (M > 16) at every prefill
+    shape of cell 3 and at its edges, x starting ``offset`` floats past a
+    16-byte boundary where given (the 4-byte copy path): within
+    ``ref.q8_matmul_limit``, one launch, and the same bits from a second
+    call."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.q8_matmul import quantize_weights_np
+    rng = np.random.default_rng(m * 7 + k + n)
+    xs = rng.standard_normal(m * k + offset).astype(np.float32)
+    q, s = quantize_weights_np(rng.standard_normal((k, n))
+                               .astype(np.float32))
+    x = torch.from_numpy(xs).to(cuda)[offset:].view(m, k)
+    q, s = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
     before = ops.launch_counts()["q8_matmul"]
     got = ops.q8_matmul(x, q, s)
     assert ops.launch_counts()["q8_matmul"] == before + 1
@@ -364,6 +400,36 @@ def test_flash_attention_kernel(cuda, dtype, layout, hq, hkv, d, s, causal,
         kfull[:, :, s:] = float("nan")
         again = ops.flash_attention(q, k, v, **kw)
         torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+@pytest.mark.parametrize("b,hq,hkv,d,s", [(4, 32, 32, 128, 64),
+                                          (2, 4, 2, 20, 45),
+                                          (2, 4, 4, 18, 40)])
+def test_flash_attention_f32_kernel(cuda, layout, b, hq, hkv, d, s):
+    """The fp32 route at OPT-6.7B's prefill shape (3c, 3f) and at head dims
+    off the padded widths (20: zeros staged past D; 18: rows off 16-byte
+    alignment, 4-byte copies and scalar stores), causal, over the first s
+    positions of a longer cache: within ``ref.flash_attention_limit``, one
+    launch, the same bits from a second call, and the same bits again with
+    NaN at every position past s."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    t = s + 8
+    k, v, _, _ = _dense_cache(gen, b, hkv, t, d, torch.float32, layout, cuda)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda) \
+        .transpose(1, 2)
+    kv = k[:, :, :s], v[:, :, :s]
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, *kv)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention(q, *kv)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.flash_attention_limit(q, *kv, want))
+    assert torch.equal(ops.flash_attention(q, *kv), got)
+    k[:, :, s:] = float("nan")
+    v[:, :, s:] = float("nan")
+    assert torch.equal(ops.flash_attention(q, *kv), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

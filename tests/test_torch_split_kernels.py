@@ -1,11 +1,14 @@
 """The two kernels split across a thread-block cluster, on the CPU: the
-int8-weight matmul (``q8_matmul``) and flash-decode over a dense cache
-(``decode_attention``) under a bf16 q.  No card here, so these hold what
+int8-weight matmul (``q8_matmul``; its M > 16 kernel on bf16 tensor
+cores too) and flash-decode over a dense cache (``decode_attention``)
+under a bf16 q.  No card here, so these hold what
 surrounds the kernels: the plain versions against the JAX package's
 Pallas kernels in interpret mode at the group sizes and head dims the
 split kernel takes, the statistical limit ``ref.q8_matmul_limit`` (a
 blocked fp32 sum passes it; the plain version over x rounded to bf16 or
-kept to 16 significant bits does not), the wrappers' refusal of CPU
+kept to 16 significant bits does not), the tensor-core kernel's split
+of x into three bf16 terms (exact) and an emulation of its sums (within
+the limit, and beyond it with two terms), the wrappers' refusal of CPU
 tensors before anything touches CUDA, and the decode wrapper's refusal of
 a bf16 q at a shape the split kernel does not take.  Inputs come from
 numpy with a seed and go to both sides.
@@ -62,6 +65,124 @@ def test_q8_matmul_limit_passes_blocked_sums_and_rejects_short_x(m, k, n):
     assert float(((blocked - want).abs() / limit).max()) < 1.0
     for control in (x.to(torch.bfloat16).float(), _bits16(x), _split2(x)):
         assert _beyond(R.q8_matmul(control, q, s), want, limit) > 0
+
+
+def _trunc16(x):
+    """fp32 x truncated to bf16 (its top 16 bits), as an fp32 array."""
+    return (x.view(np.int32) & np.int32(-65536)).view(np.float32)
+
+
+def _split3(x):
+    """fp32 x as the M > 16 kernel of ``csrc/q8_matmul.cu`` splits it: hi,
+    x truncated to bf16; mid, the remainder truncated; lo, the rest."""
+    hi = _trunc16(x)
+    r = x - hi
+    mid = _trunc16(r)
+    return hi, mid, r - mid
+
+
+@pytest.mark.parametrize("kind", ["normal", "tiny", "huge"])
+def test_three_term_bf16_split_is_exact(kind):
+    """Each of the three terms is a bf16 value (its low 16 bits clear, and
+    unchanged by a round trip through bf16) and the three add up to x
+    exactly: for normal values over 40 decades, for tiny ones (2^-110 to
+    2^-100, where lo is often subnormal; below 2^-110 x has bits under
+    bf16's smallest subnormal, 2^-133) and for the largest ones, fp32's
+    maximum included (truncation never rounds up into infinity)."""
+    rng = np.random.default_rng(["normal", "tiny", "huge"].index(kind))
+    n = 1 << 14
+    sign = rng.choice([-1.0, 1.0], n)
+    if kind == "normal":
+        x = rng.standard_normal(n) * 10.0 ** rng.integers(-20, 20, n)
+    elif kind == "tiny":
+        x = sign * rng.uniform(1, 2, n) * 2.0 ** rng.integers(-110, -100, n)
+    else:
+        x = sign * rng.uniform(1, 2, n) * 2.0 ** rng.integers(120, 128, n)
+        x[:2] = (np.finfo(np.float32).max, -np.finfo(np.float32).max)
+    x = x.astype(np.float32)
+    terms = _split3(x)
+    for t in terms:
+        assert np.isfinite(t).all()
+        assert not (t.view(np.int32) & 0xFFFF).any()
+        back = torch.from_numpy(t).to(torch.bfloat16).float().numpy()
+        assert np.array_equal(back, t)
+    total = sum(t.astype(np.float64) for t in terms)
+    assert np.array_equal(total, x.astype(np.float64))
+    if kind == "tiny":
+        lo = terms[2]
+        assert ((lo != 0) & (np.abs(lo) < np.finfo(np.float32).tiny)).any()
+
+
+def _rz32(v):
+    """float64 -> float32, rounded toward zero."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _q8_tc_emulation(x, q, s, n_launch, terms=3, sms=132):
+    """y as the M > 16 kernel sums it, in numpy: K split over the cluster
+    size the launcher picks at N = ``n_launch`` on ``sms`` SMs, each
+    block's stages of 64 k rows shared by four warps of 16 rows; a warp's
+    k step adds the exact products of its 16 rows to an fp32 accumulator
+    rounded toward zero (a pessimistic model of mma.sync's fp32
+    accumulate), the hi terms in one accumulator and lo then mid in
+    another; every 8 steps (128 of its rows) the two go, added, into the
+    warp's fp32 total; the four warps' totals are added in order, then the
+    blocks' in rank order, and the column scale applied once.  ``terms``
+    2 drops lo: x kept to 16 significant bits."""
+    m, k = x.shape
+    hi, mid, lo = (t.astype(np.float64) for t in _split3(x))
+    if terms == 2:
+        lo = np.zeros_like(lo)
+    base = -(-n_launch // 64) * -(-m // (24 if m <= 24 else 32))
+    cs = 2 * sms // base
+    if cs < 2:
+        cs = -(-2 * sms // base)
+    cs = max(1, min(cs, 8, k // 256))
+    kper = -(-(-(-k // cs)) // 64) * 64
+    w = q.astype(np.float64)
+    zero = np.zeros((m, q.shape[1]), np.float32)
+    y = zero
+    for rank in range(cs):
+        kb = min(k, rank * kper)
+        ke = min(k, kb + kper)
+        part = zero
+        for ks in range(4):
+            tot, ah, am = zero, zero, zero
+            for i, k0 in enumerate(range(kb + 16 * ks, ke, 64)):
+                rows = slice(k0, min(k0 + 16, ke))
+                ah = _rz32(ah + hi[:, rows] @ w[rows])
+                am = _rz32(am + lo[:, rows] @ w[rows])
+                am = _rz32(am + mid[:, rows] @ w[rows])
+                if i % 8 == 7:
+                    tot, ah, am = tot + (ah + am), zero, zero
+            part = part + (tot + (ah + am))
+        y = y + part
+    return y * s
+
+
+@pytest.mark.parametrize("m", [18, 32])
+@pytest.mark.parametrize("k,n_launch", [(4096, 2944), (4096, 11776),
+                                        (16384, 2944)])
+def test_q8_tensor_core_emulation_within_limit(m, k, n_launch):
+    """An emulation of the M > 16 kernel's arithmetic (``_q8_tc_emulation``)
+    at cell 3's prefill rows and (K, N) cluster splits, over 48 of the
+    columns, lies within ``ref.q8_matmul_limit``; the same sum with x split
+    into two bf16 terms (16 significant bits) lies beyond it in some
+    elements (the shares are printed)."""
+    x, q, s = _q8_operands(m * 3 + k + n_launch, m, k, 48)
+    want = R.q8_matmul(*(torch.from_numpy(a) for a in (x, q, s)))
+    limit = R.q8_matmul_limit(*(torch.from_numpy(a) for a in (x, q, s)),
+                              want).numpy()
+    err = np.abs(_q8_tc_emulation(x, q, s, n_launch) - want.numpy())
+    worst = float((err / limit).max())
+    two = np.abs(_q8_tc_emulation(x, q, s, n_launch, terms=2)
+                 - want.numpy()) > limit
+    print(f"M {m}, K {k}: three terms {worst:.3f} of the limit at worst; "
+          f"two terms beyond it in {two.mean():.3f} of elements")
+    assert worst < 1.0
+    assert two.any()
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 256, 128), (16, 512, 64),

@@ -1,24 +1,30 @@
 """Compare builds of the port's kernels on one card, in one process: host
 time per call, device time per call, and whole runs of ``chip_smoke.py``'s
 cells with each build in turn.  The kernels: ``decode_attention`` and
-``q8_matmul`` at their decode shapes, bf16 ``flash_attention`` and
-``gated_matmul`` at 3b's prefill, ``paged_prefill_attention`` at 3e's
-prefill (bf16 and int8 pages), at cell 3's two chunk shapes and at the
-long-context shape (fp32 and int8 pages), and fp32 ``matmul`` at 3f's
-fc1 shapes.
+``q8_matmul`` at their decode shapes, ``q8_matmul`` at cell 3's prefill
+shapes (M 18 and 32), bf16 ``flash_attention`` and ``gated_matmul`` at
+3b's prefill, fp32 ``flash_attention`` at 3c's and 3f's prefill,
+``paged_prefill_attention`` at 3e's prefill (bf16 and int8 pages), at
+cell 3's two chunk shapes and at the long-context shape (fp32 and int8
+pages), and fp32 ``matmul`` at 3f's fc1 shapes.
 
     python tools/ab_kernels.py --other parent=.archive_check/parent \\
         [--other name=DIR ...] [--pairs 10] [--runs 3e,3f] \\
-        [--out FILE]
+        [--shapes q8,flash] [--out FILE]
 
 ``DIR`` is another checkout of the repo, such as a ``git archive`` of a
 commit unpacked in a gitignored directory.  Its sources are built with
 the port's nvcc flags beside the tree's, and every build is called through
 the tree's own wrappers: the wrapper's entry in ``build``'s table of C
 functions is swapped, so the argument layout is the wrapper's (the builds'
-C signatures must agree).
+C signatures must agree).  ``--variant NAME=LIB:FILE`` builds one source
+file (with ``csrc/`` on the include path) in place of library ``LIB`` and
+takes the tree's build for the others, for a design variant such as
+``tools/flash_f32_3xtf32.cu``; a shape whose call a build refuses is
+logged and left out for that build.
 
-Per kernel shape, builds in turns, forward then backward, ``--rounds``
+Per kernel shape (those whose name holds one of ``--shapes``' words, or
+all), builds in turns, forward then backward, ``--rounds``
 times (medians printed): ``wrapper_us``, the host's time to issue one
 wrapper call (100 calls back to back, timed before the device is waited
 for); ``entry_us``, the same for the C entry alone, called with one call's
@@ -105,6 +111,38 @@ def build_others(others) -> dict:
     return {n: fns for n, fns in builds.items() if n not in failed}
 
 
+def build_variants(variants, tree) -> dict:
+    """The builds of ``variants`` ({name: (LIB, FILE)}): FILE compiled as
+    library LIB into ``_build/ab/<name>`` (one nvcc each, all started
+    together), the tree's entries for every other library.  A build that
+    fails is logged and left out."""
+    procs = {}
+    for name, (lib, path) in variants.items():
+        out = build.BUILD_DIR / "ab" / name
+        out.mkdir(parents=True, exist_ok=True)
+        so = out / f"lib{lib}.so"
+        procs[name] = (lib, so, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
+             str(so), path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    builds = {}
+    for name, (lib, so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            cs.log(f"nvcc failed for {name}, build left out:\n{log}")
+            continue
+        dll = ctypes.CDLL(str(so))
+        fns = dict(tree)
+        for (elib, symbol), argtypes in ENTRIES.items():
+            if elib == lib:
+                c = getattr(dll, symbol)
+                c.argtypes = [ctypes.c_char_p]
+                c.restype = ctypes.c_int
+                fns[elib, symbol] = build.CFunction(c, symbol, argtypes)
+        builds[name] = fns
+    return builds
+
+
 def use(fns: dict) -> None:
     """Route the wrappers to one build's C functions."""
     for key in ENTRIES:
@@ -146,9 +184,10 @@ def host_us(fn) -> float:
 
 def shapes(gen):
     """(name, wrapper call) at 3b's decode shapes, phase 3's q8 decode
-    shapes, 3b's bf16 prefill shapes of flash attention and the gated
-    MLP, the paged prefill at 3e's shape and cell 3's, and fp32 fc1 at
-    3f's."""
+    shapes and its prefill shapes at M 18 and 32, 3b's bf16 prefill shapes
+    of flash attention and the gated MLP, fp32 flash attention at 3c's and
+    3f's prefill, the paged prefill at 3e's shape and cell 3's, and fp32
+    fc1 at 3f's."""
     cfg = cs.get_config("mistral-nemo-12b")
     b, t = 4, cs.ONESHOT_PROMPT + cs.ONESHOT_NEW
     kl = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
@@ -161,7 +200,10 @@ def shapes(gen):
         out.append((f"decode {str(kv_dt)[6:]} cache",
                     lambda q=q, k=k, v=v, ks=ks, vs=vs: k_dense.decode_attention(
                         q, k, v, kl, k_scale=ks, v_scale=vs)))
-    for m, k, n in ((4, 4096, 2560), (4, 4096, 10112), (4, 16384, 2560)):
+    for m, k, n in ((4, 4096, 2560), (4, 4096, 10112), (4, 16384, 2560),
+                    *((m, k, n) for m in (18, 32)
+                      for k, n in ((4096, 2944), (4096, 11776),
+                                   (16384, 2944)))):
         x = torch.randn((m, k), generator=gen, device="cuda")
         w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                           dtype=torch.int8)
@@ -176,6 +218,16 @@ def shapes(gen):
     out.append((f"flash bf16 S {s}",
                 lambda q=q, kv=kv: k_flash.flash_attention(q, kv, kv,
                                                           causal=True)))
+    opt = cs.get_config("opt-6.7b")
+    s = cs.OFFLOAD_PROMPT
+    t = s + cs.OFFLOAD_NEW
+    q = torch.randn((b, s, opt.n_heads, opt.hd), generator=gen,
+                    device="cuda").transpose(1, 2)
+    kv = torch.randn((b, t, opt.n_kv_heads, opt.hd), generator=gen,
+                     device="cuda").transpose(1, 2)[:, :, :s]
+    out.append((f"flash f32 S {s}",
+                lambda q=q, kv=kv: k_flash.flash_attention(q, kv, kv,
+                                                          causal=True)))
     x = torch.randn((b * s, cfg.d_model), generator=gen,
                     device="cuda").to(torch.bfloat16)
     wg, wu = (torch.randn((cfg.d_model, cfg.d_ff), generator=gen,
@@ -184,7 +236,6 @@ def shapes(gen):
     out.append((f"gated bf16 {b * s}x{cfg.d_model}x{cfg.d_ff}",
                 lambda x=x: k_mm.gated_matmul(x, wg, wu, activation="silu")))
     out += prefill_shapes(gen)
-    opt = cs.get_config("opt-6.7b")
     w = torch.randn((opt.d_model, opt.d_ff), generator=gen,
                     device="cuda") / opt.d_model ** 0.5
     bias = torch.randn(opt.d_ff, generator=gen, device="cuda")
@@ -225,21 +276,33 @@ def prefill_shapes(gen):
     return out
 
 
-def time_kernels(builds, rounds):
+def time_kernels(builds, rounds, words=None):
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
     for name, call in shapes(gen):
+        if words and not any(w in name for w in words):
+            continue
         got = {b: {"wrapper_us": [], "entry_us": [], "device_ms": []}
                for b in builds}
+        refused = set()
         for r in range(rounds):
             order = list(builds) if r % 2 == 0 else list(builds)[::-1]
             for b in order:
+                if b in refused:
+                    continue
                 use(builds[b])
-                entry = packed_call(call)
+                try:
+                    entry = packed_call(call)
+                except RuntimeError as e:
+                    cs.log(f"{name:28s} {b:10s} refused: {e}")
+                    refused.add(b)
+                    continue
                 got[b]["wrapper_us"].append(host_us(call))
                 got[b]["entry_us"].append(host_us(entry))
                 got[b]["device_ms"].append(cs.device_ms(call)[0])
         for b, d in got.items():
+            if b in refused:
+                continue
             row = {"shape": name, "build": b,
                    **{key: float(np.median(vals)) for key, vals in d.items()},
                    "all": d}
@@ -346,10 +409,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[],
                     help="name=DIR of another checkout (repeatable)")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=LIB:FILE, one source built in place of a "
+                         "library (repeatable)")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--runs", default="3e,3f",
                     help="cells to alternate, of 3b, 3e, 3f")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated words; time only the kernel "
+                         "shapes whose name holds one")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -362,7 +431,13 @@ def main(argv=None) -> int:
     builds = {"tree": {key: build.c_function(*key, argtypes)
                        for key, argtypes in ENTRIES.items()},
               **build_others(others)}
-    result = {"kernels": time_kernels(builds, args.rounds)}
+    variants = {}
+    for v in args.variant:
+        name, spec = v.split("=", 1)
+        variants[name] = tuple(spec.split(":", 1))
+    builds.update(build_variants(variants, builds["tree"]))
+    words = [w for w in args.shapes.split(",") if w]
+    result = {"kernels": time_kernels(builds, args.rounds, words)}
     first = next(iter(others), None)
     runs = set(args.runs.split(",")) if args.runs else set()
     if first in builds and args.pairs:
