@@ -6,8 +6,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every hand-written kernel from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, started together) and print the ``-Xptxas -v``
-   register / shared-memory summary;
+   ``nvcc`` per source, started together), print the ``-Xptxas -v``
+   register / shared-memory summary, and show with ``cuobjdump -sass``
+   that ``hete_matmul`` holds wgmma (``HGMMA``) and TMA loads
+   (``UTMALDG``);
 3. the first main path: OPT-6.7B at full width (d 4096, 32 heads, FFN 16384,
    vocab 50272, fp32; ``--layers`` of 32, random weights from a seed)
    served by ``LLM(paged=True, backend=HeteGenBackend(...))`` with
@@ -80,8 +82,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    bytes and FLOPs is larger); the paged kernels in fp32 at a long-context
    shape and at phase 3's two most frequent shapes of each run, and in
    bf16 at 3e's shapes, within the ``ref.paged_*_limit`` bounds (the fp32
-   prefill limit shown to reject q and k rounded to TF32; two prefill
-   calls must give the same bits); ``q8_matmul`` at every (M, K,
+   prefill limit shown to reject q and k rounded to TF32; two calls of
+   either kernel must give the same bits); ``q8_matmul`` at every (M, K,
    N) that phase 3's q8 run launched it (tallied there, each with its own
    launches), within ``ref.q8_matmul_limit`` (shown to reject the plain
    version over x rounded to bf16 and over x kept to 16 significant bits),
@@ -281,6 +283,20 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_sass():
+    """The built ``hete_matmul`` library holds wgmma (``HGMMA``) and TMA
+    loads (``UTMALDG``): the bf16 kernel above 48 rows is the Hopper one
+    (``cuobjdump -sass`` of the library, instruction counts logged)."""
+    cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(kbuild.target("hete_matmul"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    log(f"sass hete_matmul: {counts}")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          "hete_matmul was built without wgmma or TMA loads")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -457,7 +473,7 @@ def paged_entry(name, kind, gen, hq, hkv, d, b, s, ends, q8, dtype,
                 launches):
     """One paged kernel (``kind`` "prefill" or "decode") on random pages
     and q at B rows of S queries whose kv ends are ``ends``: within its
-    ``ref.paged_*_attention_limit``, the same bits from two calls (prefill),
+    ``ref.paged_*_attention_limit``, the same bits from two calls,
     the prefill limit shown to reject q and k rounded to TF32 (fp32
     pages); timed beside its plain version and the bound."""
     kp, vp, ks, vs, bt = paged_inputs(gen, b, hq, hkv, d, list(ends), q8,
@@ -485,9 +501,8 @@ def paged_entry(name, kind, gen, hq, hkv, d, b, s, ends, q8, dtype,
         source, replaces = "paged_decode_attention.cu", \
             "src/repro/kernels/paged_attention.py:160"
     got = kernel(q, kp, vp, bt, lens, **kw)
-    if kind == "prefill":
-        check(torch.equal(kernel(q, kp, vp, bt, lens, **kw), got),
-              f"{name}: two calls differ")
+    check(torch.equal(kernel(q, kp, vp, bt, lens, **kw), got),
+          f"{name}: two calls differ")
     want = plain(q, kp, vp, bt, lens, **kw)
     limit = limit_fn(q, kp, vp, bt, lens, want, **kw)
     if kind == "prefill" and dtype == torch.float32 and not q8:
@@ -1622,6 +1637,7 @@ def main() -> int:
                              if "registers" in line or "Compiling" in line)
         log(f"build {name}: {summary}")
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(logs)} kernels")
+    check_sass()
 
     full = get_config("opt-6.7b")
     check(1 <= args.layers <= full.n_layers, "bad --layers")

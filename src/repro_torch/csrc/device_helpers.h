@@ -1,6 +1,7 @@
 // Helpers shared by the kernels built for sm_90a: cp.async copies into
 // shared memory, the ldmatrix and mma.sync fragment ops of the bf16
-// tensor-core kernels, an exact int8 -> fp32 conversion, and the launch
+// tensor-core kernels (and the hi/lo bf16 split of an fp32 value), an
+// exact int8 -> fp32 conversion, and the launch
 // side's once-per-device setup.  build.target's digest covers this header,
 // so an edit here rebuilds every kernel.
 
@@ -65,6 +66,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// w as hi + lo, two bf16 each rounded to nearest: 16 significant bits of w
+__device__ __forceinline__ void split_bf16(float w0, float w1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(w0 - __low2float(h), w1 - __high2float(h));
 }
 
 // Four int8 values (little-endian in `w`) as exact fp32: each byte, biased

@@ -19,20 +19,36 @@
 //   67 TFLOP/s.  Decode (M = batch = 4) is bound by the weights' bytes: 294 MB
 //   of bf16 gate and up weights (0.088 ms at 3.35 TB/s), 268 MB of fp32 fc1.
 //
-// Design (a first kernel, right and simple; wgmma, TMA and split-K later):
-//   * bf16: tensor-core tiles, mma.sync m16n8k16 (bf16 in, fp32 accumulate).
-//     A block stages x's (BM x BK) tile and one (BK x BN) tile of each weight
-//     in shared memory through a ring of cp.async stages (rows padded by 16
+// Design:
+//   * bf16, M > 48: wgmma fed by TMA, one persistent block an SM.  Only
+//     wgmma reaches the card's full bf16 tensor-core rate, so each block
+//     runs three warpgroups: a producer (its registers cut to 40 by
+//     setmaxnreg) whose one thread issues the TMA loads, and two consumers
+//     (232 registers) that each own 64 rows x 128 columns of every
+//     weight's accumulator (gate and up: 128 fp32 registers a thread).  A
+//     stage holds x's 128 x 64 tile (K-major, the A operand) and each
+//     weight's 64 x 128 tile as two 64-column boxes (the weights lie
+//     (K, N) with N contiguous: an MN-major B, wgmma's transpose flag, no
+//     copy of the weights), all 128-byte swizzled by TMA; four stages of
+//     48 KB (six of 32 KB for one weight) with a full and an empty
+//     mbarrier each.  A consumer issues, per 16-deep k step, one
+//     m64n128k16 wgmma a weight, keeps one group in flight and releases a
+//     stage when its group retires.  Output tiles of 128 x 128 are walked
+//     with M fastest, so the blocks in flight share weight tiles through
+//     the 50 MB L2; a consumer's epilogue (bias or gate, activation, one
+//     cast, masked bf16x2 stores from registers) overlaps the producer's
+//     loads for the next tile.  TMA zero-fills rows past M and a K tail;
+//     a weight box wholly past N is not loaded, and columns past N are not
+//     stored.  x's tensor map carries its row stride, so a strided x is
+//     read in place.
+//   * bf16, M <= 48: tensor-core tiles on mma.sync m16n8k16 (bf16 in, fp32
+//     accumulate), 16 rows and 64 columns a block, so that N spreads over
+//     every SM (224 blocks at N = 14336) and each block keeps four 16 KB
+//     weight stages in flight through a cp.async ring (rows padded by 16
 //     bytes so ldmatrix is free of bank conflicts); each warp loads its A
-//     fragments with ldmatrix and its B fragments with ldmatrix.trans (the
-//     weights are K-major, N contiguous) and keeps its accumulators, one set
-//     per weight, in registers, where the epilogue runs.  Two
-//     configurations: 128-row tiles for prefill (K in 64-deep steps), and
-//     16-row tiles with 64 columns a block for decode (M <= 48), so that N
-//     spreads over every SM (224 blocks at N = 14336) and each block keeps
-//     three 16 KB weight stages in flight.  Blocks that share a weight tile run next to each
-//     other (the row tile is the grid's fastest index), so the weights come
-//     from device memory about once.
+//     fragments with ldmatrix and its B fragments with ldmatrix.trans and
+//     keeps its accumulators, one set per weight, in registers, where the
+//     epilogue runs.
 //   * fp32 (no TF32: the plain version's limits assume fp32 products): the
 //     CUDA cores.  M > 8 runs a pipelined SGEMM: a 128 x 256 output tile
 //     (128 x 128 a weight when gated), 8 x 16 a thread, 256 threads and
@@ -51,13 +67,15 @@
 //     16 columns, so N / 16 blocks (1024 at N = 16384) keep each SM holding
 //     several: 64-column blocks, and per-thread cp.async rings of 16 to 64
 //     columns, moved fewer bytes a second.  The partial sums
-//     meet by shuffles and in shared memory in a fixed order.  Neither
-//     kernel uses atomics: two calls give the same bits.
-//   Every load and store of x, the weights and y is 16 bytes wide, so K, N
-//   and x's row stride are multiples of 8 (bf16) or 4 (fp32) elements and
-//   the operands are 16-byte aligned; the entry points refuse anything else.
+//     meet by shuffles and in shared memory in a fixed order.
+//   No kernel splits K or uses atomics: two calls give the same bits.
+//   Every load and store of x, the weights and y is 16 bytes wide (TMA
+//   needs the same), so K, N and x's row stride are multiples of 8 (bf16)
+//   or 4 (fp32) elements and the operands are 16-byte aligned; the entry
+//   points refuse anything else.
 
 #include "device_helpers.h"
+#include "hopper_helpers.h"
 #include "launch_args.h"
 
 namespace {
@@ -84,7 +102,7 @@ __device__ __forceinline__ float apply_act(float y, int act) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core tiles
+// bf16, M <= 48: tensor-core tiles on mma.sync
 // ---------------------------------------------------------------------------
 
 template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_>
@@ -98,11 +116,7 @@ struct TcCfg {
   static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK % 16 == 0, "tile shape");
 };
 
-// Prefill: 64-deep K steps in three stages (32-deep steps in four stages
-// were slower at Mistral's gated shape: twice the barriers), two blocks an
-// SM.  Decode: 16 rows, 64 columns a block, four stages.
-using TcPrefill = TcCfg<128, 128, 64, 2, 4, 3>;       // 256 threads, warp 64 x 32
-using TcPrefillGated = TcCfg<128, 64, 64, 2, 2, 3>;   // 128 threads, warp 64 x 32 a weight
+// Decode: 16 rows, 64 columns a block, four stages.
 using TcDecode = TcCfg<16, 64, 64, 1, 4, 4>;          // 128 threads, warp 16 x 16
 
 template <class C, int NW>
@@ -255,6 +269,186 @@ int launch_tc(const void* x, long long lda, const void* w0, const void* w1, cons
       static_cast<const __nv_bfloat16*>(x), lda, static_cast<const __nv_bfloat16*>(w0),
       static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(bias),
       static_cast<__nv_bfloat16*>(y), m, n, k, act);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16, M > 48: wgmma fed by TMA, warp-specialized, persistent
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBM = 128;          // rows a tile, 64 a consumer warpgroup
+constexpr int kWgBN = 128;          // columns a tile, of each weight
+constexpr int kWgBK = 64;           // K a stage: one 128-byte swizzled row
+constexpr int kWgThreads = 384;     // consumer warpgroups 0 and 1, the producer 2
+constexpr int kWgBox = kWgBK * 64 * 2;  // one 64-column box of a weight's stage tile
+
+template <bool GATED>
+struct WgCfg {
+  static constexpr int NW = GATED ? 2 : 1;
+  static constexpr int A_BYTES = kWgBM * kWgBK * 2;     // x's tile, 16 KB
+  static constexpr int B_BYTES = 2 * kWgBox;            // a weight's tile, 16 KB
+  static constexpr int STAGE = A_BYTES + NW * B_BYTES;  // 48 KB gated, 32 KB not
+  static constexpr int STAGES = GATED ? 4 : 6;          // 192 KB of ring either way
+  // 1024 bytes to align the ring to the swizzle atom, the ring, and a
+  // full and an empty mbarrier a stage
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+};
+
+// See the notes at the top.  tx: x (M, K) in 128 x 64 boxes; tw0, tw1: the
+// weights (K, N) in 64 x 64 boxes (tw1 unused for one weight).
+template <bool GATED>
+__global__ void __launch_bounds__(kWgThreads, 1)
+wg_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw0,
+          const __grid_constant__ CUtensorMap tw1, const __nv_bfloat16* __restrict__ bias,
+          __nv_bfloat16* __restrict__ y, int m, int n, int k, int act) {
+  using C = WgCfg<GATED>;
+  constexpr int NW = C::NW;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* ring = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+
+  const int mt = (m + kWgBM - 1) / kWgBM;
+  const int tiles = mt * ((n + kWgBN - 1) / kWgBN);
+  const int ktiles = (k + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread walks the block's tiles and their stages
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const CUtensorMap* const tw[2] = {&tw0, &tw1};
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t % mt) * kWgBM, n0 = (t / mt) * kWgBN;
+        const int boxes = n0 + 64 < n ? 2 : 1;  // a box wholly past N is not loaded
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // both consumers are done with it
+          unsigned char* st = ring + stage * C::STAGE;
+          mbar_arrive_expect_tx(&full[stage], C::A_BYTES + NW * boxes * kWgBox);
+          tma_load_2d(st, &tx, kt * kWgBK, m0, &full[stage]);
+#pragma unroll
+          for (int g = 0; g < NW; ++g)
+            for (int h = 0; h < boxes; ++h)
+              tma_load_2d(st + C::A_BYTES + g * C::B_BYTES + h * kWgBox, tw[g], n0 + 64 * h,
+                          kt * kWgBK, &full[stage]);
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumer `wg`: rows 64 wg .. 64 wg + 63 of each tile
+    setmaxnreg_inc<232>();
+    const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
+    float acc[NW][64];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % mt) * kWgBM, n0 = (t / mt) * kWgBN;
+#pragma unroll
+      for (int g = 0; g < NW; ++g)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          acc[g][i] = 0.f;
+          reg_fence(acc[g][i]);
+        }
+      int prev = -1;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a = smem_u32(ring + stage * C::STAGE) + wg * 64 * 128;
+        const uint32_t b = smem_u32(ring + stage * C::STAGE + C::A_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {
+          const uint64_t da = wgmma_desc_k_major(a + kk * 32);
+#pragma unroll
+          for (int g = 0; g < NW; ++g)
+            wgmma_m64n128k16_bf16_bt(
+                acc[g], da, wgmma_desc_mn_major(b + g * C::B_BYTES + kk * 16 * 128, kWgBox));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the stage before's products have retired: release it
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int g = 0; g < NW; ++g)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) reg_fence(acc[g][i]);
+
+      // epilogue in registers: bias or gate and the activation in fp32,
+      // one cast (n is even, so a thread's two columns are both in range
+      // or both out)
+      const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+      const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = c0 + 8 * j;
+        if (col >= n) continue;
+        float b0 = 0.f, b1 = 0.f;
+        if (!GATED && bias != nullptr) {
+          b0 = __bfloat162float(bias[col]);
+          b1 = __bfloat162float(bias[col + 1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          if (row >= m) continue;
+          const int e = 4 * j + 2 * h;
+          float v0, v1;
+          if (GATED) {
+            v0 = apply_act(acc[0][e], act) * acc[NW - 1][e];
+            v1 = apply_act(acc[0][e + 1], act) * acc[NW - 1][e + 1];
+          } else {
+            v0 = apply_act(acc[0][e] + b0, act);
+            v1 = apply_act(acc[0][e + 1] + b1, act);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(y + (long long)row * n + col) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+template <bool GATED>
+int launch_wg(const void* x, long long lda, const void* w0, const void* w1, const void* bias,
+              void* y, int m, int n, int k, int act, cudaStream_t stream) {
+  using C = WgCfg<GATED>;
+  static std::atomic<int> sms[kMaxDevices];
+  int sm_count = 0;
+  int err = kernel_setup(wg_kernel<GATED>, C::SMEM, sms, sm_count);
+  if (err) return err;
+  CUtensorMap tx = {}, tw0 = {}, tw1 = {};
+  if (k > 0) {  // with K = 0 nothing is loaded
+    err = encode_bf16_2d(&tx, x, m, k, 2 * lda, kWgBM, kWgBK);
+    if (!err) err = encode_bf16_2d(&tw0, w0, k, n, 2ll * n, kWgBK, 64);
+    if (!err && GATED) err = encode_bf16_2d(&tw1, w1, k, n, 2ll * n, kWgBK, 64);
+    if (err) return err;
+  }
+  const int tiles = ((m + kWgBM - 1) / kWgBM) * ((n + kWgBN - 1) / kWgBN);
+  wg_kernel<GATED><<<min(sm_count, tiles), kWgThreads, C::SMEM, stream>>>(
+      tx, tw0, tw1, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), m,
+      n, k, act);
   return (int)cudaGetLastError();
 }
 
@@ -573,8 +767,8 @@ int dispatch(const void* x, long long lda, const void* w0, const void* w1, const
     return gated ? launch_tc<TcDecode, true>(x, lda, w0, w1, bias, y, m, n, k, act, s)
                  : launch_tc<TcDecode, false>(x, lda, w0, w1, bias, y, m, n, k, act, s);
   }
-  return gated ? launch_tc<TcPrefillGated, true>(x, lda, w0, w1, bias, y, m, n, k, act, s)
-               : launch_tc<TcPrefill, false>(x, lda, w0, w1, bias, y, m, n, k, act, s);
+  return gated ? launch_wg<true>(x, lda, w0, w1, bias, y, m, n, k, act, s)
+               : launch_wg<false>(x, lda, w0, w1, bias, y, m, n, k, act, s);
 }
 
 }  // namespace

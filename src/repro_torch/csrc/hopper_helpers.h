@@ -1,0 +1,219 @@
+// Hopper's own machinery for the kernels built for sm_90a, as inline PTX:
+// mbarriers (init, arrive, arrive with an expected transaction count, wait
+// on a phase's parity), the TMA 2-D tile load that completes on an
+// mbarrier, the wgmma shared-memory descriptors of 128-byte-swizzled
+// tiles and wgmma's fence / commit / wait, the async-proxy fence, and
+// setmaxnreg; on the host, the encoding of a 2-D bf16 tensor map.
+//
+// The host encoder looks cuTensorMapEncodeTiled up in libcuda once,
+// through the runtime's entry-point query, so no library links libcuda;
+// <cuda.h> is included for its types only.  build.target's digest covers
+// this header, so an edit here rebuilds every kernel.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "device_helpers.h"
+
+// ---------------------------------------------------------------------------
+// mbarriers
+// ---------------------------------------------------------------------------
+
+// One thread initialises; fence_barrier_init() and a block barrier must
+// follow before any other thread uses the barrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals)
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Arrives and adds `bytes` to the transactions the current phase waits for
+// (the TMA loads that complete on this barrier).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed.  A fresh barrier
+// is in phase 0, so a wait on parity 1 passes at once (the phase before
+// it counts as complete) and a wait on parity 0 waits for the first
+// completion.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// The box of `map` at element coordinates (c0 innermost, c1) into shared
+// memory at `dst`, its bytes completing transactions of `bar`.  `map` must
+// be a __grid_constant__ kernel parameter.  Elements outside the tensor
+// arrive as zeros and still count in the box's bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads
+// by the async proxy (wgmma, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled operand tile in shared memory (the
+// layout a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes; the tile's
+// swizzle atom of 8 rows x 128 bytes must start 1024-byte aligned, and a
+// start address moved inside the atom, as the k steps of a K-major tile
+// move it, keeps the pattern): start address, leading and stride byte
+// offsets in 16-byte units, layout type 1 (128B swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
+         ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);
+}
+// A K-major tile (K contiguous, 64 bf16 = 128 bytes a row): the next 8
+// rows lie 1024 bytes on; the leading offset is unused (a k16 step lies
+// inside one row).
+__device__ __forceinline__ uint64_t wgmma_desc_k_major(uint32_t smem_addr) {
+  return wgmma_desc(smem_addr, 16, 1024);
+}
+// An MN-major tile (MN contiguous): rows of 64 bf16 along MN, one per k;
+// the next 8 k rows lie 1024 bytes on, the next 64 elements of MN
+// `mn_stride_bytes` on (the next TMA box).
+__device__ __forceinline__ uint64_t wgmma_desc_mn_major(uint32_t smem_addr,
+                                                        uint32_t mn_stride_bytes) {
+  return wgmma_desc(smem_addr, mn_stride_bytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of this warpgroup's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins `r` in place for the compiler: an accumulator that a wgmma in
+// flight writes must not be read or moved across the wait.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d (64 x 128, fp32, the warpgroup's accumulator fragment) += a (64 x 16,
+// K-major) * b (16 x 128, MN-major: the instruction's transpose flag on B),
+// bf16 in, both from shared memory.  Thread t of the warpgroup holds rows
+// 16 (t / 32) + t % 32 / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1):
+// d[4 j + 0..1] the first row, d[4 j + 2..3] the second.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_bt(float (&d)[64], uint64_t a,
+                                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, 1, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b));
+}
+
+// Moves this warpgroup's register budget to N a thread (a multiple of 8
+// in [24, 256]).  Honoured only where the warpgroups' roles split in one
+// if/else at the top of the kernel and never meet again.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up on first use (null where it
+// is missing).
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D bf16 tensor map over `rows` rows of `cols` elements, `row_bytes`
+// apart (a multiple of 16; the base 16-byte aligned), cut in boxes of
+// box_rows x box_cols (box_cols * 2 = 128 bytes for the 128-byte swizzle),
+// out-of-range elements read as zeros.  Returns a cudaError_t.
+inline int encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                          uint64_t row_bytes, uint32_t box_rows, uint32_t box_cols) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}

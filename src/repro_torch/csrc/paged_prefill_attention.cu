@@ -180,13 +180,6 @@ struct TcCfg {
   static_assert(D % 16 == 0 && D <= 256, "head dim");
 };
 
-// w as hi + lo, two bf16 each rounded to nearest: 16 significant bits of w
-__device__ __forceinline__ void split_bf16(float w0, float w1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(w0 - __low2float(h), w1 - __high2float(h));
-}
-
 template <int D, bool Q8>
 __global__ void __launch_bounds__(kThreads, TcCfg<D, Q8>::MIN_BLOCKS)
 paged_tc_kernel(Args a) {

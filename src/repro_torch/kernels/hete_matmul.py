@@ -4,10 +4,12 @@
 :func:`matmul` computes ``act(x @ w + bias)`` and :func:`gated_matmul`
 ``act(x @ w_gate) * (x @ w_up)`` in one pass over x, each summing in fp32
 and rounding once to x's dtype, as the Pallas kernels do.  fp32 runs on
-the CUDA cores (no TF32), bf16 on the tensor cores.  Any M; K, N and x's
-row stride in multiples of 16 bytes (8 bf16 or 4 fp32 elements), and
+the CUDA cores (no TF32), bf16 on the tensor cores: above 48 rows a
+persistent wgmma kernel fed by TMA, at decode mma.sync.  Any M; K, N and
+x's row stride in multiples of 16 bytes (8 bf16 or 4 fp32 elements), and
 16-byte aligned operands, as every model width is: the kernels load and
-store 16 bytes at a time, and the wrappers refuse other operands.  The
+store 16 bytes at a time (TMA needs the same), and the wrappers refuse
+other operands.  The
 plain versions are :func:`repro_torch.kernels.ref.matmul` and
 :func:`repro_torch.kernels.ref.gated_matmul`.
 """

@@ -6,7 +6,11 @@ One query token per (batch, q-head) attends over the pages named by
 :mod:`repro_torch.serving.kv_cache` mints them, in the model dtype (fp32
 or bf16, with a q of that dtype).  With ``k_scale`` / ``v_scale``
 (n_pages, Hkv, page_size) the pages are int8 and are dequantized in fp32
-inside the kernel, under a q of either dtype.  The plain version is
+inside the kernel, under a q of either dtype.  A bf16 q runs a split-KV
+kernel with one thread-block cluster per (batch, kv-head) at the head dims
+``BF16_HEAD_DIMS`` with 16-byte aligned rows (any other bf16 shape is
+refused, as in the dense decode); an fp32 q a kernel with one block per
+(batch, q-head).  The plain version is
 :func:`repro_torch.kernels.ref.paged_decode_attention`.
 """
 
@@ -19,7 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import DTYPE_CODES
+from repro_torch.kernels.decode_attention import (DTYPE_CODES,
+                                                  check_bf16_operands)
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
@@ -75,14 +80,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
                            softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, D) fp32 or bf16; pages (P, Hkv, ps, D) of q's dtype, or
-    int8 with fp32 scales; block_tables (B, nb) int32; kv_len (B,) int32
+    """q (B, Hq, D) fp32 or bf16 (D in ``BF16_HEAD_DIMS``, 16-byte aligned
+    rows); pages (P, Hkv, ps, D) of q's dtype, or int8 with fp32 scales;
+    block_tables (B, nb) int32; kv_len (B,) int32
     -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current
     stream; every call counts in ``paged_decode_attention.launches``."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, Hq, D), got {tuple(q.shape)}")
     check_operands(q, k_pages, v_pages, block_tables, kv_len, k_scale,
                    v_scale)
+    if q.dtype == torch.bfloat16:
+        check_bf16_operands(q, k_pages, v_pages)
     b, hq, d = q.shape
     _, hkv, ps, _ = k_pages.shape
     out = torch.empty_like(q)

@@ -17,6 +17,10 @@ limits q and k rounded to TF32 (while an emulation of 3xTF32 products,
 a tensor-core design measured for the fp32 route, stays within the
 flash limit), and the RMSNorm bit check
 (``ref.unequal_share``) three faults that stay within one bf16 step.
+The bf16 gated MLP above 48 rows runs on wgmma: an emulation of its
+order of sums (16-deep k steps into fp32 accumulators, one cast) lies
+within ``ref.gated_matmul_limit`` of the plain version and of the Pallas
+kernel.
 """
 import math
 
@@ -27,6 +31,7 @@ import torch
 
 from repro.kernels import decode_attention as jdec
 from repro.kernels import flash_attention as jfa
+from repro.kernels import hete_matmul as jhm
 from repro.kernels import rmsnorm as jrn
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
@@ -468,3 +473,72 @@ def test_rmsnorm_bit_check_rejects_faults(variant, sound):
     share = R.unequal_share(got, want)
     print(f"{variant}: {share:.2e} of elements not bit-equal")
     assert (share <= R.RMSNORM_UNEQUAL_MAX) == sound
+
+
+# ---------------------------------------------------------------------------
+# gated_matmul above 48 rows: the wgmma kernel's order of sums
+# ---------------------------------------------------------------------------
+
+
+_ACTS = [None, "relu", "relu2", "gelu", "silu"]
+
+
+def _rz32_t(v):
+    """float64 tensor -> float32, rounded toward zero."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _gated_wgmma_emulation(x, wg, wu, activation):
+    """act(x @ wg) * (x @ wu) as the M > 48 kernel of
+    ``csrc/hete_matmul.cu`` sums it: each weight's fp32 accumulator takes
+    the exact products of one 16-deep k step at a time, in order through
+    the 64-deep stages (a K tail is zeros), each addition rounded toward
+    zero (a pessimistic model of wgmma's fp32 accumulate); the activation
+    and the gate in fp32; one cast to x's dtype."""
+    xd, gd, ud = x.double(), wg.double(), wu.double()
+    g = torch.zeros((x.shape[0], wg.shape[1]))
+    u = torch.zeros_like(g)
+    for k0 in range(0, x.shape[1], 16):
+        s = slice(k0, k0 + 16)
+        g = _rz32_t(g.double() + xd[:, s] @ gd[s])
+        u = _rz32_t(u.double() + xd[:, s] @ ud[s])
+    return (R._act(g, activation) * u).to(x.dtype)
+
+
+@pytest.mark.parametrize("act", _ACTS)
+@pytest.mark.parametrize("m,k,n", [(130, 1000, 136), (64, 5120, 64)])
+def test_gated_wgmma_emulation_within_limit(m, k, n, act):
+    """bf16 operands at the model's scale (x ~ N(0, 1), weights ~ N(0,
+    1/K)), K 5120 (Mistral-NeMo-12B's width) and a K that is no multiple
+    of 64: the emulated order of the wgmma kernel's sums and its one cast
+    lie within ``ref.gated_matmul_limit`` of the plain version."""
+    rng = np.random.default_rng(m + k + n)
+    x = _t(rng.standard_normal((m, k)).astype(np.float32), torch.bfloat16)
+    wg, wu = (_t((rng.standard_normal((k, n)) / math.sqrt(k)).astype(
+        np.float32), torch.bfloat16) for _ in range(2))
+    got = _gated_wgmma_emulation(x, wg, wu, act)
+    want = R.gated_matmul(x, wg, wu, activation=act)
+    limit = R.gated_matmul_limit(x, wg, wu, want, activation=act)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+@pytest.mark.parametrize("act", _ACTS)
+def test_gated_wgmma_emulation_matches_pallas(act):
+    """fp32 operands (this CPU's XLA has no bf16 x bf16 -> fp32 dot): the
+    emulated sums lie within ``ref.gated_matmul_limit`` of the JAX
+    package's Pallas ``gated_matmul`` in interpret mode."""
+    rng = np.random.default_rng(5)
+    m, k, n = 128, 256, 256
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    wg, wu = ((rng.standard_normal((k, n)) / math.sqrt(k)).astype(np.float32)
+              for _ in range(2))
+    want = torch.from_numpy(np.array(jhm.gated_matmul(
+        jnp.asarray(x), jnp.asarray(wg), jnp.asarray(wu), activation=act,
+        interpret=True)))
+    got = _gated_wgmma_emulation(_t(x), _t(wg), _t(wu), act)
+    limit = R.gated_matmul_limit(_t(x), _t(wg), _t(wu), want, activation=act)
+    err = (got - want).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())

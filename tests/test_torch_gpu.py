@@ -871,3 +871,128 @@ def test_opt_resident_on_card_matches_cpu(cuda):
     n = ops.launch_counts()
     assert got.tokens == want.tokens
     assert n["matmul"] == cfg.n_layers * 6 and n["gated_matmul"] == 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 gated_matmul (and matmul) above 48 rows: the wgmma kernel
+# ---------------------------------------------------------------------------
+
+def _bf16_operands(gen, m, k, n, pad, dev, weights=2):
+    """x (M, K) as a view into rows of K + pad elements (a strided x where
+    pad > 0) and weights (K, N) at the model's scale, all bf16."""
+    x = torch.randn((m, k + pad), generator=gen, device=dev) \
+        .to(torch.bfloat16)[:, :k]
+    ws = [(torch.randn((k, n), generator=gen, device=dev) / k ** 0.5)
+          .to(torch.bfloat16) for _ in range(weights)]
+    return x, ws
+
+
+@pytest.mark.parametrize("k,n,pad", [(5120, 14336, 0), (1000, 3000, 24)])
+@pytest.mark.parametrize("m", [49, 130, 500, 512, 2048])
+def test_gated_matmul_wgmma_kernel(cuda, m, k, n, pad):
+    """bf16 ``gated_matmul`` above 48 rows (the persistent wgmma kernel)
+    at Mistral-NeMo-12B's widths and at a K that is no multiple of 64, an N
+    that is no multiple of 128 and a strided x: within
+    ``ref.gated_matmul_limit``, one launch, and the same bits from a second
+    call."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x, (wg, wu) = _bf16_operands(gen, m, k, n, pad, cuda)
+    before = ops.launch_counts()["gated_matmul"]
+    got = ops.gated_matmul(x, wg, wu, activation="silu")
+    want = ref.gated_matmul(x, wg, wu, activation="silu")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gated_matmul"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _assert_within(got, want, ref.gated_matmul_limit(x, wg, wu, want,
+                                                     activation="silu"))
+    assert torch.equal(ops.gated_matmul(x, wg, wu, activation="silu"), got)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("act", MM_ACTS)
+def test_matmul_bf16_wgmma_kernel(cuda, act, bias):
+    """bf16 ``matmul`` above 48 rows shares the wgmma kernel with one
+    weight and the bias epilogue: every activation, with and without bias,
+    a strided x, K and N off the tile sizes, within ``ref.matmul_limit``
+    and the same bits from a second call."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(17 + bias)
+    x, (w,) = _bf16_operands(gen, 130, 1000, 3000, 8, cuda, weights=1)
+    b = torch.randn(3000, generator=gen, device=cuda).to(torch.bfloat16) \
+        if bias else None
+    got = ops.matmul(x, w, b, activation=act)
+    want = ref.matmul(x, w, b, activation=act)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.matmul_limit(x, w, want, b, activation=act))
+    assert torch.equal(ops.matmul(x, w, b, activation=act), got)
+
+
+# ---------------------------------------------------------------------------
+# bf16-q paged decode: the split-KV cluster kernel over block tables
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("ps", [8, 16, 32, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_paged_decode_bf16_split_kernel(cuda, group, ps, q8):
+    """A bf16 q over bf16 or int8 pages (the split-KV cluster kernel) at GQA
+    groups 1-32 (32: two clusters a kv-head), page sizes 8-128, kv_len 1,
+    37, a page boundary and 3001 in one batch, with a softcap at every
+    other group: within ``ref.paged_decode_attention_limit``, one launch,
+    the same bits from a second call, and the same bits again with NaN in
+    the pages (or, over int8 pages, the scales) wholly past kv_len and in
+    the trash page."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(group * 1000 + ps + q8)
+    hkv = 1 if group == 32 else 2
+    hq, d = group * hkv, 128
+    lens = [1, 37, 2 * ps, 3001]
+    b, nb = len(lens), -(-3001 // ps) + 1
+    kp, vp, ks, vs, bt = _pool(gen, b, hkv, nb, ps, d, q8, cuda)
+    if not q8:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).bfloat16()
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs,
+              softcap=30.0 if group in (2, 8, 32) else None)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    want = ref.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    limit = ref.paged_decode_attention_limit(q, kp, vp, bt, ln, want, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_within(got, want, limit)
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, bt, ln, **kw),
+                       got)
+    poison = (ks, vs) if q8 else (kp, vp)
+    for i in range(b):
+        dead = bt[i, -(-lens[i] // ps):].long()
+        for t in poison:
+            t[dead] = float("nan")
+    for t in poison:
+        t[0] = float("nan")
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, bt, ln, **kw),
+                       got)
+
+
+@pytest.mark.parametrize("d", [48, 96])
+def test_paged_decode_bf16_refuses_head_dims(cuda, d):
+    """A bf16 q at a head dim outside ``BF16_HEAD_DIMS`` raises
+    ``ValueError`` before any launch, over bf16 and int8 pages alike."""
+    from repro_torch.kernels import paged_attention
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    kp, vp, _, _, bt = _pool(gen, 2, 2, 2, 16, d, False, cuda)
+    q = torch.zeros((2, 4, d), dtype=torch.bfloat16, device=cuda)
+    ones = torch.ones(2, dtype=torch.int32, device=cuda)
+    before = paged_attention.paged_decode_attention.launches
+    with pytest.raises(ValueError):
+        paged_attention.paged_decode_attention(q, kp.bfloat16(),
+                                               vp.bfloat16(), bt, ones)
+    scales = torch.ones(kp.shape[:3], device=cuda)
+    with pytest.raises(ValueError):
+        paged_attention.paged_decode_attention(
+            q, kp.to(torch.int8), vp.to(torch.int8), bt, ones,
+            k_scale=scales, v_scale=scales)
+    assert paged_attention.paged_decode_attention.launches == before

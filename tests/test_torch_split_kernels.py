@@ -10,15 +10,25 @@ kept to 16 significant bits does not), the tensor-core kernel's split
 of x into three bf16 terms (exact) and an emulation of its sums (within
 the limit, and beyond it with two terms), the wrappers' refusal of CPU
 tensors before anything touches CUDA, and the decode wrapper's refusal of
-a bf16 q at a shape the split kernel does not take.  Inputs come from
-numpy with a seed and go to both sides.
+a bf16 q at a shape the split kernel does not take.  The paged decode
+under a bf16 q runs the same split kernel over block tables: an
+emulation of its arithmetic (key ranges per cluster rank, 64-key tiles
+gathered over any page size, the base-2 online softmax, p rounded to bf16
+over bf16 pages, K's scale on the score and p * V's scale as hi and lo
+bf16 terms over int8 pages, the warps' and ranks' merges) lies within
+``ref.paged_decode_attention_limit`` of the plain version and of the
+Pallas kernel, and the same with one bf16 term over int8 pages does not.
+Inputs come from numpy with a seed and go to both sides.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import decode_attention as jdec
+from repro.kernels import paged_attention as jpa
 from repro.kernels import q8_matmul as jq8
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.q8_matmul import quantize_weights_np
@@ -323,3 +333,280 @@ def test_decode_refuses_bf16_shapes_off_the_split_kernel(case, ok):
     else:
         with pytest.raises(ValueError):
             check_bf16_operands(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# paged decode under a bf16 q: the split-KV cluster kernel over page tables
+# ---------------------------------------------------------------------------
+
+
+_LOG2E = 1.4426950408889634
+_NEG = -1.0e30
+
+
+def _bf(x):
+    """fp32 ``x`` rounded to bf16 and back."""
+    return x.to(torch.bfloat16).float()
+
+
+def _cluster_size(b, hq, hkv, capacity, sms=132):
+    """The cluster size ``split_decode::launch`` picks: about one block an
+    SM over b * hkv * groups clusters, at most 8, a 64-key tile a block."""
+    rows = b * hkv * -(-(hq // hkv) // 16)
+    return max(1, min(8, -(-sms // rows), max(1, -(-capacity // 64))))
+
+
+def _merge(states):
+    """(m, l, o) states merged in order, as the kernel merges warps and
+    then ranks: weights exp2(m - max), 0 where l is 0."""
+    mm = torch.stack([m for m, _, _ in states]).max(0).values
+    ll = torch.zeros_like(mm)
+    oo = torch.zeros_like(states[0][2])
+    for m, l, o in states:
+        f = torch.where(l == 0, torch.zeros_like(m), torch.exp2(m - mm))
+        ll = ll + l * f
+        oo = oo + o * f[:, None]
+    return mm, ll, oo
+
+
+def _paged_split_emulation(q, kp, vp, bt, lens, ks=None, vs=None,
+                           softcap=None, cs=None, single_term=False):
+    """The bf16-q paged decode as ``csrc/split_decode.h`` computes it, in
+    torch on the CPU: per (batch, kv-head, group of 16 q-heads) a cluster
+    of ``cs`` blocks (the launcher's choice by default) takes contiguous
+    key ranges (a share of kv_len rounded up to 16); each block walks
+    64-key tiles gathered through the block table (any page size), its
+    four warps 16 keys each, with an fp32 online softmax in base 2 per
+    tile; over bf16 pages p is rounded to bf16 before P V, over int8 pages
+    the values are exact, K's scale multiplies the score in fp32 and p *
+    V's scale is split into hi and lo bf16 terms (``single_term``: hi
+    only, the control); l sums the unrounded p; the warps merge in warp
+    order, the ranks in rank order; a row with no valid key gives 0."""
+    b, hq, d = q.shape
+    hkv, ps = kp.shape[1], kp.shape[2]
+    nb = bt.shape[1]
+    group = hq // hkv
+    if cs is None:
+        cs = _cluster_size(b, hq, hkv, nb * ps)
+    scale = 1.0 / math.sqrt(d)
+    q8 = ks is not None
+    out = torch.zeros((b, hq, d))
+    for bi in range(b):
+        n = max(0, min(int(lens[bi]), nb * ps))
+        chunk = ((n + cs - 1) // cs + 15) // 16 * 16
+        for kvh in range(hkv):
+            for h0 in range(kvh * group, (kvh + 1) * group, 16):
+                gn = min(16, (kvh + 1) * group - h0)
+                qf = q[bi, h0:h0 + gn].float()
+                ranks = []
+                for rank in range(cs):
+                    t_lo = min(n, rank * chunk)
+                    t_hi = min(n, t_lo + chunk)
+                    warps = [(torch.full((gn,), _NEG), torch.zeros(gn),
+                              torch.zeros((gn, d))) for _ in range(4)]
+                    for j0 in range(t_lo, t_hi, 64):
+                        for w in range(4):
+                            w0 = j0 + 16 * w
+                            if w0 >= t_hi:
+                                continue
+                            t = torch.arange(w0, w0 + 16)
+                            ok = t < t_hi
+                            tc = torch.where(ok, t, 0)
+                            page = bt[bi, tc // ps].long()
+                            row = tc % ps
+                            kk = torch.where(ok[:, None],
+                                             kp[page, kvh, row].float(), 0.0)
+                            vv = torch.where(ok[:, None],
+                                             vp[page, kvh, row].float(), 0.0)
+                            raw = qf @ kk.T
+                            if q8:
+                                raw = raw * torch.where(
+                                    ok, ks[page, kvh, row], 0.0)[None, :]
+                            if softcap:
+                                x = softcap * torch.tanh(raw * scale
+                                                         / softcap) * _LOG2E
+                            else:
+                                x = raw * (scale * _LOG2E)
+                            x = torch.where(ok[None, :], x, _NEG)
+                            m, l, o = warps[w]
+                            mx = torch.maximum(m, x.max(1).values)
+                            alpha = torch.exp2(m - mx)
+                            p = torch.where(x == _NEG, 0.0,
+                                            torch.exp2(x - mx[:, None]))
+                            l = l * alpha + p.sum(1)
+                            if q8:
+                                pv = p * torch.where(
+                                    ok, vs[page, kvh, row], 0.0)[None, :]
+                                hi = _bf(pv)
+                                pa = hi if single_term else hi + _bf(pv - hi)
+                            else:
+                                pa = _bf(p)
+                            warps[w] = (mx, l, o * alpha[:, None] + pa @ vv)
+                    ranks.append(_merge(warps))
+                _, ll, oo = _merge(ranks)
+                out[bi, h0:h0 + gn] = torch.where(
+                    ll[:, None] == 0, 0.0, oo / torch.where(
+                        ll == 0, 1.0, ll)[:, None])
+    return out.to(torch.bfloat16)
+
+
+def _paged_pool(rng, b, hkv, nb, ps, d, q8):
+    """bf16-valued (or int8) pages shuffled over the pool, page 0 the trash
+    page, and the block tables, as numpy arrays."""
+    n_pages = 1 + b * nb
+    shape = (n_pages, hkv, ps, d)
+    if q8:
+        kp = rng.integers(-127, 128, shape).astype(np.int8)
+        vp = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.0, 0.02, shape[:3]).astype(np.float32)
+        vs = rng.uniform(0.0, 0.02, shape[:3]).astype(np.float32)
+    else:
+        kp = _bf(torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))).numpy()
+        vp = _bf(torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))).numpy()
+        ks = vs = None
+    bt = rng.permutation(np.arange(1, n_pages)).reshape(b, nb).astype(
+        np.int32)
+    return kp, vp, ks, vs, bt
+
+
+def _paged_torch(q, kp, vp, ks, vs, bt, lens, q8):
+    """The numpy operands as the kernel's torch operands: bf16 q and pages
+    (int8 pages as they are), fp32 scales, int32 tables and lengths."""
+    t = torch.from_numpy
+    pages = (t(kp), t(vp)) if q8 else (t(kp).to(torch.bfloat16),
+                                       t(vp).to(torch.bfloat16))
+    return (t(q).to(torch.bfloat16), *pages,
+            None if ks is None else t(ks), None if vs is None else t(vs),
+            t(bt), t(lens))
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("ps,cs", [(8, 1), (16, 3), (32, 5), (128, 8),
+                                   (16, 8)])
+def test_paged_split_emulation_within_limit(ps, cs, q8):
+    """The bf16-q paged decode's arithmetic (``_paged_split_emulation``)
+    at page sizes 8-128 and cluster sizes 1-8, over a GQA group of 4 and a
+    group of 32 (two clusters a kv-head), rows of kv_len 1, 37, a page
+    boundary and one past a 64-key tile (so some ranks are empty), lies
+    within ``ref.paged_decode_attention_limit`` of the plain version; a
+    row of kv_len 0 gives zeros."""
+    rng = np.random.default_rng(ps * 10 + cs + 100 * q8)
+    d = 64
+    lens = np.asarray([1, 37, 2 * ps, 0, 129], np.int32)
+    b = len(lens)
+    nb = -(-int(lens.max()) // ps) + 1
+    for hq, hkv in ((8, 2), (32, 1)):
+        kp, vp, ks, vs, bt = _paged_pool(rng, b, hkv, nb, ps, d, q8)
+        qn = rng.standard_normal((b, hq, d)).astype(np.float32)
+        q, kpt, vpt, kst, vst, btt, lt = _paged_torch(qn, kp, vp, ks, vs, bt,
+                                                     lens, q8)
+        kw = dict(k_scale=kst, v_scale=vst)
+        got = _paged_split_emulation(q, kpt, vpt, btt, lt, kst, vst, cs=cs)
+        want = R.paged_decode_attention(q, kpt, vpt, btt, lt, **kw)
+        limit = R.paged_decode_attention_limit(q, kpt, vpt, btt, lt, want,
+                                               **kw)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= limit).all()), float((err / limit).max())
+        assert not bool(got[3].float().abs().any())
+
+
+@pytest.mark.parametrize("q8,softcap", [(False, None), (True, None),
+                                        (False, 30.0), (True, 20.0)])
+def test_paged_split_emulation_matches_pallas(q8, softcap):
+    """At fp32 inputs that bf16 holds exactly (the same values on both
+    sides: this CPU's XLA has no bf16 x bf16 -> fp32 dot), the emulation
+    of the bf16-q paged decode at the launcher's own cluster size lies
+    within ``ref.paged_decode_attention_limit`` of the JAX package's
+    Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(7 + 2 * q8 + (softcap is not None))
+    b, hq, hkv, d, ps, nb = 3, 8, 2, 32, 8, 5
+    kp, vp, ks, vs, bt = _paged_pool(rng, b, hkv, nb, ps, d, q8)
+    qn = _bf(torch.from_numpy(rng.standard_normal((b, hq, d)).astype(
+        np.float32))).numpy()
+    lens = np.asarray([1, 19, nb * ps], np.int32)
+    want = jpa.paged_decode_attention(
+        jnp.asarray(qn), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lens), k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), softcap=softcap,
+        interpret=True)
+    q, kpt, vpt, kst, vst, btt, lt = _paged_torch(qn, kp, vp, ks, vs, bt,
+                                                 lens, q8)
+    got = _paged_split_emulation(q, kpt, vpt, btt, lt, kst, vst,
+                                 softcap=softcap)
+    want = torch.from_numpy(np.array(want)).to(torch.bfloat16)
+    limit = R.paged_decode_attention_limit(q, kpt, vpt, btt, lt, want,
+                                           k_scale=kst, v_scale=vst,
+                                           softcap=softcap)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def test_paged_split_single_term_control_beyond_limit():
+    """Over int8 pages the kernel keeps the fp32 rule by splitting p *
+    scale_v into two bf16 terms: the same emulation with one bf16 term
+    lies beyond ``ref.paged_decode_attention_limit`` in some elements,
+    while the two-term sum stays within it (the shares are printed)."""
+    rng = np.random.default_rng(11)
+    b, hq, hkv, d, ps, nb = 4, 16, 2, 128, 16, 4
+    kp, vp, ks, vs, bt = _paged_pool(rng, b, hkv, nb, ps, d, True)
+    qn = rng.standard_normal((b, hq, d)).astype(np.float32)
+    lens = np.asarray([3, 9, 17, 40], np.int32)
+    q, kpt, vpt, kst, vst, btt, lt = _paged_torch(qn, kp, vp, ks, vs, bt,
+                                                 lens, True)
+    kw = dict(k_scale=kst, v_scale=vst)
+    want = R.paged_decode_attention(q, kpt, vpt, btt, lt, **kw)
+    limit = R.paged_decode_attention_limit(q, kpt, vpt, btt, lt, want, **kw)
+    two = _paged_split_emulation(q, kpt, vpt, btt, lt, kst, vst)
+    one = _paged_split_emulation(q, kpt, vpt, btt, lt, kst, vst,
+                                 single_term=True)
+    print(f"two terms: {float(((two.float() - want.float()).abs() / limit).max()):.3f} "
+          f"of the limit at worst; one term beyond it in "
+          f"{_beyond(one, want, limit):.4f} of elements")
+    assert _beyond(two, want, limit) == 0
+    assert _beyond(one, want, limit) > 0
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("bf16 d 128", True), ("int8 d 64", True), ("bf16 d 16", True),
+    ("d 48", False), ("d 96", False), ("q off 16 bytes", False)])
+def test_paged_decode_refuses_bf16_shapes_off_the_split_kernel(case, ok):
+    """A bf16 q in ``paged_decode_attention`` has one kernel, the split
+    one, and applies the dense decode's rule: head dims in
+    ``BF16_HEAD_DIMS``, every base pointer and stride but the last a
+    multiple of 16 bytes; anything else is refused with ``ValueError``."""
+    from repro_torch.kernels.decode_attention import check_bf16_operands
+    b, hq, hkv, ps, n_pages = 2, 8, 2, 16, 5
+    d = {"d 48": 48, "d 96": 96, "int8 d 64": 64, "bf16 d 16": 16}.get(
+        case, 128)
+    kv_dt = torch.int8 if case.startswith("int8") else torch.bfloat16
+    q = torch.zeros((b, hq, d), dtype=torch.bfloat16)
+    if case == "q off 16 bytes":
+        q = _padded((b, hq, d), torch.bfloat16, 8, offset=4)
+    pages = torch.zeros((n_pages, hkv, ps, d), dtype=kv_dt)
+    if ok:
+        check_bf16_operands(q, pages, pages)
+    else:
+        with pytest.raises(ValueError):
+            check_bf16_operands(q, pages, pages)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_paged_decode_wrapper_refuses_cpu_tensors_first(monkeypatch, q8):
+    """A bf16 q over bf16 or int8 pages on the CPU is refused with
+    ``ValueError`` before any CUDA call."""
+    from repro_torch.kernels import paged_attention
+    _no_cuda(monkeypatch)
+    b, hq, hkv, ps, d = 2, 32, 8, 16, 128
+    q = torch.zeros((b, hq, d), dtype=torch.bfloat16)
+    pages = torch.zeros((5, hkv, ps, d),
+                        dtype=torch.int8 if q8 else torch.bfloat16)
+    kw = {}
+    if q8:
+        kw = dict(k_scale=torch.ones((5, hkv, ps)),
+                  v_scale=torch.ones((5, hkv, ps)))
+    with pytest.raises(ValueError):
+        paged_attention.paged_decode_attention(
+            q, pages, pages, torch.ones((b, 2), dtype=torch.int32),
+            torch.full((b,), 20, dtype=torch.int32), **kw)

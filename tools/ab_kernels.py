@@ -2,8 +2,10 @@
 time per call, device time per call, and whole runs of ``chip_smoke.py``'s
 cells with each build in turn.  The kernels: ``decode_attention`` and
 ``q8_matmul`` at their decode shapes, ``q8_matmul`` at cell 3's prefill
-shapes (M 18 and 32), bf16 ``flash_attention`` and ``gated_matmul`` at
-3b's prefill, fp32 ``flash_attention`` at 3c's and 3f's prefill,
+shapes (M 18 and 32), bf16 ``flash_attention`` at 3b's prefill,
+``gated_matmul`` at 3b's and 3e's prefill (2048, 500 and 512 rows),
+``paged_decode_attention`` under a bf16 q at 3e's decode (bf16 and int8
+pages), fp32 ``flash_attention`` at 3c's and 3f's prefill,
 ``paged_prefill_attention`` at 3e's prefill (bf16 and int8 pages), at
 cell 3's two chunk shapes and at the long-context shape (fp32 and int8
 pages), and fp32 ``matmul`` at 3f's fc1 shapes.
@@ -32,7 +34,7 @@ packed arguments; ``device_ms``, 20 calls in a CUDA graph
 (``chip_smoke.device_ms``).  Then ``--pairs`` pairs of each run in
 ``--runs``, the first ``--other`` build against the tree's in alternating
 order (other, tree; tree, other; ...): 3b, Mistral-NeMo-12B's resident
-one-shot over a bf16 and an int8 cache (decode tok/s); 3e, the same
+one-shot over a bf16 and an int8 cache (prefill s, decode tok/s); 3e, the same
 weights through the paged batcher over bf16 and int8 pages (tok/s of the
 whole run); 3f, OPT-6.7B resident in fp32 (prefill s and decode tok/s).
 Prints a line per reading and a JSON line of them all.
@@ -61,6 +63,7 @@ from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.kernels import hete_matmul as k_mm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as k_paged  # noqa: E402
 from repro_torch.kernels import paged_prefill as k_prefill  # noqa: E402
 from repro_torch.kernels import q8_matmul as k_q8  # noqa: E402
 
@@ -71,7 +74,9 @@ ENTRIES = {("decode_attention", "decode_attention"): k_dense._ARGTYPES,
            ("hete_matmul", "hete_gated_matmul"): k_mm._ARGTYPES,
            ("hete_matmul", "hete_matmul"): k_mm._ARGTYPES,
            ("paged_prefill_attention", "paged_prefill_attention"):
-               k_prefill._ARGTYPES}
+               k_prefill._ARGTYPES,
+           ("paged_decode_attention", "paged_decode_attention"):
+               k_paged._ARGTYPES}
 LIBRARIES = sorted({lib for lib, _ in ENTRIES})
 CALLS = 100
 
@@ -184,10 +189,10 @@ def host_us(fn) -> float:
 
 def shapes(gen):
     """(name, wrapper call) at 3b's decode shapes, phase 3's q8 decode
-    shapes and its prefill shapes at M 18 and 32, 3b's bf16 prefill shapes
-    of flash attention and the gated MLP, fp32 flash attention at 3c's and
-    3f's prefill, the paged prefill at 3e's shape and cell 3's, and fp32
-    fc1 at 3f's."""
+    shapes and its prefill shapes at M 18 and 32, 3b's bf16 prefill shape
+    of flash attention, the gated MLP at 3b's and 3e's prefill, fp32 flash
+    attention at 3c's and 3f's prefill, the paged decode at 3e's, the
+    paged prefill at 3e's shape and cell 3's, and fp32 fc1 at 3f's."""
     cfg = cs.get_config("mistral-nemo-12b")
     b, t = 4, cs.ONESHOT_PROMPT + cs.ONESHOT_NEW
     kl = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
@@ -228,13 +233,16 @@ def shapes(gen):
     out.append((f"flash f32 S {s}",
                 lambda q=q, kv=kv: k_flash.flash_attention(q, kv, kv,
                                                           causal=True)))
-    x = torch.randn((b * s, cfg.d_model), generator=gen,
+    x = torch.randn((b * cs.ONESHOT_PROMPT, cfg.d_model), generator=gen,
                     device="cuda").to(torch.bfloat16)
     wg, wu = (torch.randn((cfg.d_model, cfg.d_ff), generator=gen,
                           device="cuda").mul(0.02).to(torch.bfloat16)
               for _ in range(2))
-    out.append((f"gated bf16 {b * s}x{cfg.d_model}x{cfg.d_ff}",
-                lambda x=x: k_mm.gated_matmul(x, wg, wu, activation="silu")))
+    for m in (len(x), cs.PAGED_PROMPTS[0], cs.PAGED_PROMPTS[-1]):
+        out.append((f"gated bf16 {m}x{cfg.d_model}x{cfg.d_ff}",
+                    lambda x=x[:m]: k_mm.gated_matmul(x, wg, wu,
+                                                      activation="silu")))
+    out += paged_decode_shapes(gen)
     out += prefill_shapes(gen)
     w = torch.randn((opt.d_model, opt.d_ff), generator=gen,
                     device="cuda") / opt.d_model ** 0.5
@@ -243,6 +251,27 @@ def shapes(gen):
         x = torch.randn((m, opt.d_model), generator=gen, device="cuda")
         out.append((f"matmul f32 {m}x{opt.d_model}x{opt.d_ff}",
                     lambda x=x: k_mm.matmul(x, w, bias, activation="relu")))
+    return out
+
+
+def paged_decode_shapes(gen):
+    """``paged_decode_attention`` under a bf16 q at 3e's last decode step
+    (B 4, Mistral's heads, kv_len 507-519, page 16) over bf16 and int8
+    pages."""
+    cfg = cs.get_config("mistral-nemo-12b")
+    lens = [n + cs.PAGED_NEW - 1 for n in cs.PAGED_PROMPTS]
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = []
+    for q8 in (False, True):
+        kp, vp, ks, vs, bt = cs.paged_inputs(
+            gen, len(lens), cfg.n_heads, cfg.n_kv_heads, cfg.hd, lens, q8,
+            torch.bfloat16)
+        q = torch.randn((len(lens), cfg.n_heads, cfg.hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out.append((f"paged decode 3e {'int8' if q8 else 'bf16'} pages",
+                    lambda q=q, kp=kp, vp=vp, bt=bt, ks=ks, vs=vs:
+                    k_paged.paged_decode_attention(q, kp, vp, bt, kl,
+                                                   k_scale=ks, v_scale=vs)))
     return out
 
 
@@ -353,7 +382,8 @@ def mistral_pairs(builds, other, pairs, runs):
                 ops.reset_launch_counts()
                 llm.generate(prompts, max_new=cs.ONESHOT_NEW)
                 m = llm.last_metrics
-                return {"decode_tok_s": m["tokens_per_s"],
+                return {"prefill_s": m["prefill_s"],
+                        "decode_tok_s": m["tokens_per_s"],
                         "decode_s": m["decode_s"],
                         "decode_attention_launches":
                             ops.launch_counts()["decode_attention"]}
@@ -371,7 +401,9 @@ def mistral_pairs(builds, other, pairs, runs):
                 return {"tok_s": sum(len(o.tokens) for o in outs) / wall,
                         "wall_s": wall,
                         "paged_prefill_launches":
-                            ops.launch_counts()["paged_prefill_attention"]}
+                            ops.launch_counts()["paged_prefill_attention"],
+                        "paged_decode_launches":
+                            ops.launch_counts()["paged_decode_attention"]}
 
         if "3b" in runs:
             out += _alternate(builds, other, pairs, f"3b {kv} cache", oneshot)
