@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``nvcc`` per source, started together), print the ``-Xptxas -v``
    register / shared-memory summary, and show with ``cuobjdump -sass``
    that ``hete_matmul`` holds wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``);
+   (``UTMALDG``), and ``ssd_chunk`` tensor-core products (``HMMA``);
 3. the first main path: OPT-6.7B at full width (d 4096, 32 heads, FFN 16384,
    vocab 50272, fp32; ``--layers`` of 32, random weights from a seed)
    served by ``LLM(paged=True, backend=HeteGenBackend(...))`` with
@@ -108,7 +108,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    shapes, the SSD kernel also at the reduced model's,
    held element by element within ``ref.ssd_chunk_limit`` (shown to
    reject a y that drops each row's own term and, in every row of a
-   chunk, a y rounded to bf16 and a y over a bf16 G); no single PyTorch
+   chunk, a y rounded to bf16 and a y over a bf16 G; two calls must give
+   the same bits); no single PyTorch
    call computes it, so it has no library time; the reduced shape is
    logged and left out of the ``kernels`` line;
 4d. ``matmul`` at 3f's shapes (fp32, bias, ReLU) and ``gated_matmul`` at
@@ -285,16 +286,24 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
 
 def check_sass():
     """The built ``hete_matmul`` library holds wgmma (``HGMMA``) and TMA
-    loads (``UTMALDG``): the bf16 kernel above 48 rows is the Hopper one
-    (``cuobjdump -sass`` of the library, instruction counts logged)."""
+    loads (``UTMALDG``): the bf16 kernel above 48 rows is the Hopper one;
+    the ``ssd_chunk`` library holds tensor-core products (``HMMA``): its
+    bf16 route (``cuobjdump -sass`` of each library, instruction counts
+    logged)."""
     cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(kbuild.target("hete_matmul"))],
-                          capture_output=True, text=True, check=True).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
-    log(f"sass hete_matmul: {counts}")
-    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+    counts = {}
+    for lib in ("hete_matmul", "ssd_chunk"):
+        sass = subprocess.run([cuobjdump, "-sass", str(kbuild.target(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[lib] = {op: sass.count(op)
+                       for op in ("HGMMA", "UTMALDG", "HMMA")}
+        log(f"sass {lib}: {counts[lib]}")
+    check(counts["hete_matmul"]["HGMMA"] > 0
+          and counts["hete_matmul"]["UTMALDG"] > 0,
           "hete_matmul was built without wgmma or TMA loads")
+    check(counts["ssd_chunk"]["HMMA"] > 0 or counts["ssd_chunk"]["HGMMA"] > 0,
+          "ssd_chunk was built without tensor-core products")
 
 
 # ---------------------------------------------------------------------------
@@ -1411,13 +1420,17 @@ def rejects_every_row(bad, want, limit, chunk, what):
 
 
 def ssd_entry(name, cfg, bs, ln, dtype, launches, gen):
-    """One shape of the SSD kernel: each output within its per-element
-    limit, the y limit shown to reject dropping each row's own term and,
+    """One shape of the SSD kernel: the same bits from two calls, each
+    output within its per-element limit, the y limit shown to reject
+    dropping each row's own term and,
     in every row, a y rounded to bf16 and a y over a bf16 G; timed beside
     the plain version and the bound."""
     chunk = cfg.ssm_chunk
     x, dt, a, b, c, bc = ssd_inputs(gen, bs, ln, cfg, dtype)
     got = k_ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    check(all(torch.equal(u, v) for u, v in
+              zip(k_ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk), got)),
+          f"{name}: two calls differ")
     want = ref.ssd_chunk(x, dt, a, b, c, chunk=chunk)
     limits = ref.ssd_chunk_limit(x, dt, a, b, c, got[2], chunk=chunk)
     diag = torch.einsum("blhn,blhn->blh", c.float(), b.float())[..., None] \

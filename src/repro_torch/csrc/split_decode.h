@@ -27,6 +27,12 @@
 // contributes l = 0, which the merge weights by 0 (it never forms
 // exp(-inf - -inf)), and a row with no valid key writes 0.  No atomics:
 // two calls give the same bits.
+//
+// The cluster's parts do not depend on bf16 and serve the fp32-q paged
+// decode too (csrc/paged_decode_attention.cu), whose tile step runs on
+// the CUDA cores: the block's place and key range (block_of, range_of),
+// the warps' and the ranks' merges (merge_warps, merge_ranks) and the
+// launch (launch_clusters).
 
 #pragma once
 
@@ -96,16 +102,100 @@ struct Block {
   int b, kvh, h0, gn;
 };
 
-__device__ __forceinline__ Block block_of(int hq, int hkv) {
+__device__ __forceinline__ Block block_of(int hq, int hkv, int rows = kRows) {
   const int cs = (int)cg::this_cluster().num_blocks();
   const int bk = blockIdx.x / cs;
   const int group = hq / hkv;
   Block blk;
   blk.b = bk / hkv;
   blk.kvh = bk % hkv;
-  blk.h0 = blk.kvh * group + blockIdx.y * kRows;
-  blk.gn = min(kRows, group - (int)blockIdx.y * kRows);
+  blk.h0 = blk.kvh * group + blockIdx.y * rows;
+  blk.gn = min(rows, group - (int)blockIdx.y * rows);
   return blk;
+}
+
+// This block's contiguous share [lo, hi) of a row's `len` tokens: the
+// cluster's ranks split them in shares rounded up to 16.
+struct Range {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Range range_of(int len) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int chunk = ((len + cs - 1) / cs + 15) / 16 * 16;
+  Range r;
+  r.lo = min(len, (int)cluster.block_rank() * chunk);
+  r.hi = min(len, r.lo + chunk);
+  return r;
+}
+
+// The warps' (m, l, O) states in shared memory, wm / wl [kWarps][rows]
+// and wo [kWarps][rows][os] (rows < gn, columns < d, m in base 2), merged
+// in warp order into the block's pm / pl [rows] and po [rows][d]; a warp
+// with l = 0 weighs 0 (it never forms exp(-inf - -inf)).
+__device__ __forceinline__ void merge_warps(const float* wm, const float* wl, const float* wo,
+                                            int rows, int os, int d, int gn, float* pm,
+                                            float* pl, float* po) {
+  for (int i = threadIdx.x; i < gn * d; i += kThreads) {
+    const int row = i / d, c = i % d;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, wm[w * rows + row]);
+    float ll = 0.f, oo = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = wl[w * rows + row];
+      const float f = lw == 0.f ? 0.f : exp2f(wm[w * rows + row] - mm);
+      ll += lw * f;
+      oo += wo[(w * rows + row) * os + c] * f;
+    }
+    po[row * d + c] = oo;
+    if (c == 0) {
+      pm[row] = mm;
+      pl[row] = ll;
+    }
+  }
+}
+
+// The cluster's blocks merge their (pm, pl, po) in rank order through
+// distributed shared memory, each finishing every cs-th group of the
+// outputs: store(row, c, o / l), 0 for a row with no valid key.
+template <class Store>
+__device__ __forceinline__ void merge_ranks(float* pm, float* pl, float* po, int d, int gn,
+                                            Store store) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  for (int i = rank * kThreads + (int)threadIdx.x; i < gn * d; i += cs * kThreads) {
+    const int row = i / d, c = i % d;
+    // every rank's (m, l, o) read at once, so the remote loads overlap
+    float rm[kMaxCluster], rl[kMaxCluster], ro[kMaxCluster];
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j) {
+      if (j < cs) {
+        rm[j] = cluster.map_shared_rank(pm, j)[row];
+        rl[j] = cluster.map_shared_rank(pl, j)[row];
+        ro[j] = cluster.map_shared_rank(po, j)[row * d + c];
+      }
+    }
+    float mm = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j)
+      if (j < cs) mm = fmaxf(mm, rm[j]);
+    float ll = 0.f, oo = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j) {
+      if (j < cs) {
+        const float f = rl[j] == 0.f ? 0.f : exp2f(rm[j] - mm);
+        ll += rl[j] * f;
+        oo += ro[j] * f;
+      }
+    }
+    store(row, c, ll == 0.f ? 0.f : oo / ll);
+  }
+  cluster.sync();  // no block leaves while another reads its state
 }
 
 // One block's share of the decode: q rows qg + r * q_sh and output rows
@@ -126,15 +216,12 @@ __device__ __forceinline__ void run(const bf16* __restrict__ qg, long long q_sh,
   unsigned char* work = smem_raw + C::QBYTES;                   // stages (+ buffers) / merge
   float* part = reinterpret_cast<float*>(work + C::MERGE);      // m[16], l[16], O[16][D]
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
 
   // this block's tokens: a contiguous share of the row's len
-  const int chunk = ((len + cs - 1) / cs + 15) / 16 * 16;
-  const int t_lo = min(len, rank * chunk), t_hi = min(len, t_lo + chunk);
+  const Range range = range_of(len);
+  const int t_lo = range.lo, t_hi = range.hi;
   const int n_tiles = (t_hi - t_lo + kTile - 1) / kTile;
 
   for (int i = tid; i < kRows * CPR; i += kThreads) {
@@ -376,79 +463,31 @@ __device__ __forceinline__ void run(const bf16* __restrict__ qg, long long q_sh,
   float* pm = part;                // [16]
   float* pls = part + kRows;       // [16]
   float* po = part + 2 * kRows;    // [16][D]
-  for (int i = tid; i < gn * D; i += kThreads) {
-    const int row = i / D, c = i % D;
-    float mm = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, wm[w * kRows + row]);
-    float ll = 0.f, oo = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float lw = wl[w * kRows + row];
-      const float f = lw == 0.f ? 0.f : exp2f(wm[w * kRows + row] - mm);
-      ll += lw * f;
-      oo += wo[(w * kRows + row) * C::OS + c] * f;
-    }
-    po[row * D + c] = oo;
-    if (c == 0) {
-      pm[row] = mm;
-      pls[row] = ll;
-    }
-  }
-
-  // the cluster's blocks merge in rank order, each finishing every cs-th
-  // group of the outputs
-  cluster.sync();
-  for (int i = rank * kThreads + tid; i < gn * D; i += cs * kThreads) {
-    const int row = i / D, c = i % D;
-    // every rank's (m, l, o) read at once, so the remote loads overlap
-    float rm[kMaxCluster], rl[kMaxCluster], ro[kMaxCluster];
-#pragma unroll
-    for (int j = 0; j < kMaxCluster; ++j) {
-      if (j < cs) {
-        rm[j] = cluster.map_shared_rank(pm, j)[row];
-        rl[j] = cluster.map_shared_rank(pls, j)[row];
-        ro[j] = cluster.map_shared_rank(po, j)[row * D + c];
-      }
-    }
-    float mm = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kMaxCluster; ++j)
-      if (j < cs) mm = fmaxf(mm, rm[j]);
-    float ll = 0.f, oo = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxCluster; ++j) {
-      if (j < cs) {
-        const float f = rl[j] == 0.f ? 0.f : exp2f(rm[j] - mm);
-        ll += rl[j] * f;
-        oo += ro[j] * f;
-      }
-    }
-    og[row * o_sh + c] = __float2bfloat16(ll == 0.f ? 0.f : oo / ll);
-  }
-  cluster.sync();  // no block leaves while another reads its state
+  merge_warps(wm, wl, wo, kRows, C::OS, D, gn, pm, pls, po);
+  merge_ranks(pm, pls, po, D, gn,
+              [&](int row, int c, float v) { og[row * o_sh + c] = __float2bfloat16(v); });
 }
 
-// Launches `kernel` (whose body is run<D, RULE>) with one cluster of 1-8
-// blocks per (batch, kv-head, group of up to 16 q-heads): as many as give
-// the grid about kBlocksPerSm blocks an SM, and no more than `t_max` keys
-// fill a tile each.  Returns a cudaError_t.
-template <int D, int RULE, typename... P, typename... A>
-int launch(void (*kernel)(P...), std::atomic<int> (&sms)[kMaxDevices], int b, int hq, int hkv,
-           int t_max, cudaStream_t stream, A... args) {
-  using C = Cfg<D, RULE>;
+// Launches `kernel` with one cluster of 1-8 blocks of kThreads threads and
+// `smem` bytes per (batch, kv-head, group of up to `rows` q-heads): as
+// many as give the grid about kBlocksPerSm blocks an SM, and no more than
+// `t_max` keys fill a tile of `tile` keys each.  Returns a cudaError_t.
+template <typename... P, typename... A>
+int launch_clusters(void (*kernel)(P...), std::atomic<int> (&sms)[kMaxDevices], int smem,
+                    int rows, int tile, int b, int hq, int hkv, int t_max,
+                    cudaStream_t stream, A... args) {
   int sm_count = 0;
-  const int err = kernel_setup(kernel, C::SMEM, sms, sm_count);
+  const int err = kernel_setup(kernel, smem, sms, sm_count);
   if (err) return err;
-  const int groups = (hq / hkv + kRows - 1) / kRows;
-  const int rows = b * hkv * groups;
-  const int want = (kBlocksPerSm * sm_count + rows - 1) / rows;
-  const int most = max(1, (t_max + kTile - 1) / kTile);  // a tile a block at least
+  const int groups = (hq / hkv + rows - 1) / rows;
+  const int clusters = b * hkv * groups;
+  const int want = (kBlocksPerSm * sm_count + clusters - 1) / clusters;
+  const int most = max(1, (t_max + tile - 1) / tile);  // a tile a block at least
   const int cs = max(1, min(kMaxCluster, min(want, most)));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(b * hkv * cs, groups);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -460,6 +499,14 @@ int launch(void (*kernel)(P...), std::atomic<int> (&sms)[kMaxDevices], int b, in
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// run<D, RULE>'s launch: a cluster per (batch, kv-head, group of kRows).
+template <int D, int RULE, typename... P, typename... A>
+int launch(void (*kernel)(P...), std::atomic<int> (&sms)[kMaxDevices], int b, int hq, int hkv,
+           int t_max, cudaStream_t stream, A... args) {
+  return launch_clusters(kernel, sms, Cfg<D, RULE>::SMEM, kRows, kTile, b, hq, hkv, t_max,
+                         stream, args...);
 }
 
 }  // namespace split_decode

@@ -9,8 +9,9 @@ or bf16, with a q of that dtype).  With ``k_scale`` / ``v_scale``
 inside the kernel, under a q of either dtype.  A bf16 q runs a split-KV
 kernel with one thread-block cluster per (batch, kv-head) at the head dims
 ``BF16_HEAD_DIMS`` with 16-byte aligned rows (any other bf16 shape is
-refused, as in the dense decode); an fp32 q a kernel with one block per
-(batch, q-head).  The plain version is
+refused, as in the dense decode); an fp32 q the same cluster layout on the
+CUDA cores, at head dims in multiples of 4 (16 over int8 pages) up to 256
+(:func:`check_operands`).  The plain version is
 :func:`repro_torch.kernels.ref.paged_decode_attention`.
 """
 
@@ -36,7 +37,9 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 def check_operands(q, k_pages, v_pages, block_tables, lens, k_scale,
                    v_scale) -> None:
-    """Raise on anything the paged attention kernels do not take."""
+    """Raise on anything the paged attention kernels do not take.  An fp32
+    q moves 16-byte chunks: head dims in multiples of 4 (16 over int8
+    pages) up to 256, q and the pages 16-byte aligned."""
     tensors = [q, k_pages, v_pages, block_tables, lens]
     if k_scale is not None or v_scale is not None:
         if k_scale is None or v_scale is None:
@@ -68,6 +71,13 @@ def check_operands(q, k_pages, v_pages, block_tables, lens, k_scale,
         raise ValueError(f"head dim {d} must match the pages and be <= 256")
     if hq % hkv:
         raise ValueError(f"{hq} q-heads are not a multiple of {hkv} kv-heads")
+    if q.dtype == torch.float32:
+        lanes = 16 if k_scale is not None else 4
+        if d % lanes:
+            raise ValueError(f"an fp32 q takes head dims in multiples of "
+                             f"{lanes} over {k_pages.dtype} pages, got {d}")
+        if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+            raise ValueError("q and the pages must be 16-byte aligned")
     b = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != b \
             or lens.shape != (b,):
@@ -80,11 +90,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
                            softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, D) fp32 or bf16 (D in ``BF16_HEAD_DIMS``, 16-byte aligned
-    rows); pages (P, Hkv, ps, D) of q's dtype, or int8 with fp32 scales;
-    block_tables (B, nb) int32; kv_len (B,) int32
-    -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current
-    stream; every call counts in ``paged_decode_attention.launches``."""
+    """q (B, Hq, D) fp32 (D a multiple of 4, of 16 over int8 pages) or
+    bf16 (D in ``BF16_HEAD_DIMS``), 16-byte aligned; pages (P, Hkv, ps,
+    D) of q's dtype, or int8 with fp32 scales; block_tables (B, nb)
+    int32; kv_len (B,) int32 -> (B, Hq, D) in q's dtype.  Launches the
+    CUDA kernel on the current stream; every call counts in
+    ``paged_decode_attention.launches``."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, Hq, D), got {tuple(q.shape)}")
     check_operands(q, k_pages, v_pages, block_tables, kv_len, k_scale,

@@ -53,13 +53,6 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _, hkv, ps, _ = k_pages.shape
     if q.dtype == torch.bfloat16:
         check_bf16_operands(q, k_pages, v_pages)
-    else:
-        lanes = 16 if k_scale is not None else 4
-        if d % lanes:
-            raise ValueError(f"an fp32 q takes head dims in multiples of "
-                             f"{lanes} over {k_pages.dtype} pages, got {d}")
-        if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
-            raise ValueError("q and the pages must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     out = torch.empty_like(q)

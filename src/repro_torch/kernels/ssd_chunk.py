@@ -5,7 +5,9 @@ Per (batch, head, chunk) cell: the inclusive cumsum of ``dt * a``, the
 chunk's own output ``y_intra`` and its state contribution ``state_c``
 (the inter-chunk carry stays in :func:`repro_torch.models.ssm.ssd_chunked`).
 x and b/c are read through (batch, position, head) strides, so b/c may be
-stride-0 expands of (B, L, G, N) over the heads.  The plain version is
+stride-0 expands of (B, L, G, N) over the heads (then the bf16 kernel
+computes C B^T once for a run of heads).  bf16 runs on the tensor cores,
+fp32 on the CUDA cores.  The plain version is
 :func:`repro_torch.kernels.ref.ssd_chunk`.
 """
 
@@ -20,7 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (DTYPE_CODES, check_device,
                                                   check_rows)
 
-MAX_DIM = 128          # chunk, P and N: the kernel's register tiles
+MAX_DIM = 128          # chunk, P and N: the kernels' tiles
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p, _LL, _LL, _LL] * 2 + [ctypes.c_void_p]
              + [ctypes.c_void_p, _LL, _LL, _LL] * 2

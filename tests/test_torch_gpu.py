@@ -996,3 +996,131 @@ def test_paged_decode_bf16_refuses_head_dims(cuda, d):
             q, kp.to(torch.int8), vp.to(torch.int8), bt, ones,
             k_scale=scales, v_scale=scales)
     assert paged_attention.paged_decode_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# bf16 ssd_chunk on the tensor cores; fp32-q paged decode split over a
+# cluster
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["one group, 80 heads", "two groups",
+                                  "p24 n40", "b/c off 16 bytes"])
+def test_ssd_chunk_bf16_tensor_cores(cuda, case):
+    """The bf16 route: one group over 80 heads (one S for a run of heads,
+    runs of 3 with a last run of 2), two groups (S per head), P 24 / N 40
+    at chunk 64, and b/c views 2 bytes off 16-byte alignment (element
+    loads): y, state_c and cum within ``ref.ssd_chunk_limit``, one launch,
+    and the same bits from a second call."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.ssm import heads_of_groups
+    bs, nc, chunk, h, p, n, groups, off = {
+        "one group, 80 heads": (2, 2, 128, 80, 64, 128, 1, 0),
+        "two groups": (2, 2, 128, 8, 64, 128, 2, 0),
+        "p24 n40": (2, 3, 64, 6, 24, 40, 1, 0),
+        "b/c off 16 bytes": (1, 2, 128, 4, 64, 128, 1, 1)}[case]
+    gen = torch.Generator(device=cuda).manual_seed(24 + h + p)
+    ln = nc * chunk
+    x = torch.randn((bs, ln, h, p), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bs, ln, h), generator=gen, device=cuda) - 1.0)
+    a = -torch.rand(h, generator=gen, device=cuda) - 0.5
+    bc = torch.randn((bs, ln, off + 2 * groups * n), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    gn = groups * n
+    bm = heads_of_groups(bc[..., off:off + gn].reshape(bs, ln, groups, n), h)
+    cm = heads_of_groups(bc[..., off + gn:].reshape(bs, ln, groups, n), h)
+    assert (bm.stride(2) == 0) == (groups == 1)
+    assert (bm.data_ptr() % 16 != 0) == bool(off)
+    before = ops.launch_counts()["ssd_chunk"]
+    got = ops.ssd_chunk(x, dt, a, bm, cm, chunk=chunk)
+    want = ref.ssd_chunk(x, dt, a, bm, cm, chunk=chunk)
+    limits = ref.ssd_chunk_limit(x, dt, a, bm, cm, got[2], chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk"] == before + 1
+    for g, w, lim in zip(got, want, limits):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _assert_within(g, w, lim)
+    again = ops.ssd_chunk(x, dt, a, bm, cm, chunk=chunk)
+    assert all(torch.equal(u, v) for u, v in zip(again, got))
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_paged_decode_f32_split_kernel(cuda, group, ps, q8):
+    """An fp32 q over fp32 or int8 pages (the split-KV cluster kernel on
+    the CUDA cores) at GQA groups 1, 4 and 8, page sizes 8-32, kv_len 1,
+    37, a page boundary and 3001 in one batch, with a softcap at group 4:
+    within ``ref.paged_decode_attention_limit``, one launch, the same bits
+    from a second call, and the same bits again with NaN in the pages (or,
+    over int8 pages, the scales) wholly past kv_len and in the trash
+    page."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(group * 100 + ps + q8)
+    hkv, d = 2, 128
+    hq = group * hkv
+    lens = [1, 37, 2 * ps, 3001]
+    b, nb = len(lens), -(-3001 // ps) + 1
+    kp, vp, ks, vs, bt = _pool(gen, b, hkv, nb, ps, d, q8, cuda)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs, softcap=30.0 if group == 4 else None)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    want = ref.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    limit = ref.paged_decode_attention_limit(q, kp, vp, bt, ln, want, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    _assert_within(got, want, limit)
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, bt, ln, **kw),
+                       got)
+    poison = (ks, vs) if q8 else (kp, vp)
+    for i in range(b):
+        dead = bt[i, -(-lens[i] // ps):].long()
+        for t in poison:
+            t[dead] = float("nan")
+    for t in poison:
+        t[0] = float("nan")
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, bt, ln, **kw),
+                       got)
+
+
+@pytest.mark.parametrize("d,q8", [(4, False), (20, False), (64, False),
+                                  (200, False), (256, False), (16, True),
+                                  (48, True), (256, True)])
+def test_paged_decode_f32_head_dims(cuda, d, q8):
+    """An fp32 q at head dims in multiples of 4 (16 over int8 pages) up to
+    256, GQA group 3 (a block of four rows, one unused): within
+    ``ref.paged_decode_attention_limit``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(d + q8)
+    hkv, ps = 2, 16
+    lens = [5, 100, 300]
+    b, nb = len(lens), -(-300 // ps)
+    kp, vp, ks, vs, bt = _pool(gen, b, hkv, nb, ps, d, q8, cuda)
+    q = torch.randn((b, 3 * hkv, d), generator=gen, device=cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs)
+    got = ops.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    want = ref.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    limit = ref.paged_decode_attention_limit(q, kp, vp, bt, ln, want, **kw)
+    _assert_within(got, want, limit)
+
+
+@pytest.mark.parametrize("d,q8", [(18, False), (260, False), (36, True)])
+def test_paged_decode_f32_refuses_head_dims(cuda, d, q8):
+    """An fp32 q at a head dim the route does not take (not a multiple of
+    4, of 16 over int8 pages, or above 256) raises ``ValueError`` before
+    any launch."""
+    from repro_torch.kernels import paged_attention
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    kp, vp, ks, vs, bt = _pool(gen, 2, 2, 2, 16, d, q8, cuda)
+    q = torch.zeros((2, 4, d), device=cuda)
+    ones = torch.ones(2, dtype=torch.int32, device=cuda)
+    before = paged_attention.paged_decode_attention.launches
+    with pytest.raises(ValueError):
+        paged_attention.paged_decode_attention(q, kp, vp, bt, ones,
+                                               k_scale=ks, v_scale=vs)
+    assert paged_attention.paged_decode_attention.launches == before

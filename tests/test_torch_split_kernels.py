@@ -18,6 +18,10 @@ over bf16 pages, K's scale on the score and p * V's scale as hi and lo
 bf16 terms over int8 pages, the warps' and ranks' merges) lies within
 ``ref.paged_decode_attention_limit`` of the plain version and of the
 Pallas kernel, and the same with one bf16 term over int8 pages does not.
+Under an fp32 q the same cluster layout runs on the CUDA cores: an
+emulation of its fp32 arithmetic (32-key tiles, four warps of 8 keys,
+the per-warp and per-rank merges in order) lies within the same limit of
+the Pallas kernel and of the plain version over fp32 and int8 pages.
 Inputs come from numpy with a seed and go to both sides.
 """
 import math
@@ -566,6 +570,134 @@ def test_paged_split_single_term_control_beyond_limit():
           f"{_beyond(one, want, limit):.4f} of elements")
     assert _beyond(two, want, limit) == 0
     assert _beyond(one, want, limit) > 0
+
+
+def _f32_rows(group):
+    """q-heads a block of the fp32 kernel: the least of 1, 2, 4, 8 that
+    holds the group, 8 beyond it."""
+    return next(r for r in (1, 2, 4, 8) if group <= r or r == 8)
+
+
+def _paged_f32_emulation(q, kp, vp, bt, lens, ks=None, vs=None,
+                         softcap=None):
+    """The fp32-q paged decode as ``csrc/paged_decode_attention.cu``
+    computes it, in torch on the CPU: per (batch, kv-head, group of up to
+    8 q-heads) a cluster of the launcher's size (about one block an SM, a
+    32-key tile a block at least) takes contiguous key ranges (a share of
+    kv_len rounded up to 16); each block walks 32-key tiles gathered
+    through the block table, its four warps 8 keys each, with an fp32
+    online softmax in base 2 per tile; over int8 pages the values are
+    exact, K's scale multiplies the score and V's scale p; the warps merge
+    in warp order, the ranks in rank order; a row with no valid key gives
+    0."""
+    b, hq, d = q.shape
+    hkv, ps = kp.shape[1], kp.shape[2]
+    nb = bt.shape[1]
+    group = hq // hkv
+    gr = _f32_rows(group)
+    rows = b * hkv * -(-group // gr)
+    cs = max(1, min(8, -(-132 // rows), max(1, -(-(nb * ps) // 32))))
+    scale = 1.0 / math.sqrt(d)
+    q8 = ks is not None
+    out = torch.zeros((b, hq, d))
+    for bi in range(b):
+        n = max(0, min(int(lens[bi]), nb * ps))
+        chunk = ((n + cs - 1) // cs + 15) // 16 * 16
+        for kvh in range(hkv):
+            for h0 in range(kvh * group, (kvh + 1) * group, gr):
+                gn = min(gr, (kvh + 1) * group - h0)
+                qf = q[bi, h0:h0 + gn].float()
+                ranks = []
+                for rank in range(cs):
+                    t_lo = min(n, rank * chunk)
+                    t_hi = min(n, t_lo + chunk)
+                    warps = [(torch.full((gn,), _NEG), torch.zeros(gn),
+                              torch.zeros((gn, d))) for _ in range(4)]
+                    for j0 in range(t_lo, t_hi, 32):
+                        for w in range(4):
+                            w0 = j0 + 8 * w
+                            if w0 >= t_hi:
+                                continue
+                            t = torch.arange(w0, w0 + 8)
+                            ok = t < t_hi
+                            tc = torch.where(ok, t, 0)
+                            page = bt[bi, tc // ps].long()
+                            row = tc % ps
+                            kk = torch.where(ok[:, None],
+                                             kp[page, kvh, row].float(), 0.0)
+                            vv = torch.where(ok[:, None],
+                                             vp[page, kvh, row].float(), 0.0)
+                            raw = qf @ kk.T
+                            if q8:
+                                raw = raw * ks[page, kvh, row][None, :]
+                            if softcap:
+                                x = softcap * torch.tanh(raw * scale
+                                                         / softcap) * _LOG2E
+                            else:
+                                x = raw * (scale * _LOG2E)
+                            x = torch.where(ok[None, :], x, _NEG)
+                            m, l, o = warps[w]
+                            mx = torch.maximum(m, x.max(1).values)
+                            alpha = torch.exp2(m - mx)
+                            p = torch.where(x == _NEG, 0.0,
+                                            torch.exp2(x - mx[:, None]))
+                            l = l * alpha + p.sum(1)
+                            if q8:
+                                p = p * torch.where(
+                                    ok, vs[page, kvh, row], 0.0)[None, :]
+                            warps[w] = (mx, l, o * alpha[:, None] + p @ vv)
+                    ranks.append(_merge(warps))
+                _, ll, oo = _merge(ranks)
+                out[bi, h0:h0 + gn] = torch.where(
+                    ll[:, None] == 0, 0.0, oo / torch.where(
+                        ll == 0, 1.0, ll)[:, None])
+    return out
+
+
+def _f32_pool(rng, b, hkv, nb, ps, d, q8):
+    """fp32 (or int8) pages with fp32 scales and the block tables, as
+    torch tensors (page 0 the trash page)."""
+    kp, vp, ks, vs, bt = _paged_pool(rng, b, hkv, nb, ps, d, q8)
+    t = torch.from_numpy
+    if not q8:
+        kp, vp = (rng.standard_normal(kp.shape).astype(np.float32)
+                  for _ in range(2))
+    return (t(kp), t(vp), None if ks is None else t(ks),
+            None if vs is None else t(vs), t(bt))
+
+
+@pytest.mark.parametrize("q8,softcap", [(False, None), (True, None),
+                                        (False, 30.0), (True, 20.0)])
+@pytest.mark.parametrize("hq,hkv,ps", [(4, 4, 16), (8, 2, 8), (12, 1, 32)])
+def test_paged_f32_emulation_matches_pallas(hq, hkv, ps, q8, softcap):
+    """The fp32-q paged decode's arithmetic (``_paged_f32_emulation``:
+    32-key tiles, four warps of 8 keys, per-warp and per-rank (m, l, O)
+    merged in order) over fp32 and int8 pages, GQA groups 1, 4 and 12 (a
+    block of 8 q-heads and one of 4), ragged kv_len (0, 1, a page edge, a
+    few tiles) lies within ``ref.paged_decode_attention_limit`` of the JAX
+    package's Pallas kernel in interpret mode and of the plain version."""
+    rng = np.random.default_rng(hq * 10 + ps + 2 * q8 + (softcap is not None))
+    d = 64
+    lens = np.asarray([0, 1, 2 * ps, 77, 150], np.int32)
+    b, nb = len(lens), -(-150 // ps) + 1
+    kp, vp, ks, vs, bt = _f32_pool(rng, b, hkv, nb, ps, d, q8)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32))
+    lt = torch.from_numpy(lens)
+    kw = dict(k_scale=ks, v_scale=vs, softcap=softcap)
+    got = _paged_f32_emulation(q, kp, vp, bt, lt, ks, vs, softcap=softcap)
+    want = R.paged_decode_attention(q, kp, vp, bt, lt, **kw)
+    limit = R.paged_decode_attention_limit(q, kp, vp, bt, lt, want, **kw)
+    assert bool(((got - want).abs() <= limit).all())
+    pallas = jpa.paged_decode_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, kp, vp, bt, lt)),
+        k_scale=None if ks is None else jnp.asarray(ks.numpy()),
+        v_scale=None if vs is None else jnp.asarray(vs.numpy()),
+        softcap=softcap, interpret=True)
+    pallas = torch.from_numpy(np.array(pallas))
+    limit = R.paged_decode_attention_limit(q, kp, vp, bt, lt, pallas, **kw)
+    err = (got - pallas).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+    assert not bool(got[0].abs().any())
 
 
 @pytest.mark.parametrize("case,ok", [

@@ -5,13 +5,16 @@ cells with each build in turn.  The kernels: ``decode_attention`` and
 shapes (M 18 and 32), bf16 ``flash_attention`` at 3b's prefill,
 ``gated_matmul`` at 3b's and 3e's prefill (2048, 500 and 512 rows),
 ``paged_decode_attention`` under a bf16 q at 3e's decode (bf16 and int8
-pages), fp32 ``flash_attention`` at 3c's and 3f's prefill,
+pages) and under an fp32 q at cell 3's two most frequent decode shapes
+and the long-context shape (fp32 and int8 pages), fp32
+``flash_attention`` at 3c's and 3f's prefill,
 ``paged_prefill_attention`` at 3e's prefill (bf16 and int8 pages), at
 cell 3's two chunk shapes and at the long-context shape (fp32 and int8
-pages), and fp32 ``matmul`` at 3f's fc1 shapes.
+pages), fp32 ``matmul`` at 3f's fc1 shapes, and bf16 ``ssd_chunk`` at
+3d's prefill.
 
     python tools/ab_kernels.py --other parent=.archive_check/parent \\
-        [--other name=DIR ...] [--pairs 10] [--runs 3e,3f] \\
+        [--other name=DIR ...] [--pairs 10] [--runs 3d,3e,3f] \\
         [--shapes q8,flash] [--out FILE]
 
 ``DIR`` is another checkout of the repo, such as a ``git archive`` of a
@@ -36,7 +39,8 @@ packed arguments; ``device_ms``, 20 calls in a CUDA graph
 order (other, tree; tree, other; ...): 3b, Mistral-NeMo-12B's resident
 one-shot over a bf16 and an int8 cache (prefill s, decode tok/s); 3e, the same
 weights through the paged batcher over bf16 and int8 pages (tok/s of the
-whole run); 3f, OPT-6.7B resident in fp32 (prefill s and decode tok/s).
+whole run); 3f, OPT-6.7B resident in fp32 (prefill s and decode tok/s);
+3d, Mamba2-2.7B resident in bf16 (prefill s and decode tok/s).
 Prints a line per reading and a JSON line of them all.
 """
 
@@ -66,6 +70,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as k_paged  # noqa: E402
 from repro_torch.kernels import paged_prefill as k_prefill  # noqa: E402
 from repro_torch.kernels import q8_matmul as k_q8  # noqa: E402
+from repro_torch.kernels import ssd_chunk as k_ssd  # noqa: E402
 
 # (library, C symbol) -> the wrapper's argument types
 ENTRIES = {("decode_attention", "decode_attention"): k_dense._ARGTYPES,
@@ -76,7 +81,8 @@ ENTRIES = {("decode_attention", "decode_attention"): k_dense._ARGTYPES,
            ("paged_prefill_attention", "paged_prefill_attention"):
                k_prefill._ARGTYPES,
            ("paged_decode_attention", "paged_decode_attention"):
-               k_paged._ARGTYPES}
+               k_paged._ARGTYPES,
+           ("ssd_chunk", "ssd_chunk"): k_ssd._ARGTYPES}
 LIBRARIES = sorted({lib for lib, _ in ENTRIES})
 CALLS = 100
 
@@ -191,8 +197,9 @@ def shapes(gen):
     """(name, wrapper call) at 3b's decode shapes, phase 3's q8 decode
     shapes and its prefill shapes at M 18 and 32, 3b's bf16 prefill shape
     of flash attention, the gated MLP at 3b's and 3e's prefill, fp32 flash
-    attention at 3c's and 3f's prefill, the paged decode at 3e's, the
-    paged prefill at 3e's shape and cell 3's, and fp32 fc1 at 3f's."""
+    attention at 3c's and 3f's prefill, the paged decode at 3e's and cell
+    3's, the paged prefill at 3e's shape and cell 3's, fp32 fc1 at 3f's,
+    and the SSD kernel at 3d's prefill."""
     cfg = cs.get_config("mistral-nemo-12b")
     b, t = 4, cs.ONESHOT_PROMPT + cs.ONESHOT_NEW
     kl = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
@@ -251,27 +258,41 @@ def shapes(gen):
         x = torch.randn((m, opt.d_model), generator=gen, device="cuda")
         out.append((f"matmul f32 {m}x{opt.d_model}x{opt.d_ff}",
                     lambda x=x: k_mm.matmul(x, w, bias, activation="relu")))
+    mamba = cs.get_config("mamba2-2.7b")
+    x, dt, a, bm, cm, _ = cs.ssd_inputs(gen, 4, cs.MAMBA_PROMPT, mamba,
+                                        torch.bfloat16)
+    out.append(("ssd bf16 3d", lambda: k_ssd.ssd_chunk(
+        x, dt, a, bm, cm, chunk=mamba.ssm_chunk)))
     return out
 
 
 def paged_decode_shapes(gen):
     """``paged_decode_attention`` under a bf16 q at 3e's last decode step
     (B 4, Mistral's heads, kv_len 507-519, page 16) over bf16 and int8
-    pages."""
-    cfg = cs.get_config("mistral-nemo-12b")
-    lens = [n + cs.PAGED_NEW - 1 for n in cs.PAGED_PROMPTS]
-    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pages, and under an fp32 q with OPT-6.7B's heads (B 4, page 16) at cell
+    3's two most frequent decode shapes (kv 56-69 and 57-70) and at the
+    long-context shape of ``chip_smoke.py``'s row (kv 512-3001), over fp32
+    and int8 pages."""
+    mis, opt = cs.get_config("mistral-nemo-12b"), cs.get_config("opt-6.7b")
+    rows = [("3e", mis, torch.bfloat16,
+             [n + cs.PAGED_NEW - 1 for n in cs.PAGED_PROMPTS]),
+            ("cell 3 kv 56-69", opt, torch.float32, [56, 62, 66, 69]),
+            ("cell 3 kv 57-70", opt, torch.float32, [57, 63, 67, 70]),
+            ("long context", opt, torch.float32, [512, 1100, 2048, 3001])]
     out = []
-    for q8 in (False, True):
-        kp, vp, ks, vs, bt = cs.paged_inputs(
-            gen, len(lens), cfg.n_heads, cfg.n_kv_heads, cfg.hd, lens, q8,
-            torch.bfloat16)
-        q = torch.randn((len(lens), cfg.n_heads, cfg.hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        out.append((f"paged decode 3e {'int8' if q8 else 'bf16'} pages",
-                    lambda q=q, kp=kp, vp=vp, bt=bt, ks=ks, vs=vs:
-                    k_paged.paged_decode_attention(q, kp, vp, bt, kl,
-                                                   k_scale=ks, v_scale=vs)))
+    for label, cfg, dtype, lens in rows:
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for q8 in (False, True):
+            kp, vp, ks, vs, bt = cs.paged_inputs(
+                gen, len(lens), cfg.n_heads, cfg.n_kv_heads, cfg.hd, lens,
+                q8, dtype)
+            q = torch.randn((len(lens), cfg.n_heads, cfg.hd), generator=gen,
+                            device="cuda").to(dtype)
+            pages = "int8" if q8 else str(dtype)[6:]
+            out.append((f"paged decode {label} {pages} pages",
+                        lambda q=q, kp=kp, vp=vp, bt=bt, ks=ks, vs=vs, kl=kl:
+                        k_paged.paged_decode_attention(
+                            q, kp, vp, bt, kl, k_scale=ks, v_scale=vs)))
     return out
 
 
@@ -437,6 +458,31 @@ def opt_pairs(builds, other, pairs):
     return out
 
 
+def mamba_pairs(builds, other, pairs):
+    """3d: Mamba2-2.7B resident one-shot in bf16 (one ``ssd_chunk`` a
+    layer in the prefill), prefill s and decode tok/s."""
+    cfg = cs.get_config("mamba2-2.7b")
+    params = cs.M.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(cs.SEED), device="cuda")
+    rng = np.random.default_rng(cs.SEED + 3)
+    prompts = [list(rng.integers(0, cfg.vocab_size, cs.MAMBA_PROMPT))
+               for _ in range(4)]
+
+    def oneshot():
+        with cs.LLM(cfg, params) as llm:
+            ops.reset_launch_counts()
+            llm.generate(prompts, max_new=cs.MAMBA_NEW)
+            m = llm.last_metrics
+            return {"prefill_s": m["prefill_s"],
+                    "decode_tok_s": m["tokens_per_s"],
+                    "ssd_chunk_launches": ops.launch_counts()["ssd_chunk"]}
+
+    out = _alternate(builds, other, pairs, "3d bf16", oneshot)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[],
@@ -447,7 +493,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--runs", default="3e,3f",
-                    help="cells to alternate, of 3b, 3e, 3f")
+                    help="cells to alternate, of 3b, 3d, 3e, 3f")
     ap.add_argument("--shapes", default="",
                     help="comma-separated words; time only the kernel "
                          "shapes whose name holds one")
@@ -478,6 +524,8 @@ def main(argv=None) -> int:
             result["pairs"] += mistral_pairs(builds, first, args.pairs, runs)
         if "3f" in runs:
             result["pairs"] += opt_pairs(builds, first, args.pairs)
+        if "3d" in runs:
+            result["pairs"] += mamba_pairs(builds, first, args.pairs)
     use(builds["tree"])
     line = json.dumps(result)
     if args.out:
