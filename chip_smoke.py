@@ -21,7 +21,26 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    both runs' paged attention calls by (B, S, each row's kv end); neither
    matmul kernel may launch on the HeteGen split.  The fp
    run's prefill logits are held against the port's ``ResidentBackend``
-   on the card;
+   on the card.  Both runs are traced (``trace=``, the tracer attached
+   from the backend's construction on): each run's Chrome trace
+   (``smoke_out/trace_cell3_<wire>.json``) must validate, its overlap
+   report (I/O-hidden fraction, stream utilization, critical path per
+   phase) is logged, each stream's busy seconds in the trace must agree
+   with the engines' ``StreamStats`` within ``BUSY_TOL``, and the stream
+   speeds the trace measures are logged with the alpha they refit beside
+   the planned one.  From the fp run's trace, ``H100_HOST``'s host and
+   link fields are fitted (``fit_host_spec``: host GEMM spans at decode
+   and at the prefill chunks, pin and transfer spans, a timed pageable
+   copy of 256 MB, the machine's memory) and logged with the host's CPU
+   and the alphas cell 3 would plan with them;
+3g. trace-driven recalibration: OPT-6.7B at full width and
+   ``RECAL_LAYERS`` layers through ``LLM(paged=True,
+   backend=HeteGenBackend(recalibrate=0.02, recalibrate_every=2))``,
+   four requests of ``RECAL_NEW`` new tokens, over ``H100_HOST`` with
+   ``link_bw`` ``RECAL_LINK_FACTOR`` times too high: the decode plan must
+   be rebuilt at least once and its alpha move toward the crossing of the
+   run's measured speeds; each decode step's alpha and the decode tok/s
+   before the first and after the last re-plan are logged;
 3b. resident one-shot generation of Mistral-NeMo-12B at full width and
    full depth (40 layers), bf16, random weights made on the card from a
    seed: ``LLM(cfg, params).generate`` of four 512-token prompts, 16 new
@@ -70,6 +89,18 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    at prefill, the four rows at decode).  A reduced bf16
    Mistral over a paged cache runs on the card and on the CPU: prefill and
    decode logits within ``BF16_MODEL_TOL``;
+3h. request-level sampling over the same weights through the paged
+   batcher over bf16 pages: four requests of ``SAMPLE_NEW`` new tokens
+   (greedy, temperature 0.8, top-k 50, top-p 0.9 with five logprobs,
+   each stochastic one seeded) give the same bits of tokens and logprobs
+   from two runs and the same tokens submitted in reverse order; then
+   ``sample_rows`` on seeded (4, 131072) fp32 card logits keeps the sort
+   order and kept set of ``plain_filter`` (float64 on the CPU, written
+   apart from the port; but for tokens at a top-p crossing within an
+   fp32 sum's rounding, ``crossing_tol``), draws the CPU's Gumbel noise,
+   gives the same bits from two calls, passes a chi-square test of
+   ``CHI2_DRAWS`` card draws of one row against the plain distribution,
+   and is timed per call and in a CUDA graph;
 4. every kernel against its plain PyTorch version on the same card
    inputs at the main path's shapes (these launches come after the
    counters were read, so they do not count), with CUDA-event times of kernel,
@@ -143,6 +174,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -156,6 +188,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.hw import H100_HOST  # noqa: E402
+from repro_torch.core.policy import build_policy  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
@@ -168,9 +202,14 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as k_rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as k_ssd  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serving import sampling as smp  # noqa: E402
 from repro_torch.serving.api import LLM  # noqa: E402
 from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
-                                          ResidentBackend)
+                                          ResidentBackend, enumerate_linears)
+from repro_torch.serving.sampling import SamplingParams  # noqa: E402
+from repro_torch.telemetry import (Tracer, measured_speeds,  # noqa: E402
+                                   recalibrate_alpha, validate_chrome_trace)
+from repro_torch.telemetry.overlap import stream_of  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM data sheet, fp32 without TC
@@ -205,6 +244,15 @@ MAMBA_PROMPT = 512                 # 3d: prompt tokens per row (4 chunks)
 MAMBA_NEW = 16                     # 3d: new tokens per row
 PAGED_PROMPTS = (500, 504, 508, 512)   # 3e: ragged prompt lengths
 PAGED_NEW = 8                      # 3e: new tokens per row
+RECAL_LAYERS = 8                   # 3g: OPT-6.7B layers
+RECAL_NEW = 16                     # 3g: new tokens per request
+RECAL_LINK_FACTOR = 8.0            # 3g: how far H100_HOST's link_bw is off
+SAMPLE_NEW = 8                     # 3h: new tokens per request
+SAMPLE_PROMPTS = (40, 44, 48, 52)  # 3h: prompt lengths
+BUSY_TOL = 0.05                    # trace busy s against StreamStats
+CHI2_DRAWS = 1 << 16               # 3h: card draws for the chi-square
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "smoke_out")
 
 
 def log(msg: str) -> None:
@@ -319,13 +367,18 @@ def make_prompts(vocab: int, seed: int):
 
 
 def run_main_path(cfg, host_params, prompts, *, wstream, kv_dtype):
-    """One serving run through the public entry points; returns tokens,
-    the launch counts it caused and its stats."""
+    """One traced serving run through the public entry points; returns
+    tokens, the launch counts it caused, its stats and its spans.  The
+    tracer is the backend's from construction on, so the spans cover
+    every second the engines' stream counters do."""
     t0 = time.perf_counter()
+    tracer = Tracer()
     be = HeteGenBackend(cfg, host_params, wstream=wstream, batch=4,
-                        device="cuda")
+                        tracer=tracer, device="cuda")
+    decode_s = time.perf_counter() - t0
     # load: partition (and, for q8, quantize) both phase plans up front,
-    # the prefill one at the chunk shape the run admits at
+    # the prefill one at the chunk shape the run admits at; building one
+    # phase's engine is what a re-plan of that phase costs
     be.retune(1, phase="prefill", tokens_per_seq=CHUNK)
     load_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -334,20 +387,28 @@ def run_main_path(cfg, host_params, prompts, *, wstream, kv_dtype):
     t0 = time.perf_counter()
     with LLM(cfg, backend=be, own_backend=True, paged=True,
              page_size=PAGE_SIZE, kv_dtype=kv_dtype, max_slots=4,
-             max_len=256, chunk_tokens=CHUNK, wstream=wstream) as llm:
+             max_len=256, chunk_tokens=CHUNK, wstream=wstream,
+             trace=tracer) as llm:
         rids = [llm.submit(p, max_new=MAX_NEW) for p in prompts]
         outs = llm.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
         st = llm.stats()
+        os.makedirs(OUT_DIR, exist_ok=True)
+        doc = llm.write_trace(os.path.join(OUT_DIR,
+                                           f"trace_cell3_{wstream}.json"))
+        report = llm.overlap_report()
+        planned = {ph: pol.alpha for ph, pol in be.policies.items()}
     toks = [outs[r].tokens for r in rids]
     check(all(len(t) == MAX_NEW for t in toks), f"{wstream}: short outputs")
     check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
           f"{wstream}: token out of vocab")
     s = st["stream"]
     log(f"main path wstream={wstream} kv_dtype={kv_dtype or 'float32'}: "
-        f"load {load_s:.3f} s, {sum(map(len, toks))} tokens in {wall:.3f} s "
+        f"load {load_s:.3f} s (backend and decode engine {decode_s:.3f} s, "
+        f"prefill engine {load_s - decode_s:.3f} s), "
+        f"{sum(map(len, toks))} tokens in {wall:.3f} s "
         f"({sum(map(len, toks)) / wall:.3f} tok/s, drain "
         f"{st['tokens_per_s']:.3f} tok/s), steps={st['steps']}, "
         f"chunks={st['scheduler']['chunks_planned']}, "
@@ -356,7 +417,215 @@ def run_main_path(cfg, host_params, prompts, *, wstream, kv_dtype):
         f"dev={s.dev:.3f} wall={s.wall:.3f}, "
         f"peak_device_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB, launches={launches}")
-    return toks, launches, st
+    spans = tracer.spans()
+    report_trace(f"cell 3 {wstream}", doc, report, spans, s, planned)
+    return toks, launches, st, spans
+
+
+# the stream tracks of the overlap report (``pin`` stands for every
+# ``pin:<phase>`` track)
+STREAMS = ("cpu_gemm", "pin", "transfer", "device", "sample")
+
+
+def report_trace(run, doc, report, spans, stats, planned):
+    """A traced run's Chrome trace must validate; log its overlap report
+    (I/O-hidden fraction, stream utilization, critical path per phase),
+    hold each stream's busy seconds to the engines' counters, and log the
+    stream speeds the trace measures with the alpha it refits, per phase,
+    beside the planned one."""
+    problems = validate_chrome_trace(doc)
+    check(not problems, f"{run}: trace invalid: {problems[:3]}")
+    o = report.overall
+    util = o.utilization()
+    log(f"{run} overlap: {len(doc['traceEvents'])} trace events, window "
+        f"{o.wall:.3f} s, io_hidden={o.io_hidden_frac:.4f}, critical "
+        f"path {o.critical_path}, utilization "
+        + " ".join(f"{k}={util[k]:.4f}" for k in sorted(util)
+                   if stream_of(k) in STREAMS))
+    by_phase = {}
+    for w in report.steps:
+        agg = by_phase.setdefault(w.phase, {"n": 0, "wall": 0.0, "io": 0.0,
+                                            "hidden": 0.0, "busy": {}})
+        agg["n"] += 1
+        agg["wall"] += w.wall
+        agg["io"] += w.io_busy
+        agg["hidden"] += w.io_hidden
+        for k, v in w.busy.items():
+            agg["busy"][k] = agg["busy"].get(k, 0.0) + v
+    for ph, agg in by_phase.items():
+        streams = {k: v for k, v in agg["busy"].items()
+                   if stream_of(k) in STREAMS}
+        crit = max(streams, key=streams.get) if streams else "idle"
+        hid = agg["hidden"] / agg["io"] if agg["io"] > 0 else 1.0
+        log(f"{run} overlap phase={ph}: {agg['n']} steps, wall "
+            f"{agg['wall']:.3f} s, io_hidden={hid:.4f}, critical path "
+            f"{crit}, busy s "
+            + " ".join(f"{k}={v:.3f}" for k, v in sorted(streams.items())))
+    for track, counted in (("cpu_gemm", stats.cpu), ("pin", stats.pin),
+                           ("transfer", stats.trans),
+                           ("device", stats.dev)):
+        # a phase engine's pin thread has a track of its own
+        traced = sum(v for k, v in o.busy.items() if stream_of(k) == track)
+        log(f"{run} busy s {track}: trace {traced:.4f}, StreamStats "
+            f"{counted:.4f}")
+        check(abs(traced - counted) <= BUSY_TOL * max(traced, counted),
+              f"{run}: {track} busy {traced:.4f} s in the trace, "
+              f"{counted:.4f} s in StreamStats")
+    for ph, alpha in planned.items():
+        sp = measured_speeds(spans, phase=ph)
+        fit = recalibrate_alpha(spans, alpha, phase=ph)
+        log(f"{run} speeds phase={ph}: v_cpu={sp.v_cpu:.4e} "
+            f"v_pin={sp.v_pin:.4e} v_com={sp.v_com:.4e} B/s, wire_ratio="
+            f"{sp.wire_ratio:.4f}, planned alpha={alpha:.4f}, refit "
+            f"alpha={fit.alpha:.4f}")
+
+
+def host_description():
+    """The host's CPU as ``lscpu`` names it (vendor, family, model, model
+    name), ``nproc`` and the memory it reports."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         check=True).stdout
+    fields = dict(line.split(":", 1) for line in out.splitlines()
+                  if ":" in line)
+    cpu = ", ".join(f"{k} {fields[k].strip()}" for k in
+                    ("Vendor ID", "CPU family", "Model", "Model name",
+                     "Socket(s)", "Thread(s) per core") if k in fields)
+    mem = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return cpu, len(os.sched_getaffinity(0)), mem
+
+
+def pageable_copy_bw(nbytes=256 << 20, reps=5):
+    """Bytes/s of a host-to-card ``copy_`` from pageable memory: the
+    median of ``reps`` timed copies of a 256 MB tensor after one warm-up."""
+    src = torch.rand(nbytes // 4)
+    dst = torch.empty_like(src, device="cuda")
+    dst.copy_(src)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return nbytes / sorted(times)[reps // 2]
+
+
+def fit_host_spec(cfg, spans, smi):
+    """``H100_HOST``'s host and link fields from cell 3's traced fp run:
+    ``host_mem_bw`` from the host GEMM spans at decode (4 rows),
+    ``host_flops`` from those of the prefill chunks in the alpha law's
+    units (FLOPs counted as rows per weight byte: the sum of rows x bytes
+    over the seconds), ``pin_bw`` and ``link_bw`` from the pin and
+    transfer spans, ``link_bw_unpinned`` from a timed pageable copy and
+    ``host_mem_bytes`` as the machine reports it.  Logs the fit and the
+    decode and prefill alphas cell 3 gets from it beside the current
+    spec's."""
+    dec = measured_speeds(spans, phase="decode")
+    pre = [s for s in spans if s.track == "cpu_gemm"
+           and (s.attrs or {}).get("phase") == "prefill"]
+    allp = measured_speeds(spans)
+    model, nproc, mem = host_description()
+    fit = {"host_mem_bw": dec.v_cpu,
+           "host_flops": sum(s.attrs["rows"] * s.attrs["bytes"]
+                             for s in pre) / sum(s.dur for s in pre),
+           "pin_bw": allp.v_pin, "link_bw": allp.v_com,
+           "link_bw_unpinned": pageable_copy_bw(),
+           "host_mem_bytes": float(mem)}
+    log(f"H100_HOST fit on {smi}, host lscpu: {model}; nproc {nproc}: "
+        + json.dumps(fit))
+    hw = dataclasses.replace(H100_HOST, **fit)
+    for wstream in ("fp", "q8"):
+        lin = enumerate_linears(cfg, wstream=wstream)
+        alphas = {}
+        for name, spec in (("current", H100_HOST), ("fitted", hw)):
+            alphas[name] = [
+                build_policy(lin, spec, batch=4, phase="decode").alpha,
+                build_policy(lin, spec, batch=1, phase="prefill",
+                             tokens_per_seq=CHUNK).alpha]
+        log(f"cell 3 {wstream} alpha decode / prefill: current spec "
+            f"{alphas['current'][0]:.4f} / {alphas['current'][1]:.4f}, "
+            f"fitted {alphas['fitted'][0]:.4f} / {alphas['fitted'][1]:.4f}")
+    return fit
+
+
+def run_recalibration(cfg, host_params):
+    """Phase 3g: cell 3's fp configuration at full width and
+    ``RECAL_LAYERS`` layers (``cfg``), four requests of ``CHUNK`` prompt
+    tokens and ``RECAL_NEW`` new tokens, with ``recalibrate=0.02,
+    recalibrate_every=2`` over ``H100_HOST`` with ``link_bw``
+    ``RECAL_LINK_FACTOR`` times too high, so the first decode plan is
+    wrong.  It must re-plan, the decode alpha must move toward the
+    trace's refit, and the tokens must be complete and in vocab; logs
+    each decode forward's alpha and time (its trace span, less the
+    re-plan's) and the decode tok/s at the first plan and at the
+    last."""
+    wrong = dataclasses.replace(H100_HOST,
+                                link_bw=H100_HOST.link_bw * RECAL_LINK_FACTOR)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [list(rng.integers(0, cfg.vocab_size, CHUNK))
+               for _ in range(4)]
+    tracer = Tracer()
+    be = HeteGenBackend(cfg, host_params, hw=wrong, batch=4, tracer=tracer,
+                        recalibrate=0.02, recalibrate_every=2,
+                        device="cuda")
+    be.retune(4, phase="prefill", tokens_per_seq=CHUNK)
+    alpha0 = be.policies["decode"].alpha
+    try:
+        with LLM(cfg, backend=be, paged=True, page_size=PAGE_SIZE,
+                 max_slots=4, max_len=256, chunk_tokens=CHUNK,
+                 trace=tracer) as llm:
+            rids = [llm.submit(p, max_new=RECAL_NEW) for p in prompts]
+            outs = llm.drain()
+            torch.cuda.synchronize()
+            alpha1 = be.policies["decode"].alpha
+            n_replans, fits = be.recalibrations, list(be.fit_alphas)
+    finally:
+        be.close()
+    # each decode forward from the trace: its ``decode`` phase span less
+    # the re-plans inside it, at the alpha of the last re-plan before its
+    # end, over the rows its ``sample`` span drew
+    spans = tracer.spans()
+    replans = [s for s in spans if s.track == "replan"]
+    forwards = []
+    for ph in spans:
+        if ph.track != "phase" or ph.name != "decode":
+            continue
+        inside = [s for s in spans if ph.t0 <= s.t0 and s.t1 <= ph.t1]
+        done = [r for r in replans if r.t1 <= ph.t1]
+        forwards.append((done[-1].attrs["alpha"] if done else alpha0,
+                         sum(s.attrs["rows"] for s in inside
+                             if s.track == "sample"),
+                         ph.dur - sum(s.dur for s in inside
+                                      if s.track == "replan")))
+    toks = [outs[r].tokens for r in rids]
+    check(all(len(t) == RECAL_NEW for t in toks), "3g: short outputs")
+    check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+          "3g: token out of vocab")
+    check(n_replans >= 1, "3g: the decode plan was never re-planned")
+    # each fit moves at most refine_alpha's probe window (0.08) from the
+    # current alpha; where the fits head is the crossing of the measured
+    # host and link times, (1 - a) / v_cpu = a * r / min(v_pin, v_com)
+    sp = measured_speeds(spans, phase="decode")
+    t_cpu, t_com = 1.0 / sp.v_cpu, sp.wire_ratio / min(sp.v_pin, sp.v_com)
+    target = t_cpu / (t_cpu + t_com)
+    log(f"3g recalibration: alpha planned {alpha0:.4f} (link_bw x"
+        f"{RECAL_LINK_FACTOR:g}), fits {[round(a, 4) for a in fits]}, "
+        f"{n_replans} re-plans, final {alpha1:.4f}, crossing of the run's "
+        f"measured speeds {target:.4f}")
+    check(abs(alpha1 - target) < abs(alpha0 - target),
+          f"3g: decode alpha {alpha0:.4f} -> {alpha1:.4f} did not move "
+          f"toward the refit's crossing {target:.4f}")
+    for i, (alpha, rows, secs) in enumerate(forwards):
+        log(f"3g decode forward {i + 1}: {rows} rows in {secs:.3f} s at "
+            f"alpha {alpha:.4f}")
+
+    def tok_s(alpha):
+        sel = [(r, t) for a, r, t in forwards if a == alpha]
+        return sum(r for r, _ in sel) / sum(t for _, t in sel), len(sel)
+    (r0, n0), (r1, n1) = tok_s(alpha0), tok_s(alpha1)
+    log(f"3g decode tok/s: {r0:.4f} over {n0} forwards at the first plan "
+        f"(alpha {alpha0:.4f}), {r1:.4f} over {n1} at the last (alpha "
+        f"{alpha1:.4f})")
 
 
 def compare_prefill_logits(cfg, params, host_params, prompts):
@@ -888,6 +1157,7 @@ def run_mistral(seed):
         counts[(kv_dtype or "bf16") + "_gated_rows"] = tally["gated_matmul"]
     del llm
     counts["3e"] = run_paged_bf16(cfg, params, seed)
+    counts["3h"] = timed("3h", run_sampling, cfg, params, seed)
     del params
     torch.cuda.empty_cache()
     return counts
@@ -978,6 +1248,213 @@ def run_paged_bf16(cfg, params, seed):
                              c, p, toks.to(dev), dev, kv_dtype),
                          BF16_MODEL_TOL)
     return out
+
+
+def crossing_tol(n_vocab):
+    """How far an fp32 prefix sum of ``n_vocab`` probabilities may lie
+    from the exact one in any summation order (first order): a token
+    whose mass before it lies this close to ``top_p`` may fall on either
+    side of the top-p crossing."""
+    return (n_vocab - 1) * 2.0 ** -24
+
+
+def chi2_pvalue(stat, dof):
+    """Upper tail of the chi-square distribution (Wilson-Hilferty's cube
+    root normal approximation, within about 1e-3 of the exact tail for
+    tens of degrees of freedom)."""
+    h = 2.0 / (9.0 * dof)
+    z = ((stat / dof) ** (1.0 / 3.0) - (1.0 - h)) / math.sqrt(h)
+    return 0.5 * math.erfc(z / math.sqrt(2.0))
+
+
+def plain_filter(logits, params):
+    """The sampler's filter written plainly and apart from the port, per
+    row in float64 on the CPU: the logits sorted descending with the JAX
+    package's tie rule (the higher index first among equal logits), scaled
+    by the temperature (floored at 1e-4), a softmax, then top-k and top-p
+    by a direct prefix scan: a sorted position survives while fewer than
+    k positions came before it (k > 0) and the mass before it is below p;
+    position 0 always survives.  Returns the order, the kept mask over
+    sorted positions, the kept probabilities renormalized in vocab order,
+    and |mass before each sorted position - p|."""
+    x = logits.double().cpu().numpy()
+    b, v = x.shape
+    idx = np.arange(v)
+    order = np.empty((b, v), dtype=np.int64)
+    keep = np.zeros((b, v), dtype=bool)
+    probs = np.zeros((b, v))
+    margin = np.empty((b, v))
+    for i, p in enumerate(params):
+        o = np.lexsort((-idx, -x[i]))        # by -x, ties by -index
+        s = x[i, o] / max(p.temperature, 1e-4)
+        e = np.exp(s - s[0])
+        pr = e / e.sum()
+        before = 0.0
+        for j in range(v):
+            if j and ((p.top_k > 0 and j >= p.top_k) or before >= p.top_p):
+                break
+            keep[i, j] = True
+            before += pr[j]
+        margin[i] = np.abs(np.cumsum(pr) - pr - p.top_p)
+        kept = np.where(keep[i], pr, 0.0)
+        order[i] = o
+        probs[i, o] = kept / kept.sum()
+    return (torch.from_numpy(order), torch.from_numpy(keep),
+            torch.from_numpy(probs), torch.from_numpy(margin))
+
+
+def check_sampler_on_card(seed):
+    """``sample_rows`` on seeded (4, 131072) fp32 card logits (quantized to
+    1/16, so rows hold ties): the same sort order and kept set as
+    :func:`plain_filter`, except at a top-p crossing within
+    ``crossing_tol``; the card's Gumbel noise equal to the CPU's; the
+    same bits from two calls; a chi-square test of ``CHI2_DRAWS`` card
+    draws of one row against the plain filtered distribution; and its
+    time per call and on the device (a CUDA graph of the call on a key
+    tensor)."""
+    v = 131072
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = (torch.randn((4, v), generator=gen, device="cuda") * 64) \
+        .round() / 16
+    params = [SamplingParams(kind="temperature", temperature=0.8),
+              SamplingParams(kind="topk", top_k=50),
+              SamplingParams(kind="topp", top_p=0.9),
+              SamplingParams(kind="topp", top_p=0.95, top_k=64,
+                             temperature=1.5)]
+    packed = smp.pack_sampling(params, device="cuda")
+    order, _, keep = smp.filter_sorted(logits, packed)
+    p_order, p_keep, probs, margin = plain_filter(logits, params)
+    check(torch.equal(order.cpu(), p_order), "3h: card sort order differs "
+          "from the plain version's")
+    crossings, worst = 0, 0.0
+    for i in range(4):
+        diff = torch.nonzero(keep[i].cpu() != p_keep[i]).flatten()
+        if diff.numel():
+            worst = max(worst, float(margin[i, diff].max()))
+            check(worst <= crossing_tol(v),
+                  f"3h: row {i} kept set differs from the plain "
+                  f"version's at sorted "
+                  f"positions {diff.tolist()[:8]}")
+            crossings += diff.numel()
+    log(f"3h sampler (4, {v}) fp32: kept per row "
+        f"{keep.sum(-1).tolist()} (plain {p_keep.sum(-1).tolist()}), "
+        f"{crossings} tokens apart, each at a top-p crossing (largest "
+        f"|mass before - p| {worst:.3e}, limit {crossing_tol(v):.3e})")
+    keys = [smp.seed_key(seed + i) for i in range(4)]
+    keys_t = smp.key_tensor(keys, "cuda")
+    noise = smp.gumbel_noise(keys_t, v).cpu()
+    check(torch.equal(smp._mix64_t(keys_t).cpu(),
+                      smp._mix64_t(smp.key_tensor(keys)))
+          and torch.allclose(noise, smp.gumbel_noise(smp.key_tensor(keys),
+                                                     v),
+                             rtol=1.2e-7, atol=1e-7),
+          "3h: the card's Gumbel noise differs from the CPU's")
+    a, ia = smp.sample_rows(logits, keys, packed, top_logprobs=5)
+    b, ib = smp.sample_rows(logits, keys, packed, top_logprobs=5)
+    check(torch.equal(a, b) and all(torch.equal(ia[k], ib[k]) for k in ia),
+          "3h: two sample_rows calls gave different bits")
+    kept_vocab = torch.zeros_like(keep).scatter_(-1, order, keep)
+    check(bool(kept_vocab.gather(-1, a[:, None].long()).all()),
+          "3h: a draw left its kept set")
+    row, p = logits[3:4], params[3]
+    counts = torch.zeros(v, dtype=torch.int64, device="cuda")
+    chunk = 1024
+    packed_n = smp.pack_sampling([p] * chunk, device="cuda")
+    base = smp.seed_key(seed + 99)
+    for c in range(CHI2_DRAWS // chunk):
+        ks = [smp.fold_in(base, c * chunk + j) for j in range(chunk)]
+        toks = smp.sample_rows(row.expand(chunk, -1), ks, packed_n)
+        counts += torch.bincount(toks.long(), minlength=v)
+    counts = counts.cpu().double()
+    want = probs[3] * CHI2_DRAWS
+    check(float(counts[want == 0].sum()) == 0.0,
+          "3h: a chi-square draw left the kept set")
+    big = want >= 5
+    obs = torch.cat([counts[big], counts[~big].sum()[None]])
+    exp = torch.cat([want[big], want[~big].sum()[None]])
+    if float(exp[-1]) == 0.0:
+        obs, exp = obs[:-1], exp[:-1]
+    stat = float(((obs - exp) ** 2 / exp).sum())
+    dof = obs.numel() - 1
+    pval = chi2_pvalue(stat, dof)
+    log(f"3h chi-square: {CHI2_DRAWS} card draws of a top-p 0.95 / top-k "
+        f"64 row at T 1.5 over {dof + 1} bins: stat {stat:.2f}, "
+        f"p={pval:.4f}")
+    check(pval > 1e-3, f"3h: card draws do not follow the filtered "
+          f"distribution (p={pval:.2e})")
+    timing = {}
+    for name, fn in (
+            ("sample_rows", lambda: smp.sample_rows(logits, keys_t, packed)),
+            ("sample_rows_logprobs5", lambda: smp.sample_rows(
+                logits, keys_t, packed, top_logprobs=5))):
+        ms = time_ms(fn)
+        dev, why = device_ms(fn)
+        check(dev is not None, f"3h: {name} not capturable: {why}")
+        timing[name] = {"ms": ms, "device_ms": dev}
+        log(f"3h {name} (4, {v}) fp32: {ms:.4f} ms per call, device "
+            f"{dev:.4f} ms (CUDA graph)")
+    return timing
+
+
+def run_sampling(cfg, params, seed):
+    """Phase 3h: the bf16 model through the paged batcher over bf16 pages,
+    four requests of ``SAMPLE_NEW`` new tokens — greedy, temperature 0.8,
+    top-k 50, and top-p 0.9 with five logprobs, every stochastic one
+    seeded — twice (the same bits of tokens and logprobs) and in reverse
+    order (each request's tokens unchanged); then the sampler's own checks
+    and times on the card."""
+    rng = np.random.default_rng(seed + 3)
+    prompts = [list(rng.integers(0, cfg.vocab_size, n))
+               for n in SAMPLE_PROMPTS]
+    sps = [SamplingParams(),
+           SamplingParams(kind="temperature", temperature=0.8,
+                          seed=seed + 11),
+           SamplingParams(kind="topk", top_k=50, seed=seed + 12),
+           SamplingParams(kind="topp", top_p=0.9, logprobs=5,
+                          seed=seed + 13)]
+
+    def serve(order):
+        llm = LLM(cfg, params, paged=True, max_slots=4,
+                  max_len=max(SAMPLE_PROMPTS) + SAMPLE_NEW,
+                  page_size=PAGE_SIZE)
+        try:
+            t0 = time.perf_counter()
+            outs = llm.generate([prompts[i] for i in order],
+                                max_new=SAMPLE_NEW,
+                                sampling=[sps[i] for i in order])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(llm.last_executor == "batcher",
+                  f"3h: executor {llm.last_executor}, want batcher")
+        finally:
+            llm.close()
+        by = dict(zip(order, outs))
+        return [by[i] for i in range(len(prompts))], wall
+
+    first, wall = serve([0, 1, 2, 3])
+    again, _ = serve([0, 1, 2, 3])
+    rev, _ = serve([3, 2, 1, 0])
+    toks = [o.tokens for o in first]
+    check(all(len(t) == SAMPLE_NEW for t in toks), "3h: short outputs")
+    check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+          "3h: token out of vocab")
+    check(toks == [o.tokens for o in again]
+          and [o.logprobs for o in first] == [o.logprobs for o in again],
+          "3h: two runs gave different tokens or logprobs")
+    check(toks == [o.tokens for o in rev],
+          "3h: a request's tokens changed with the submission order")
+    lp = first[3].logprobs
+    check(lp is not None and len(lp) == SAMPLE_NEW
+          and all(len(e["top"]) == 5 and e["token"] == t
+                  and math.isfinite(e["logprob"]) and e["logprob"] <= 1e-6
+                  for e, t in zip(lp, toks[3]))
+          and all(o.logprobs is None for o in first[:3]),
+          "3h: logprob records malformed")
+    log(f"3h paged bf16 sampling: {len(prompts)} requests (greedy, T 0.8, "
+        f"top-k 50, top-p 0.9 + logprobs 5) of {SAMPLE_PROMPTS} tokens, "
+        f"{SAMPLE_NEW} new: wall {wall:.3f} s, tokens {toks}, first "
+        f"logprob record {lp[0]}")
+    return check_sampler_on_card(seed)
 
 
 def _paged_prefill_and_step(cfg, params, toks, device, kv_dtype):
@@ -1677,11 +2154,11 @@ def main() -> int:
 
     paged = ("paged_prefill_attention", "paged_decode_attention")
     keys = {name: paged_key for name in paged}
-    (_, l_fp, _), fp_tally = tally_rows(
+    (_, l_fp, _, fp_spans), fp_tally = tally_rows(
         lambda: run_main_path(cfg, host_params, prompts, wstream="fp",
                               kv_dtype=None), paged, keys)
     keys["q8_matmul"] = lambda x, q, *_: (*x.shape, q.shape[1])
-    (_, l_q8, _), q8_tally = tally_rows(
+    (_, l_q8, _, _), q8_tally = tally_rows(
         lambda: run_main_path(cfg, host_params, prompts, wstream="q8",
                               kv_dtype="int8"), ("q8_matmul", *paged), keys)
     q8_shapes = q8_tally["q8_matmul"]
@@ -1716,6 +2193,10 @@ def main() -> int:
     }
 
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    fit_host_spec(cfg, fp_spans, smi)
+    del fp_spans
+    timed("3g", run_recalibration, dataclasses.replace(
+        cfg, n_layers=min(RECAL_LAYERS, cfg.n_layers)), host_params)
     counts_3b = timed("3b+3e", run_mistral, SEED)
     counts_3c = timed("3c", run_offload_oneshot, cfg, host_params, oprompts)
     counts_3d = timed("3d", run_mamba, SEED)

@@ -196,6 +196,7 @@ class HeteGenEngine:
     def _host_matmul(self, x_np: np.ndarray, name: str) -> np.ndarray:
         w = self._host_part[name]
         with self.tracer.span(name, track="cpu_gemm", bytes=w.nbytes,
+                              rows=x_np.size // x_np.shape[-1],
                               module=name, phase=self.trace_phase):
             t0 = time.perf_counter()
             y = x_np @ w
@@ -342,7 +343,12 @@ class HeteGenEngine:
             else self.manager.pinned_overhead_bytes()
 
     def close(self) -> None:
+        """Shut the pools down (their queued work finishes first) and
+        drain the copy stream, so no ring slot is left with a copy in
+        flight when the engine is dropped or replaced."""
         self._cpu_pool.shutdown(wait=True)
         self._trans_pool.shutdown(wait=True)
         if self.manager is not None:
             self.manager.shutdown()
+        if self._copy_stream is not None:
+            self._copy_stream.synchronize()

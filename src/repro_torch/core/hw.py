@@ -20,7 +20,9 @@ Three concrete systems are modeled:
     EXPERIMENTS.md (197 TFLOP/s bf16, 819 GB/s HBM, ~50 GB/s/link ICI).
   * ``H100_HOST``  — an NVIDIA H100 SXM on a PCIe host, the default of
     this package's offload backend.  Accelerator fields are data-sheet
-    numbers; host and link fields are placeholders until measured.
+    numbers; host and link fields were fitted on one such host from a
+    traced serving run (another host differs: ``HeteGenBackend``'s
+    ``recalibrate=`` adapts the plan to the host it runs on).
 
 Decode-phase (batch≈1) linear layers are memory-bandwidth bound on every
 resource, so "speed" for the alpha law is expressed in *parameter bytes per
@@ -140,20 +142,29 @@ TPU_V5E = HardwareSpec(
 # NVIDIA H100 SXM host — the default of repro_torch's HeteGenBackend.
 # Accelerator: NVIDIA data sheet (67 TFLOP/s fp32 without tensor cores —
 # the engine streams fp32 weights — 3.35 TB/s HBM3, 80 GB).
-# Host and link fields are NOT measured: they are PCIe gen5 x16 / DDR5
-# class placeholders for the alpha law until a calibration run fits them.
+# Host and link fields: fitted by chip_smoke.py (fit_host_spec) from the
+# spans of one traced serving run of OPT-6.7B offloaded at full size
+# (fp32 wire, fp32 pages, four requests, decode batch 4, prefill chunks
+# of 18-32 rows, one pin thread per phase engine) on one "NVIDIA H100
+# 80GB HBM3, 700.00 W" (nvidia-smi --query-gpu=name,power.limit) whose
+# host reports 8 CPUs (nproc), Intel CPU family 6 model 207 with no model
+# name (lscpu) and 108447924224 bytes of memory.  One host's speeds: a
+# pin stream (a strided column view copied into the pinned ring) slower
+# than the link, and an H2D link well below PCIe gen5's peak there.
 # ---------------------------------------------------------------------------
 H100_HOST = HardwareSpec(
     name="h100-host",
     accel_flops=67e12,
     accel_mem_bw=3.35e12,
     accel_mem_bytes=80e9,
-    host_flops=1.0e12,             # unmeasured
-    host_mem_bw=50e9,              # unmeasured
-    host_mem_bytes=1e12,           # unmeasured
-    link_bw=25e9,                  # unmeasured (pinned H2D)
-    link_bw_unpinned=10e9,         # unmeasured
-    pin_bw=20e9,                   # unmeasured (host memcpy into pinned ring)
+    # host GEMM spans of the prefill chunks: sum(rows * bytes) / seconds,
+    # the alpha law's units (intensity counted as rows per weight byte)
+    host_flops=84.91e9,
+    host_mem_bw=6.293e9,           # host GEMM spans at decode (4 rows)
+    host_mem_bytes=108447924224,   # as the machine reports it
+    link_bw=16.93e9,               # transfer spans (pinned H2D, copy stream)
+    link_bw_unpinned=6.751e9,      # one timed pageable copy_ of 256 MB
+    pin_bw=4.980e9,                # pin spans (host copy into pinned ring)
     ici_bw=450e9,                  # NVLink per direction (data sheet)
 )
 

@@ -97,6 +97,15 @@ class GroupRing:
         return None
 
 
+def pin_track(phase: Optional[str]) -> str:
+    """The trace track of a manager's pin thread: ``pin``, or
+    ``pin:<phase>`` for a phase engine's manager.  Each phase engine pins
+    on a thread of its own, so their spans may overlap in time and need a
+    track each; the telemetry reads every ``pin:*`` track as the pin
+    stream."""
+    return "pin" if phase is None else f"pin:{phase}"
+
+
 class AsyncParamManager:
     """Stages module weights into pinned rings ahead of use.
 
@@ -152,7 +161,8 @@ class AsyncParamManager:
         fp = self.fp_bytes.get(name)
         if fp is not None:
             attrs["fp_bytes"] = int(fp)
-        with self.tracer.span(name, track="pin", **attrs):
+        with self.tracer.span(name, track=pin_track(self.trace_phase),
+                              **attrs):
             t0 = time.perf_counter()
             views: List[torch.Tensor] = []
             off = 0

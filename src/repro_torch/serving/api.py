@@ -9,7 +9,9 @@ batcher (:class:`repro_torch.serving.batcher.ContinuousBatcher`)::
         outs = llm.drain()                              # {rid: RequestOutput}
 
 Requests are the unit: each carries its prompt, budget, stop token and
-:class:`repro_torch.serving.sampling.SamplingParams`.  ``backend=None``
+:class:`repro_torch.serving.sampling.SamplingParams` (greedy, temperature,
+top-k or top-p, with its own random stream and, when asked for, per-token
+logprobs in :class:`RequestOutput`).  ``backend=None``
 serves resident weights from ``params``: the batcher through
 :class:`repro_torch.serving.backends.ResidentBackend`, the one-shot
 generator through the stacked whole model.  Scheduling knobs (``policy``,
@@ -17,14 +19,23 @@ generator through the stacked whole model.  Scheduling knobs (``policy``,
 are facade-level, as in the JAX package.
 
 ``generate`` picks the executor as the JAX facade does: a rectangular
-batch (one prompt length, one budget) with nothing else in flight runs
-one-shot on :class:`repro_torch.serving.engine.Generator`
+batch (one prompt length, one budget, no logprobs) with nothing else in
+flight runs one-shot on :class:`repro_torch.serving.engine.Generator`
 (``last_executor == "generator"``); anything else runs through the
-batcher.  Both give the same greedy tokens.
+batcher.  Sampling draws from request-owned random streams (keyed by the
+facade's ``seed`` and the request id, or the request's own seed, and its
+token count, never its batch row), so both give the same tokens.
 
-Not ported yet, and raising when asked for: stochastic sampling and
-logprobs, speculative decoding (``spec=``), tracing export (``trace=``),
-tokenizers, and ``AsyncLLM``.
+``trace=True`` (or a :class:`repro_torch.telemetry.tracer.Tracer`)
+records zero-sync spans across the batcher, the scheduler and an offload
+backend's four streams; :meth:`LLM.write_trace` exports them as Chrome
+trace JSON, :meth:`LLM.overlap_report` computes the I/O-hidden fraction,
+stream utilization and critical path (paper Fig. 5c), and
+:meth:`LLM.metrics` flattens every serving counter into one snapshot.
+
+Not ported yet: speculative decoding (``spec=``) and tokenizers, which
+raise when asked for, and the streaming front ends (``LLM.stream``,
+``LLM.stream_text``, per-token callbacks, ``AsyncLLM``).
 """
 
 from __future__ import annotations
@@ -41,8 +52,13 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.engine import Generator
-from repro_torch.serving.sampling import SamplingParams, require_greedy
+from repro_torch.serving.sampling import (SamplingParams, request_key,
+                                          seed_key)
 from repro_torch.serving.scheduler import SchedulerPolicy
+from repro_torch.telemetry.export import write_chrome_trace
+from repro_torch.telemetry.metrics import MetricsRegistry
+from repro_torch.telemetry.overlap import OverlapReport, compute_overlap
+from repro_torch.telemetry.tracer import Tracer, as_tracer
 
 Prompt = Sequence[int]
 
@@ -67,6 +83,9 @@ class RequestOutput:
     prompt: List[int]
     tokens: List[int]
     finish_reason: str          # "length" | "eos"
+    # one entry per token when SamplingParams.logprobs was set:
+    # {"token": id, "logprob": float, "top": {id: logprob, ...}}
+    logprobs: Optional[List[Dict]] = None
 
 
 def _finish_reason(tokens: List[int], eos: Optional[int]) -> str:
@@ -90,18 +109,18 @@ class LLM:
                  preempt_mode: Optional[str] = None,
                  chunk_tokens: Optional[int] = None,
                  prefix_dedupe: Optional[bool] = None,
-                 spec=None, tokenizer=None, trace=False,
+                 seed: int = 0,
+                 spec=None, tokenizer=None,
+                 trace: Union[bool, Tracer] = False,
                  selfcheck: bool = False,
                  wstream: Optional[str] = None,
                  device=None):
         if backend is None and params is None:
             raise ValueError("LLM needs params or a backend")
-        for name, val in (("spec", spec), ("tokenizer", tokenizer),
-                          ("trace", trace)):
+        for name, val in (("spec", spec), ("tokenizer", tokenizer)):
             if val:
                 raise NotImplementedError(f"LLM({name}=...) is not ported "
                                           "yet")
-        require_greedy(sampling)
         if wstream not in (None, "fp", "q8"):
             raise ValueError(f"unknown wire format {wstream!r} "
                              "(expected 'fp' or 'q8')")
@@ -134,13 +153,27 @@ class LLM:
             if paged:
                 self._resident_backend()
         self.sampling = sampling
+        self.seed = seed
+        # observability: trace=True records zero-sync spans across the
+        # whole stack (batcher steps, engine streams, scheduler events);
+        # the registry is always live and merges the stats() keys on
+        # metrics()
+        self.tracer = as_tracer(trace)
+        self._metrics = MetricsRegistry()
+        if self.tracer and backend is not None \
+                and hasattr(backend, "set_tracer"):
+            backend.set_tracer(self.tracer)
+        # request_key folds request ids into this; step_key derives the
+        # per-token draws
+        self._base_key = seed_key(seed)
         self._batcher_kw = dict(
             max_slots=max_slots, max_len=max_len, paged=paged,
             page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype,
             retune_hysteresis=retune_hysteresis, policy=policy,
             optimistic=optimistic, preempt_mode=preempt_mode,
             chunk_tokens=chunk_tokens, prefix_dedupe=prefix_dedupe,
-            selfcheck=selfcheck, sampling=sampling)
+            selfcheck=selfcheck, sampling=sampling, seed=seed,
+            tracer=self.tracer, metrics=self._metrics)
         self._ids = itertools.count()
         self._batcher: Optional[ContinuousBatcher] = None
         self._generator: Optional[Generator] = None
@@ -190,7 +223,6 @@ class LLM:
                     else (sampling or self.sampling)
                 req = GenRequest(list(int(t) for t in p), max_new, eos=eos,
                                  sampling=sp)
-            require_greedy(req.sampling)
             if req.rid is None:
                 req.rid = next(self._ids)
             reqs.append(req)
@@ -203,16 +235,19 @@ class LLM:
         """Run a batch of requests to completion and return their outputs.
 
         A rectangular batch with nothing else in flight runs one-shot
-        (one prefill + the greedy decode loop); ragged prompts,
-        per-request budgets, or overlap with submitted work run through
-        the continuous batcher.  Either way the tokens are the same."""
+        (one prefill + the decode loop); ragged prompts, per-request
+        budgets, logprobs, or overlap with submitted work run through the
+        continuous batcher.  Either way the tokens are the same
+        (request-owned sampling streams)."""
         reqs = self._as_requests(prompts, max_new, eos, sampling)
         if not reqs:
             return []
         busy = self._batcher is not None and (
             self._batcher.queue or self._batcher.scheduler.resident())
         rect = (len({len(r.prompt) for r in reqs}) == 1
-                and len({r.max_new for r in reqs}) == 1)
+                and len({r.max_new for r in reqs}) == 1
+                # logprob extraction rides the batcher's sampler
+                and not any(r.sampling.logprobs is not None for r in reqs))
         if rect and not busy:
             return self._generate_oneshot(reqs)
         return self._generate_batched(reqs)
@@ -221,8 +256,11 @@ class LLM:
                           ) -> List[RequestOutput]:
         g = self._ensure_generator()
         toks = np.asarray([r.prompt for r in reqs], dtype=np.int32)
+        keys = [request_key(self._base_key, r.rid, r.sampling)
+                for r in reqs]
         res = g.generate({"tokens": toks}, reqs[0].max_new,
-                         sampling=[r.sampling for r in reqs])
+                         sampling=[r.sampling for r in reqs],
+                         request_keys=keys)
         self.last_executor = "generator"
         self.last_metrics = {"prefill_s": res.prefill_s,
                              "decode_s": res.decode_s,
@@ -319,7 +357,9 @@ class LLM:
         req = self._ensure_batcher().requests[rid]
         reason = req.finish_reason or _finish_reason(req.generated, req.eos)
         return RequestOutput(req.rid, req.prompt, list(req.generated),
-                             reason)
+                             reason,
+                             logprobs=None if req.logprobs is None
+                             else list(req.logprobs))
 
     def _take_result(self, rid: int) -> RequestOutput:
         out = self.result(rid)
@@ -370,6 +410,26 @@ class LLM:
                                - kv.free_pages}
                 st["kv"] = kv.stats()
         return st
+
+    def metrics(self) -> Dict:
+        """One flat snapshot of every serving metric: the live batcher
+        instruments (``serve.*``) merged with the :meth:`stats` keys as
+        namespaced gauges (``scheduler.preemptions``, ``kv.free_pages``,
+        ``stream.cpu_s``, ...)."""
+        reg = self._batcher.metrics if self._batcher is not None \
+            else self._metrics
+        reg.absorb(self.stats())
+        return reg.snapshot()
+
+    def write_trace(self, path: str) -> Dict:
+        """Dump the recorded spans as Chrome trace JSON; returns the
+        document (empty trace if tracing was never enabled)."""
+        return write_chrome_trace(path, self.tracer)
+
+    def overlap_report(self) -> OverlapReport:
+        """Per-step I/O-hidden fraction / stream utilization / critical
+        path from the recorded spans (paper Fig. 5c, Table 2)."""
+        return compute_overlap(self.tracer.spans())
 
     def close(self) -> None:
         """Tear down everything the facade owns (idempotent)."""

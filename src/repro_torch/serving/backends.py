@@ -35,6 +35,7 @@ from repro_torch.core.policy import LinearSpec, PolicyResult, build_policy
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.telemetry.recalibrate import recalibrate_alpha
 from repro_torch.telemetry.tracer import NULL_TRACER, Tracer
 
 
@@ -143,8 +144,16 @@ class HeteGenBackend:
     (``prefill_retune_factor``).  Engines share device-resident module
     copies through a common ``resident_store``.
 
-    ``hw`` defaults to :data:`repro_torch.core.hw.H100_HOST`.  Trace-driven
-    recalibration (``recalibrate=``) is not ported yet and raises.
+    ``tile`` is the column granularity of every alpha split (128 by
+    default, as in the JAX package).  ``hw`` defaults to
+    :data:`repro_torch.core.hw.H100_HOST`, one host's
+    measured speeds.  ``recalibrate=`` adapts the decode plan to the host
+    it runs on: every ``recalibrate_every`` decode steps the stream speeds
+    measured from the tracer's spans re-solve the alpha law, and the
+    decode engine is rebuilt when the refined alpha moved by more than
+    ``recalibrate`` (absolute).  It needs a tracer (``set_tracer``, or
+    ``LLM(trace=True)``).  Every fit's alpha is kept in ``fit_alphas``;
+    each rebuild is a ``replan`` span carrying the new ``alpha``.
     """
 
     cache_batch_axis = 0
@@ -160,14 +169,13 @@ class HeteGenBackend:
                  prefill_retune_factor: float = 2.0,
                  tracer: Tracer = NULL_TRACER,
                  recalibrate: Optional[float] = None,
+                 recalibrate_every: int = 16,
                  wstream: str = "fp",
+                 tile: int = 128,
                  device=None):
         if wstream not in ("fp", "q8"):
             raise ValueError(f"unknown wire format {wstream!r} "
                              "(expected 'fp' or 'q8')")
-        if recalibrate is not None:
-            raise NotImplementedError(
-                "trace-driven recalibration is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         shared, weights, biases = M.extract_backend_params(cfg, params)
@@ -183,6 +191,7 @@ class HeteGenBackend:
         self.use_module_scheduler = use_module_scheduler
         self.alpha_override = alpha_override
         self.phase_plans = phase_plans
+        self.tile = tile
         self.prefill_retune_factor = max(float(prefill_retune_factor), 1.0)
         self.batch: Optional[int] = None
         self.policies: Dict[str, PolicyResult] = {}
@@ -192,6 +201,13 @@ class HeteGenBackend:
         self._phase = "decode"
         self.step_prefetches = 0            # cross-step prefetch nudges
         self.tracer = tracer
+        self.recalibrate = recalibrate
+        self.recalibrate_every = max(int(recalibrate_every), 1)
+        self.recalibrations = 0
+        self.last_fit = None                # most recent trace FitResult
+        self.fit_alphas: List[float] = []   # every fit's alpha, in order
+        self._recal_steps = 0
+        self._recal_mark = tracer.mark() if tracer else 0.0
         self.retune(batch)
 
     # -- phase/batch-aware planning ------------------------------------
@@ -220,35 +236,46 @@ class HeteGenBackend:
             self.linears, self.hw, budget_bytes=self.budget_bytes,
             batch=batch, phase=phase, tokens_per_seq=tokens_per_seq,
             use_alpha_benchmark=self.use_alpha_benchmark,
-            use_module_scheduler=self.use_module_scheduler)
+            use_module_scheduler=self.use_module_scheduler, tile=self.tile)
         if self.alpha_override is not None:
             pol.plan = [
                 ModulePlan(p.name, p.group, p.mode,
                            self.alpha_override if p.mode == "hetegen"
                            else p.alpha)
                 for p in pol.plan]
-        old = self.engines.pop(phase, None)
-        if old is not None:
-            # a replaced partition's busy seconds still happened
-            self._stats_tally = self._stats_tally + old.finish_stats()
-            old.close()
+        self._close_engine(phase)
         self.policies[phase] = pol
         keep = {p.name for r in self.policies.values()
                 for p in r.plan if p.mode == "resident"}
         for name in list(self._resident_store):
             if name not in keep:
                 del self._resident_store[name]
-        eng = HeteGenEngine(self._host_weights, pol.plan,
-                            biases=self._host_biases,
+        self._open_engine(phase)
+        if phase == "decode":
+            self.batch = batch
+        return pol
+
+    def _close_engine(self, phase: str) -> None:
+        """Close ``phase``'s engine, if any: its pools drain and its copy
+        stream is synchronized, so no ring slot it owns has a copy in
+        flight."""
+        old = self.engines.pop(phase, None)
+        if old is not None:
+            # a replaced partition's busy seconds still happened
+            self._stats_tally = self._stats_tally + old.finish_stats()
+            old.close()
+
+    def _open_engine(self, phase: str) -> None:
+        """Build ``phase``'s engine for its current plan and stage the
+        first module of each group."""
+        eng = HeteGenEngine(self._host_weights, self.policies[phase].plan,
+                            biases=self._host_biases, tile=self.tile,
                             device=self.device,
                             resident_store=self._resident_store,
                             tracer=self.tracer, trace_phase=phase,
                             wstream=self.wstream)
         eng.warm_prefetch()
         self.engines[phase] = eng
-        if phase == "decode":
-            self.batch = batch
-        return pol
 
     def _ensure_prefill_plan(self, batch: int, seq: int) -> None:
         """Tune the prefill plan to the observed prompt shape; rebuild only
@@ -261,10 +288,65 @@ class HeteGenBackend:
                 return
         self.retune(batch, phase="prefill", tokens_per_seq=seq)
 
+    # -- tracing + trace-driven recalibration --------------------------
     def set_tracer(self, tracer: Tracer) -> None:
+        """Attach a tracer to the backend and every live phase engine."""
         self.tracer = tracer
+        self._recal_mark = tracer.mark() if tracer else 0.0
         for phase, eng in self.engines.items():
             eng.set_tracer(tracer, trace_phase=phase)
+
+    def recalibrate_from_trace(self, phase: str = "decode"):
+        """Refine ``phase``'s alpha from the spans recorded since the
+        last recalibration; returns the ``FitResult`` (or None if the
+        trace has no measurable spans for that phase — an all-resident
+        plan, or tracing disabled)."""
+        pol = self.policies.get(phase)
+        if pol is None or not self.tracer:
+            return None
+        spans = self.tracer.spans(since=self._recal_mark or None)
+        try:
+            fit = recalibrate_alpha(spans, pol.alpha, phase=phase)
+        except ValueError:
+            return None
+        self.last_fit = fit
+        self.fit_alphas.append(fit.alpha)
+        return fit
+
+    def _apply_alpha(self, phase: str, alpha: float) -> None:
+        """Rebuild ``phase``'s engine with a new hetegen alpha, keeping
+        the residency/streaming decisions of the existing plan; the old
+        engine closes before the new one is built."""
+        pol = self.policies[phase]
+        pol.plan = [ModulePlan(p.name, p.group, p.mode,
+                               alpha if p.mode == "hetegen" else p.alpha)
+                    for p in pol.plan]
+        pol.alpha = float(alpha)
+        self._close_engine(phase)
+        self._open_engine(phase)
+
+    def _maybe_recalibrate(self) -> None:
+        """Periodic trace-driven re-tune, called at the top of a decode
+        step — the engines are idle there, so swapping the decode
+        partition is safe.  Opt-in (``recalibrate=``), with the drift
+        threshold acting as hysteresis: the plan is only rebuilt when
+        |refined - current| exceeds it.  The fit reads the decode-tagged
+        spans recorded since the last fit."""
+        if self.recalibrate is None or not self.tracer:
+            return
+        self._recal_steps += 1
+        if self._recal_steps % self.recalibrate_every:
+            return
+        mark = self.tracer.mark()
+        fit = self.recalibrate_from_trace("decode")
+        if fit is None:
+            return
+        if abs(fit.alpha - self.policies["decode"].alpha) > self.recalibrate:
+            with self.tracer.span("replan", track="replan", phase="decode",
+                                  alpha=float(fit.alpha)):
+                self._apply_alpha("decode", fit.alpha)
+            self.recalibrations += 1
+        self._recal_mark = mark
 
     # -- LinearBackend surface -----------------------------------------
     def linear(self, x: torch.Tensor, name: str) -> torch.Tensor:
@@ -298,6 +380,7 @@ class HeteGenBackend:
 
     def decode(self, token: torch.Tensor, cache: Dict
                ) -> Tuple[Dict, torch.Tensor]:
+        self._maybe_recalibrate()
         return M.backend_decode(self.cfg, self.shared, token, cache,
                                 linear=self.linear, ops=self._ops)
 

@@ -20,11 +20,20 @@ between a decode step's math and its host-side sampling it nudges the
 offload engine's pinned ring (``backend.prefetch_next_step()``) so step
 N+1's pins overlap step N's tail.
 
+Sampling is **per request**: each submit may carry its own
+:class:`repro_torch.serving.sampling.SamplingParams`, rows of one decode
+batch are sampled under their own parameters (row-vectorized sampler),
+and every request owns a random stream keyed by its id (or its own
+``seed``) and its generated-token count — never by batch-row number.
+Scheduling (compaction, preemption, resume) therefore cannot perturb
+tokens.  ``SamplingParams.logprobs`` additionally records each sampled
+token's log-probability (and top-k alternatives) straight out of the
+sampler's sort.
+
 ``paged=True`` swaps the dense per-layer cache for
 :class:`repro_torch.serving.kv_cache.PagedKVCache`; its pools are device
 tensors the model updates in place, so no pool is copied back after a
-step.  ``kv_dtype="int8"`` stores int8 pages.  Sampling is greedy (the
-port's only sampler so far); speculative decoding is not ported yet.
+step.  ``kv_dtype="int8"`` stores int8 pages.
 """
 
 from __future__ import annotations
@@ -40,9 +49,10 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_cache import slot_view
 from repro_torch.serving.sampling import (SamplingParams, greedy,
-                                          require_greedy)
-from repro_torch.serving.scheduler import (RequestState, RUNNING, Scheduler,
-                                           SchedulerPolicy)
+                                          pack_sampling, request_key,
+                                          sample_rows, seed_key, step_key)
+from repro_torch.serving.scheduler import (PREFILLING, RequestState, RUNNING,
+                                           Scheduler, SchedulerPolicy)
 from repro_torch.telemetry.metrics import MetricsRegistry
 from repro_torch.telemetry.tracer import NULL_TRACER, Tracer
 
@@ -52,7 +62,7 @@ class ContinuousBatcher:
                  max_slots: int = 4, max_len: int = 512,
                  backend=None,
                  sampling: SamplingParams = SamplingParams(),
-                 paged: bool = False, page_size: int = 16,
+                 seed: int = 0, paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  retune_hysteresis: Optional[int] = None,
@@ -71,7 +81,6 @@ class ContinuousBatcher:
                 "continuous batching supports transformer KV caches")
         if backend is None and params is None:
             raise ValueError("ContinuousBatcher needs params or a backend")
-        require_greedy(sampling)
         self.cfg = cfg
         self._own_backend = backend is None if own_backend is None \
             else bool(own_backend)
@@ -91,6 +100,12 @@ class ContinuousBatcher:
         self.max_slots = max_slots
         self.max_len = max_len
         self.default_sampling = sampling
+        # the one base key request_key folds request ids into; every
+        # sampling draw derives from it per request
+        self._base_key = seed_key(seed)
+        self._pack_sig = None               # slot -> request of _packed
+        self._packed: Optional[Dict] = None
+        self._packed_lp: Optional[int] = None
         self.paged = paged
         self.kv = None
         if paged:
@@ -147,16 +162,66 @@ class ContinuousBatcher:
         """Queue a request; ``rid`` lets an owning facade keep one id
         space; ``priority`` matters to priority-aware policies."""
         sp = self.default_sampling if sampling is None else sampling
-        require_greedy(sp)
         rid = next(self._ids) if rid is None else rid
         st = RequestState(rid, list(prompt), max_new, eos, sampling=sp,
+                          key=request_key(self._base_key, rid, sp),
                           priority=priority)
         self.scheduler.submit(st)
         return rid
 
-    def _sample(self, logits: torch.Tensor, rows: int) -> torch.Tensor:
-        with self.tracer.span("sample", track="sample", rows=rows):
+    def _sample_slot_rows(self, logits: torch.Tensor,
+                          slots: List[int]) -> torch.Tensor:
+        """Sample one token per logits row, row i belonging to slot
+        ``slots[i]``.  Each occupied slot draws under its request's own
+        params with the key for its next token; vacant rows (the dense
+        path's masked garbage) and mid-prefill rows sample greedily and
+        draw nothing, so they cannot perturb real requests.  Rows whose
+        request asked for logprobs get their per-token record appended
+        here, straight out of the sampler's sort."""
+        with self.tracer.span("sample", track="sample", rows=len(slots)):
+            return self._sample_slot_rows_traced(logits, slots)
+
+    def _sample_slot_rows_traced(self, logits: torch.Tensor,
+                                 slots: List[int]) -> torch.Tensor:
+        slot_req = self.scheduler.slot_req
+        reqs = [None if slot_req[s] is None
+                or slot_req[s].status == PREFILLING else slot_req[s]
+                for s in slots]
+        params = [SamplingParams() if r is None else r.sampling
+                  for r in reqs]
+        lp_k = [p.logprobs for p in params if p.logprobs is not None]
+        if not lp_k and all(p.kind == "greedy" for p in params):
+            # the default serving config: skip the full-vocab sort (greedy
+            # rows draw nothing, so this is exactly equivalent)
             return greedy(logits)
+        keys = [None if r is None else step_key(r.key, len(r.generated))
+                for r in reqs]
+        sig = tuple((s, -1 if r is None else r.rid)
+                    for s, r in zip(slots, reqs))
+        if sig != self._pack_sig:
+            self._pack_sig = sig
+            self._packed = pack_sampling(params, device=logits.device)
+            self._packed_lp = max(lp_k) if lp_k else None
+        if self._packed_lp is None:
+            return sample_rows(logits, keys, self._packed)
+        toks, lp = sample_rows(logits, keys, self._packed,
+                               top_logprobs=self._packed_lp)
+        # the step's one read-back of logprobs: (B,) and (B, k) values
+        chosen = lp["logprob"].tolist()
+        top_ids = lp["top_tokens"].tolist()
+        top_lp = lp["top_logprobs"].tolist()
+        tok_list = toks.tolist()
+        for i, req in enumerate(reqs):
+            if req is None or req.sampling.logprobs is None:
+                continue
+            k = req.sampling.logprobs
+            req.logprobs.append({
+                "token": int(tok_list[i]),
+                "logprob": float(chosen[i]),
+                "top": {int(t): float(l)
+                        for t, l in zip(top_ids[i][:k], top_lp[i][:k])},
+            })
+        return toks
 
     def _tokens(self, toks: List[List[int]]) -> torch.Tensor:
         return torch.tensor(toks, dtype=torch.int32, device=self.device)
@@ -201,7 +266,7 @@ class ContinuousBatcher:
             logits = self._prefill_paged_slot(slot, toks)
         else:
             logits = self._prefill_dense_slot(slot, toks)
-        first = int(self._sample(logits, 1)[0])
+        first = int(self._sample_slot_rows(logits, [slot])[0])
         self.cache["len"][slot] = toks.shape[1]
         self.tokens[slot] = first
         st.generated.append(first)
@@ -258,7 +323,7 @@ class ContinuousBatcher:
             grp, logits = self.backend.prefill({"tokens": toks}, grp)
             for i, slot in enumerate(slots):
                 self._merge_dense(slot, grp, row=i)
-        firsts = self._sample(logits, len(sts)).tolist()
+        firsts = self._sample_slot_rows(logits, slots).tolist()
         for i, st in enumerate(sts):
             self.cache["len"][st.slot] = n
             self.tokens[st.slot] = firsts[i]
@@ -293,7 +358,7 @@ class ContinuousBatcher:
         if not self.paged:
             self._merge_dense(slot, self._pending_dense.pop(slot))
         st.status = RUNNING            # before sampling: the row is real
-        first = int(self._sample(logits, 1)[0])
+        first = int(self._sample_slot_rows(logits, [slot])[0])
         self.cache["len"][slot] = n
         self.tokens[slot] = first
         st.generated.append(first)
@@ -383,7 +448,8 @@ class ContinuousBatcher:
                 self.cache, logits = self.backend.decode(self.tokens,
                                                          self.cache)
                 self._prefetch_next_step()
-                self.tokens = self._sample(logits, self.max_slots)
+                self.tokens = self._sample_slot_rows(
+                    logits, list(range(self.max_slots)))
         nxt = self.tokens.tolist()
         for st in self.scheduler.running():
             st.generated.append(nxt[st.slot])
@@ -398,7 +464,8 @@ class ContinuousBatcher:
         """One decode step over the active slots only: selecting the
         active block-table / length / token rows of the global pools is a
         metadata operation, so inactive slots cost nothing."""
-        idx = torch.as_tensor(np.flatnonzero(active), device=self.device)
+        slots = np.flatnonzero(active)
+        idx = torch.as_tensor(slots, device=self.device)
         sub = {k: v for k, v in self.cache.items()
                if k.startswith("pages_")}
         sub["block_tables"] = self.cache["block_tables"][idx]
@@ -406,7 +473,7 @@ class ContinuousBatcher:
         sub, logits = self.backend.decode(self.tokens[idx], sub)
         self._prefetch_next_step()
         self.cache["len"][idx] = sub["len"]
-        self.tokens[idx] = self._sample(logits, len(idx))
+        self.tokens[idx] = self._sample_slot_rows(logits, slots.tolist())
 
     def run_until_done(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
         for _ in range(max_steps):

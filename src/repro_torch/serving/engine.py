@@ -1,7 +1,7 @@
 """One-shot generation over the dense KV cache or an SSM state.
 
 :class:`Generator` runs a rectangular batch to completion: one prefill,
-then a greedy decode loop.  It has two executions of the same layer
+then a decode loop.  It has two executions of the same layer
 math, as in the JAX package:
 
 * **resident whole model** (``Generator(cfg, params)``):
@@ -18,11 +18,15 @@ math, as in the JAX package:
 On the card the prefill attends through the flash-attention kernel and
 every decode step through the flash-decode kernel
 (:func:`repro_torch.models.model.attention_route`); a Mamba2 prefill runs
-the SSD chunk kernel (:mod:`repro_torch.models.ssm`).  Sampling is greedy,
-the port's only sampler so far: the loop moves (B,) token ids per step
-and reads nothing back to the host until the batch is done (an offload
-backend's own host share aside).  Request-level ``sampling`` raises
-unless every row is greedy.
+the SSD chunk kernel (:mod:`repro_torch.models.ssm`).  The loop samples on
+the device and reads nothing back to the host until the batch is done (an
+offload backend's own host share aside).  Without request-level
+``sampling`` the constructor's whole-batch sampler runs (greedy by
+default); with it every row draws under its own
+:class:`repro_torch.serving.sampling.SamplingParams` from its request's
+own random stream — the streams the continuous batcher consumes, so
+one-shot and batched execution of the same requests give the same
+tokens.
 
 Request-level serving fronts this class through
 :class:`repro_torch.serving.api.LLM`, which uses it as the one-shot
@@ -39,8 +43,10 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.sampling import (SamplingParams, greedy,
-                                          require_greedy)
+from repro_torch.serving.sampling import (SamplerConfig, SamplingParams,
+                                          fold_in, greedy, make_sampler,
+                                          pack_sampling, request_key,
+                                          sample_rows, seed_key, step_key)
 
 
 @dataclasses.dataclass
@@ -58,16 +64,18 @@ def wait_for(t: torch.Tensor) -> None:
 
 
 class Generator:
-    """Batched greedy generation over the stacked resident model or a
-    backend (see the module docstring)."""
+    """Batched generation over the stacked resident model or a backend
+    (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 sampler: SamplerConfig = SamplerConfig(),
                  backend=None):
         if backend is None and params is None:
             raise ValueError("Generator needs params or a backend")
         self.cfg = cfg
         self.params = params
         self.backend = backend
+        self.sample = make_sampler(sampler)
 
     def _device(self) -> torch.device:
         if self.backend is not None:
@@ -77,24 +85,49 @@ class Generator:
     # ------------------------------------------------------------------
     def generate(self, batch: Dict, max_new_tokens: int, *,
                  max_len: Optional[int] = None,
-                 sampling: Optional[List[SamplingParams]] = None
+                 seed: int = 0,
+                 sampling: Optional[List[SamplingParams]] = None,
+                 request_keys: Optional[List[int]] = None
                  ) -> GenerateResult:
-        """Generate ``max_new_tokens`` greedy tokens per row of
-        ``batch["tokens"]`` (B, S).  ``sampling`` (one
-        :class:`SamplingParams` per row) must be all greedy."""
+        """Generate ``max_new_tokens`` per row of ``batch["tokens"]``
+        (B, S).
+
+        ``sampling`` switches to request-level sampling: one
+        :class:`SamplingParams` per row, drawn under per-request random
+        streams (``request_keys``, derived from ``seed`` and the row index
+        when omitted).  Without it the constructor's whole-batch sampler
+        runs, keyed by ``seed``."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
+        packed = None
+        all_greedy = False
         if sampling is not None:
             if len(sampling) != b:
                 raise ValueError(f"{len(sampling)} SamplingParams for "
                                  f"batch {b}")
-            for sp in sampling:
-                require_greedy(sp)
+            # greedy rows draw nothing: an all-greedy batch keeps the
+            # plain argmax instead of the full-vocab sort
+            all_greedy = all(p.kind == "greedy" for p in sampling)
+            if not all_greedy and request_keys is None:
+                base = seed_key(seed)
+                request_keys = [request_key(base, i, sp)
+                                for i, sp in enumerate(sampling)]
         total = max_len or (s + max_new_tokens)
         be = self.backend
         dev = self._device()
         tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+        if sampling is not None and not all_greedy:
+            packed = pack_sampling(sampling, device=dev)
+        key = seed_key(seed)
+
+        def sample(logits: torch.Tensor, step: int) -> torch.Tensor:
+            if packed is not None:
+                return sample_rows(logits, [step_key(k, step)
+                                            for k in request_keys], packed)
+            if all_greedy:
+                return greedy(logits)
+            return self.sample(logits, fold_in(key, step))
         if be is not None and hasattr(be, "retune"):
             be.retune(b)       # plan follows the real decode batch
         cache = M.init_cache(cfg, b, total, device=dev) if be is None \
@@ -106,17 +139,17 @@ class Generator:
                                       cache)
         else:
             cache, logits = be.prefill({"tokens": tokens}, cache)
-        tok = greedy(logits)
+        tok = sample(logits, 0)
         wait_for(tok)
         t1 = time.perf_counter()
 
         out = [tok]
-        for _ in range(max_new_tokens - 1):
+        for i in range(1, max_new_tokens):
             if be is None:
                 cache, logits = M.decode_step(cfg, self.params, tok, cache)
             else:
                 cache, logits = be.decode(tok, cache)
-            tok = greedy(logits)
+            tok = sample(logits, i)
             out.append(tok)
         wait_for(tok)
         t2 = time.perf_counter()

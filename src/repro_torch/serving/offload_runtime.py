@@ -14,7 +14,9 @@ layer functions (:func:`repro_torch.models.model.decoder_layer`) through
 per-layer cache, whose prefill runs the flash-attention kernel and whose
 decode steps run the flash-decode kernel on the card.  The placement plan
 is tuned for the real decode batch (§4.1's cost model shifts the optimal
-alpha with compute intensity).  Sampling is greedy.
+alpha with compute intensity).  One whole-batch sampler
+(:func:`repro_torch.serving.sampling.make_sampler`, greedy by default)
+draws every row, keyed by ``generate``'s ``seed``.
 
 For request-level serving drive the backend through
 :class:`repro_torch.serving.api.LLM` instead; this generator is the
@@ -33,7 +35,8 @@ from repro_torch.core.hw import H100_HOST, HardwareSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.backends import HeteGenBackend
 from repro_torch.serving.engine import wait_for
-from repro_torch.serving.sampling import greedy
+from repro_torch.serving.sampling import (SamplerConfig, fold_in,
+                                          make_sampler, seed_key)
 
 
 class OffloadGenerator:
@@ -51,6 +54,7 @@ class OffloadGenerator:
                  use_alpha_benchmark: bool = True,
                  use_module_scheduler: bool = True,
                  alpha_override: Optional[float] = None,
+                 sampler: SamplerConfig = SamplerConfig(),
                  batch: int = 1,
                  auto_retune: bool = True,
                  device=None):
@@ -61,6 +65,7 @@ class OffloadGenerator:
             use_module_scheduler=use_module_scheduler,
             alpha_override=alpha_override, device=device)
         self.auto_retune = auto_retune
+        self.sample = make_sampler(sampler)
 
     @property
     def policy(self):
@@ -72,8 +77,8 @@ class OffloadGenerator:
 
     # ------------------------------------------------------------------
     def generate(self, tokens: np.ndarray, max_new_tokens: int,
-                 *, max_len: Optional[int] = None) -> Dict:
-        """Greedy-generate ``max_new_tokens`` per row of ``tokens`` (B, S)."""
+                 *, max_len: Optional[int] = None, seed: int = 0) -> Dict:
+        """Generate ``max_new_tokens`` per row of ``tokens`` (B, S)."""
         b, s = tokens.shape
         if self.auto_retune:
             self.backend.retune(b)
@@ -84,13 +89,15 @@ class OffloadGenerator:
                                device=self.backend.device)
         t0 = time.perf_counter()
         cache, logits = self.backend.prefill({"tokens": toks}, cache)
-        tok = greedy(logits)
+        key = seed_key(seed)
+        tok = self.sample(logits, key)
         wait_for(tok)
         t1 = time.perf_counter()
         out = [tok]
-        for _ in range(max_new_tokens - 1):
+        for i in range(max_new_tokens - 1):
+            key = fold_in(key, i)
             cache, logits = self.backend.decode(out[-1], cache)
-            out.append(greedy(logits))
+            out.append(self.sample(logits, key))
         wait_for(out[-1])
         t2 = time.perf_counter()
         # stream stats aggregate over the backend's phase engines (the

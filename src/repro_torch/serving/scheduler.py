@@ -82,6 +82,7 @@ class RequestState:
     max_new: int
     eos: Optional[int] = None
     sampling: SamplingParams = SamplingParams()
+    key: Optional[int] = None            # request-owned random stream
     priority: int = 0                    # larger = more important
     arrival: int = 0                     # monotonic submission index
     generated: List[int] = dataclasses.field(default_factory=list)

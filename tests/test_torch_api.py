@@ -77,9 +77,12 @@ def test_unported_features_raise(setup):
         want = [o.tokens for o in jllm.generate([prompts[0], prompts[2]],
                                                 max_new=3)]
     with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32) as llm:
-        with pytest.raises(NotImplementedError):
-            llm.submit(prompts[0], 3,
-                       sampling=SamplingParams(kind="topp", top_p=0.9))
+        # nucleus sampling is served now
+        rid = llm.submit(prompts[0], 3,
+                         sampling=SamplingParams(kind="topp", top_p=0.9))
+        topp = llm.drain()[rid].tokens
+        assert len(topp) == 3
+        assert all(0 <= t < cfg.vocab_size for t in topp)
         # a rectangular batch runs one-shot, token-identical to JAX's
         one = llm.generate([prompts[0], prompts[2]], max_new=3)
         assert llm.last_executor == "generator"
@@ -88,10 +91,18 @@ def test_unported_features_raise(setup):
         outs = llm.generate(prompts[:2], max_new=3)
         assert llm.last_executor == "batcher"
         assert [len(o.tokens) for o in outs] == [3, 3]
-    for bad in (dict(spec=object()), dict(trace=True)):
-        with pytest.raises(NotImplementedError):
-            LLM(cfg, tp, device="cpu", **bad)
     with pytest.raises(NotImplementedError):
-        HeteGenBackend(cfg, tp, device="cpu", recalibrate=0.05)
+        LLM(cfg, tp, device="cpu", spec=object())
+    # tracing and trace-driven recalibration are served now
+    with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32,
+             trace=True) as llm:
+        traced = llm.generate(prompts[:2], max_new=3)
+        assert llm.last_executor == "batcher"
+        assert [o.tokens for o in traced] == [o.tokens for o in outs]
+        assert {"step", "phase", "sample"} <= {
+            s.track for s in llm.tracer.spans()}
+    hb = HeteGenBackend(cfg, tp, device="cpu", recalibrate=0.05)
+    assert hb.recalibrate == 0.05 and hb.recalibrations == 0
+    hb.close()
     with pytest.raises(ValueError):
         LLM(cfg, tp, device="cpu", wstream="q8")

@@ -1124,3 +1124,132 @@ def test_paged_decode_f32_refuses_head_dims(cuda, d, q8):
         paged_attention.paged_decode_attention(q, kp, vp, bt, ones,
                                                k_scale=ks, v_scale=vs)
     assert paged_attention.paged_decode_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the request-level sampler on the card (plain PyTorch, no kernel of its
+# own): the CPU's filter, the same bits twice, rows independent, and draws
+# that follow the filtered distribution
+# ---------------------------------------------------------------------------
+
+SAMPLER_KINDS = [dict(kind="greedy"),
+                 dict(kind="temperature", temperature=0.8),
+                 dict(kind="topk", top_k=50),
+                 dict(kind="topp", top_p=0.9),
+                 dict(kind="topp", top_p=1.0),
+                 dict(kind="topp", top_p=0.95, top_k=64, temperature=1.5)]
+
+
+def _sampler_case(cuda, v, seed):
+    from repro_torch.serving import sampling as smp
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    # quantized to 1/16: every row holds ties
+    logits = (torch.randn((len(SAMPLER_KINDS), v), generator=gen,
+                          device=cuda) * 64).round() / 16
+    params = [smp.SamplingParams(**kw) for kw in SAMPLER_KINDS]
+    return smp, logits, params
+
+
+@pytest.mark.parametrize("v", [64, 4096, 131072])
+def test_sample_rows_card_filter_equals_cpu(cuda, v):
+    """The card's sort order equals the CPU's (the reference's tie order);
+    its kept set equals the CPU's except at tokens whose exact mass before
+    them lies within (V - 1) 2^-24 of top_p (an fp32 sum in another
+    order); two calls give the same bits; every draw stays in its row's
+    kept set; a row moved beside other rows draws the same token."""
+    smp, logits, params = _sampler_case(cuda, v, v)
+    order, _, keep = smp.filter_sorted(
+        logits, smp.pack_sampling(params, device=cuda))
+    c_order, c_scaled, c_keep = smp.filter_sorted(
+        logits.cpu(), smp.pack_sampling(params))
+    assert torch.equal(order.cpu(), c_order)
+    pr = torch.softmax(c_scaled.double(), dim=-1)
+    top_p = torch.tensor([p.top_p for p in params], dtype=torch.float64)
+    margin = (torch.cumsum(pr, -1) - pr - top_p[:, None]).abs()
+    diff = keep.cpu() != c_keep
+    assert bool((margin[diff] <= (v - 1) * 2.0 ** -24).all())
+    keys = [smp.seed_key(100 + i) for i in range(len(params))]
+    packed = smp.pack_sampling(params, device=cuda)
+    a, ia = smp.sample_rows(logits, keys, packed, top_logprobs=5)
+    b, ib = smp.sample_rows(logits, keys, packed, top_logprobs=5)
+    assert a.device == logits.device and a.dtype == torch.int32
+    assert torch.equal(a, b) and all(torch.equal(ia[k], ib[k]) for k in ia)
+    kept = torch.zeros_like(keep).scatter_(-1, order, keep)
+    assert bool(kept.gather(-1, a[:, None].long()).all())
+    assert int(a[0]) == int(logits[0].argmax())
+    moved = torch.stack([logits[3], logits[1], logits[5]])
+    sub = [params[3], params[1], params[5]]
+    c = smp.sample_rows(moved, [keys[3], keys[1], keys[5]],
+                        smp.pack_sampling(sub, device=cuda))
+    assert c.tolist() == [int(a[3]), int(a[1]), int(a[5])]
+
+
+def test_sample_rows_card_draws_follow_distribution(cuda):
+    """2^14 card draws of one top-p 0.95 / top-k 64 row at temperature 1.5
+    against the CPU's filtered distribution: chi-square p > 1e-3 (bins
+    expecting fewer than five draws merged)."""
+    from scipy import stats
+    smp, logits, params = _sampler_case(cuda, 4096, 7)
+    row, p = logits[5:6], params[5]
+    n = 1 << 14
+    keys = [smp.fold_in(smp.seed_key(7), j) for j in range(n)]
+    toks = smp.sample_rows(row.expand(n, -1), keys,
+                           smp.pack_sampling([p] * n, device=cuda))
+    counts = torch.bincount(toks.long(), minlength=4096).cpu().double()
+    order, scaled, keep = smp.filter_sorted(row.cpu(),
+                                            smp.pack_sampling([p]))
+    pr = torch.softmax(scaled.double(), dim=-1) * keep
+    want = torch.zeros_like(pr).scatter_(-1, order, pr / pr.sum())[0] * n
+    assert float(counts[want == 0].sum()) == 0.0
+    big = want >= 5
+    obs = np.append(counts[big].numpy(), counts[~big].sum().item())
+    exp = np.append(want[big].numpy(), want[~big].sum().item())
+    if exp[-1] == 0:
+        obs, exp = obs[:-1], exp[:-1]
+    assert stats.chisquare(obs, exp * obs.sum() / exp.sum()).pvalue > 1e-3
+
+
+def test_sampler_noise_card_equals_cpu(cuda):
+    """The Gumbel noise is integer arithmetic on the step keys: the card's
+    equals the CPU's (the log in float64 within 1 ulp of fp32), so a row
+    draws the same token on both wherever no two scores lie within that
+    rounding of each other."""
+    from repro_torch.serving import sampling as smp
+    keys = [smp.seed_key(s) for s in range(8)] + [0, (1 << 64) - 1]
+    mix_cpu = smp._mix64_t(smp.key_tensor(keys))
+    assert torch.equal(smp._mix64_t(smp.key_tensor(keys, cuda)).cpu(),
+                       mix_cpu)
+    g = smp.gumbel_noise(smp.key_tensor(keys, cuda), 131072).cpu()
+    torch.testing.assert_close(g, smp.gumbel_noise(smp.key_tensor(keys),
+                                                   131072),
+                               rtol=1.2e-7, atol=1e-7)
+
+
+def test_sample_rows_in_cuda_graph(cuda):
+    """Given tensors only (logits, a key tensor, packed parameters),
+    ``sample_rows`` is a fixed chain of device operations: a CUDA graph
+    captures it, and its replay gives the eager call's tokens and
+    logprobs for new logits and keys copied into the same buffers."""
+    smp, logits, params = _sampler_case(cuda, 4096, 11)
+    packed = smp.pack_sampling(params, device=cuda)
+    keys = smp.key_tensor([smp.seed_key(i) for i in range(len(params))],
+                          cuda)
+    static_l, static_k = logits.clone(), keys.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        smp.sample_rows(static_l, static_k, packed, top_logprobs=3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, info = smp.sample_rows(static_l, static_k, packed,
+                                    top_logprobs=3)
+    new_l = logits.flip(-1)
+    new_k = smp.key_tensor([smp.seed_key(50 + i)
+                            for i in range(len(params))], cuda)
+    static_l.copy_(new_l)
+    static_k.copy_(new_k)
+    graph.replay()
+    want, winfo = smp.sample_rows(new_l, new_k, packed, top_logprobs=3)
+    assert torch.equal(out, want)
+    assert all(torch.equal(info[k], winfo[k]) for k in info)
