@@ -41,6 +41,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    be rebuilt at least once and its alpha move toward the crossing of the
    run's measured speeds; each decode step's alpha and the decode tok/s
    before the first and after the last re-plan are logged;
+3i. speculative decoding on the main path: OPT-6.7B (``--layers``, fp32,
+   phase 3's host weights) served by ``LLM(paged=True, backend=
+   HeteGenBackend(wstream="fp"))`` over fp32 pages, four greedy requests
+   whose ``SPEC_PROMPT``-token prompts repeat a random ``SPEC_RUN``-token
+   run, ``SPEC_NEW`` new tokens each, once with ``spec=SpecConfig(
+   NgramDrafter(), k=SPEC_K)`` and once without, over one backend, both
+   traced.  Tokens must be identical, but for a mismatch at a position
+   where the plain run's top-two logit gap is under ``LOGIT_TOL`` of its
+   largest |logit| (logged; compared up to there).  Logged for each run:
+   tok/s and serve s, busy s per stream track (``pin:verify`` among
+   them), the overlap report per phase (``verify`` among them), the
+   planned and refit alpha per phase, ``SpecStats`` and the acceptance
+   rate, and ``paged_prefill_attention`` launches by (B, S, kv ends);
+   the speculative run must launch it at verify shapes (S of 2 to
+   ``SPEC_K`` + 1) and the plain run ``paged_decode_attention``;
 3b. resident one-shot generation of Mistral-NeMo-12B at full width and
    full depth (40 layers), bf16, random weights made on the card from a
    seed: ``LLM(cfg, params).generate`` of four 512-token prompts, 16 new
@@ -101,6 +116,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    gives the same bits from two calls, passes a chi-square test of
    ``CHI2_DRAWS`` card draws of one row against the plain distribution,
    and is timed per call and in a CUDA graph;
+3i-bf16. after 3h, the same weights through the paged batcher over bf16
+   pages: four greedy requests built as in 3i, ``SPEC_NEW`` new tokens,
+   speculation (k ``SPEC_K``) through ``AsyncLLM(llm=...)`` with its
+   ``stream()`` iterators consumed on the main thread (the loop thread
+   launches the kernels) against a plain synchronous run: tokens
+   identical as in 3i with ``BF16_LOGIT_TOL``; every verify forward
+   launches ``paged_prefill_attention`` at its (B, S) and ``gated_matmul``
+   at B x S rows, once per layer;
 4. every kernel against its plain PyTorch version on the same card
    inputs at the main path's shapes (these launches come after the
    counters were read, so they do not count), with CUDA-event times of kernel,
@@ -119,6 +142,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    launches), within ``ref.q8_matmul_limit`` (shown to reject the plain
    version over x rounded to bf16 and over x kept to 16 significant bits),
    two calls giving the same bits, beside ``_weight_int8pack_mm``;
+   ``paged_prefill_attention`` at the two most frequent verify shapes of
+   3i (fp32 pages) and the most frequent of 3i-bf16 (bf16 pages), within
+   ``ref.paged_prefill_attention_limit``;
 4b. the same for the dense-cache kernels (flash-decode, flash attention,
    RMSNorm) at the shapes of 3b and 3c, held element by element within
    the ``ref.*_limit`` bounds (each attention limit shown to reject an
@@ -203,10 +229,13 @@ from repro_torch.kernels import rmsnorm as k_rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as k_ssd  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import sampling as smp  # noqa: E402
-from repro_torch.serving.api import LLM  # noqa: E402
+from repro_torch.serving.api import LLM, AsyncLLM  # noqa: E402
 from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
                                           ResidentBackend, enumerate_linears)
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
+from repro_torch.serving.scheduler import PREFILLING  # noqa: E402
+from repro_torch.serving.speculative import (NgramDrafter,  # noqa: E402
+                                             SpecConfig)
 from repro_torch.telemetry import (Tracer, measured_speeds,  # noqa: E402
                                    recalibrate_alpha, validate_chrome_trace)
 from repro_torch.telemetry.overlap import stream_of  # noqa: E402
@@ -250,6 +279,10 @@ RECAL_LINK_FACTOR = 8.0            # 3g: how far H100_HOST's link_bw is off
 SAMPLE_NEW = 8                     # 3h: new tokens per request
 SAMPLE_PROMPTS = (40, 44, 48, 52)  # 3h: prompt lengths
 BUSY_TOL = 0.05                    # trace busy s against StreamStats
+SPEC_PROMPT = 48                   # 3i: prompt tokens per request
+SPEC_RUN = 12                      # 3i: the random run each prompt repeats
+SPEC_NEW = 16                      # 3i: new tokens per request
+SPEC_K = 4                         # 3i: draft tokens per verify step
 CHI2_DRAWS = 1 << 16               # 3h: card draws for the chi-square
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "smoke_out")
@@ -628,6 +661,161 @@ def run_recalibration(cfg, host_params):
         f"{alpha1:.4f})")
 
 
+def spec_prompts(vocab: int, seed: int):
+    """Four prompts of ``SPEC_PROMPT`` tokens, each a random
+    ``SPEC_RUN``-token run (a different one per request) repeated."""
+    rng = np.random.default_rng(seed)
+    runs = [[int(t) for t in rng.integers(0, vocab, SPEC_RUN)]
+            for _ in range(4)]
+    return [(r * (SPEC_PROMPT // SPEC_RUN + 1))[:SPEC_PROMPT] for r in runs]
+
+
+def record_logit_gaps(llm):
+    """Wrap the facade's batcher so that each sampled logits row of a
+    request records ``(rid, token index) -> (top1 - top2) / max |logit|``;
+    returns that dict (filled as the run goes)."""
+    b = llm._ensure_batcher()
+    gaps = {}
+    inner = b._sample_slot_rows
+
+    def sample(logits, slots):
+        x = logits.float()
+        top = torch.topk(x, 2, dim=-1).values
+        rel = ((top[:, 0] - top[:, 1]) / x.abs().amax(dim=-1)).tolist()
+        for s, g in zip(slots, rel):
+            st = b.scheduler.slot_req[s]
+            if st is not None and st.status != PREFILLING:
+                gaps[(st.rid, len(st.generated))] = g
+        return inner(logits, slots)
+
+    b._sample_slot_rows = sample
+    return gaps
+
+
+def compare_greedy(run, base, spec, gaps, tol):
+    """Greedy tokens of a speculative run against the plain run's: equal,
+    or differing first at a position where the plain run's top-two logit
+    gap is under ``tol`` of its largest |logit| (compared up to there).
+    Returns the number of tokens compared."""
+    compared = 0
+    for rid, (b, s) in enumerate(zip(base, spec)):
+        check(len(b) == len(s), f"{run}: request {rid} lengths differ")
+        i = next((j for j, (x, y) in enumerate(zip(b, s)) if x != y), None)
+        if i is None:
+            compared += len(b)
+            continue
+        g = gaps[(rid, i)]
+        log(f"{run}: request {rid} differs first at token {i} ({b[i]} "
+            f"plain, {s[i]} speculative); the plain run's top-two gap there "
+            f"is {g:.3e} of max |logit| (limit {tol:g})")
+        check(g < tol, f"{run}: request {rid} differs at token {i} where "
+              f"the top-two gap is {g:.3e} of max |logit|, above {tol:g}")
+        compared += i
+    return compared
+
+
+def verify_shapes(tally):
+    """The (B, S, kv ends) keys of a paged-prefill tally whose S is a
+    verify run's (2 to ``SPEC_K`` + 1)."""
+    return {k: n for k, n in tally.items() if 2 <= k[1] <= SPEC_K + 1}
+
+
+def run_speculative(cfg, host_params):
+    """Phase 3i: returns the speculative run's ``paged_prefill_attention``
+    calls at verify shapes, by (B, S, kv ends)."""
+    prompts = spec_prompts(cfg.vocab_size, SEED + 5)
+    t0 = time.perf_counter()
+    be = HeteGenBackend(cfg, host_params, wstream="fp", batch=4,
+                        device="cuda")
+    be.retune(1, phase="prefill", tokens_per_seq=CHUNK)
+    log(f"3i load: {time.perf_counter() - t0:.3f} s")
+    paged = ("paged_prefill_attention", "paged_decode_attention")
+    runs = {}
+    try:
+        for label, spec in (("plain", None),
+                            ("spec", SpecConfig(NgramDrafter(), k=SPEC_K))):
+            run = f"3i {label}"
+            tracer = Tracer()
+            llm = LLM(cfg, backend=be, paged=True, page_size=PAGE_SIZE,
+                      max_slots=4, max_len=256, chunk_tokens=CHUNK,
+                      wstream="fp", spec=spec, trace=tracer)
+            gaps = record_logit_gaps(llm)
+            torch.cuda.synchronize()
+            be.reset_stats()
+            ops.reset_launch_counts()
+
+            def serve():
+                t0 = time.perf_counter()
+                rids = [llm.submit(p, max_new=SPEC_NEW) for p in prompts]
+                outs = llm.drain()
+                torch.cuda.synchronize()
+                return [outs[r].tokens for r in rids], \
+                    time.perf_counter() - t0
+
+            (toks, wall), tally = tally_rows(
+                serve, paged, {name: paged_key for name in paged})
+            launches = ops.launch_counts()
+            st = llm.stats()
+            os.makedirs(OUT_DIR, exist_ok=True)
+            doc = llm.write_trace(os.path.join(OUT_DIR,
+                                               f"trace_3i_{label}.json"))
+            report = llm.overlap_report()
+            spans = tracer.spans()
+            llm.close()
+            check(all(len(t) == SPEC_NEW for t in toks),
+                  f"{run}: short outputs")
+            check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+                  f"{run}: token out of vocab")
+            ran = {sp.name for sp in spans if sp.track == "phase"}
+            planned = {ph: pol.alpha for ph, pol in be.policies.items()
+                       if ph in ran}
+            s = st["stream"]
+            n_tok = sum(map(len, toks))
+            spec_st = {k: v for k, v in st.get("spec", {}).items()
+                       if k != "per_request"}
+            log(f"{run}: {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.4f} "
+                f"tok/s), steps={st['steps']}, chunks="
+                f"{st['scheduler']['chunks_planned']}, phase_alpha="
+                f"{st['phase_alpha']}, phase_batch={st['phase_batch']}, "
+                f"busy_s cpu={s.cpu:.3f} pin={s.pin:.3f} "
+                f"trans={s.trans:.3f} dev={s.dev:.3f}, spec={spec_st}, "
+                f"launches={launches}")
+            log(f"{run} busy s by track: " + " ".join(
+                f"{k}={v:.3f}" for k, v in sorted(report.overall.busy.items())
+                if stream_of(k) in STREAMS))
+            for name in paged:
+                log(f"{run}: {name} launches by (B, S, kv ends) "
+                    f"{tally[name]}")
+                check(sum(tally[name].values()) == launches[name],
+                      f"{run}: {name} calls by shape do not add up")
+            check(launches["q8_matmul"] == launches["matmul"]
+                  == launches["gated_matmul"]
+                  == launches["plain_dense_attention"] == 0,
+                  f"{run}: a kernel off the fp HeteGen path launched")
+            report_trace(run, doc, report, spans, s, planned)
+            runs[label] = (toks, gaps, wall, st, launches, tally)
+    finally:
+        be.close()
+    base, gaps, w0, _, l0, _ = runs["plain"]
+    spec_toks, _, w1, st, _, tally = runs["spec"]
+    verify = verify_shapes(tally["paged_prefill_attention"])
+    check(l0["paged_decode_attention"] > 0,
+          "3i plain: paged_decode_attention never launched")
+    check(sum(verify.values()) > 0, "3i spec: paged_prefill_attention "
+          "never launched at a verify shape")
+    check("verify" in st["phase_alpha"], "3i spec: no verify plan")
+    sp = st["spec"]
+    check(sp["drafted"] > 0, "3i spec: nothing drafted")
+    n = compare_greedy("3i", base, spec_toks, gaps, LOGIT_TOL)
+    log(f"3i: {n} of {sum(map(len, base))} tokens compared equal; tok/s "
+        f"plain {sum(map(len, base)) / w0:.4f} ({w0:.3f} s), speculative "
+        f"{sum(map(len, spec_toks)) / w1:.4f} ({w1:.3f} s); drafted "
+        f"{sp['drafted']} accepted {sp['accepted']} rolled back "
+        f"{sp['rolled_back']} (acceptance {sp['acceptance_rate']:.4f}) in "
+        f"{sp['steps']} verify steps with drafts; verify shapes {verify}")
+    return verify
+
+
 def compare_prefill_logits(cfg, params, host_params, prompts):
     """The fp backend's prefill logits against ResidentBackend's."""
     toks = torch.tensor([p[:32] for p in prompts], dtype=torch.int32,
@@ -829,6 +1017,25 @@ def check_kernels(cfg, launches, q8_shapes, paged_shapes):
     # q8 matmul at every (M, K, N) phase 3's q8 run launched it
     for (m, k, n), count in sorted(q8_shapes.items()):
         entries.append(q8_entry(gen, m, k, n, count))
+    return entries
+
+
+def check_verify_shapes(cfg, fp_tally, bf16_tally):
+    """``paged_prefill_attention`` at the two most frequent verify shapes
+    of 3i (fp32 q and pages, OPT's heads) and the most frequent of
+    3i-bf16 (bf16, Mistral's heads), each with its launches."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    entries = []
+    mcfg = get_config("mistral-nemo-12b")
+    for c, tally, n, dtype, tag in ((cfg, fp_tally, 2, torch.float32, ""),
+                                    (mcfg, bf16_tally, 1, torch.bfloat16,
+                                     "_bf16")):
+        for b, s, ends in top_shapes(tally, n):
+            entries.append(paged_entry(
+                f"paged_prefill_attention{tag}_verify_b{b}_s{s}_kv"
+                f"{'-'.join(map(str, ends))}", "prefill", gen, c.n_heads,
+                c.n_kv_heads, c.hd, b, s, ends, False, dtype,
+                tally[(b, s, ends)]))
     return entries
 
 
@@ -1158,6 +1365,7 @@ def run_mistral(seed):
     del llm
     counts["3e"] = run_paged_bf16(cfg, params, seed)
     counts["3h"] = timed("3h", run_sampling, cfg, params, seed)
+    counts["3i_bf16"] = timed("3i-bf16", run_spec_bf16, cfg, params, seed)
     del params
     torch.cuda.empty_cache()
     return counts
@@ -1455,6 +1663,81 @@ def run_sampling(cfg, params, seed):
         f"{SAMPLE_NEW} new: wall {wall:.3f} s, tokens {toks}, first "
         f"logprob record {lp[0]}")
     return check_sampler_on_card(seed)
+
+
+def run_spec_bf16(cfg, params, seed):
+    """Phase 3i-bf16: returns the speculative run's
+    ``paged_prefill_attention`` calls at verify shapes."""
+    prompts = spec_prompts(cfg.vocab_size, seed + 6)
+    kw = dict(paged=True, max_slots=4, page_size=PAGE_SIZE,
+              max_len=SPEC_PROMPT + SPEC_NEW + 8)
+    llm = LLM(cfg, params, **kw)
+    gaps = record_logit_gaps(llm)
+    try:
+        t0 = time.perf_counter()
+        rids = [llm.submit(p, max_new=SPEC_NEW) for p in prompts]
+        outs = llm.drain()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter() - t0
+    finally:
+        llm.close()
+    base = [outs[r].tokens for r in rids]
+    llm = LLM(cfg, params, spec=SpecConfig(NgramDrafter(), k=SPEC_K), **kw)
+    shapes = []
+    inner = llm.backend.verify
+
+    def verify(batch, cache):
+        shapes.append(tuple(batch["tokens"].shape))
+        return inner(batch, cache)
+
+    llm.backend.verify = verify
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    def serve():
+        t0 = time.perf_counter()
+        with AsyncLLM(llm=llm) as allm:
+            its = [allm.stream(p, SPEC_NEW) for p in prompts]
+            toks = [list(it) for it in its]      # consumed on this thread
+            st = allm.stats()
+        torch.cuda.synchronize()
+        return toks, st, time.perf_counter() - t0
+
+    try:
+        (toks, st, w1), tally = tally_rows(
+            serve, ("paged_prefill_attention", "gated_matmul"),
+            {"paged_prefill_attention": paged_key,
+             "gated_matmul": rows_width})
+    finally:
+        del llm.backend.verify
+        llm.close()
+    launches = ops.launch_counts()
+    run = "3i-bf16"
+    check(all(len(t) == SPEC_NEW for t in toks), f"{run}: short outputs")
+    verify_tally = verify_shapes(tally["paged_prefill_attention"])
+    sp = st["spec"]
+    log(f"{run}: plain {sum(map(len, base)) / w0:.3f} tok/s ({w0:.3f} s), "
+        f"speculative through AsyncLLM {sum(map(len, toks)) / w1:.3f} "
+        f"tok/s ({w1:.3f} s), executor {st['executor']}; drafted "
+        f"{sp['drafted']} accepted {sp['accepted']} rolled back "
+        f"{sp['rolled_back']} (acceptance {sp['acceptance_rate']:.4f}); "
+        f"verify forwards by (B, S) {shapes}; paged_prefill_attention by "
+        f"(B, S, kv ends) {tally['paged_prefill_attention']}; gated_matmul "
+        f"by (rows, width) {tally['gated_matmul']}; launches={launches}")
+    check(shapes, f"{run}: no verify forward")
+    check(launches["plain_dense_attention"] == 0,
+          f"{run}: plain dense attention ran")
+    for b, s in set(shapes):
+        n = shapes.count((b, s))
+        got = sum(c for k, c in verify_tally.items() if k[:2] == (b, s))
+        check(got >= cfg.n_layers * n,
+              f"{run}: {got} paged_prefill_attention launches at (B, S) "
+              f"({b}, {s}), want {cfg.n_layers * n}")
+        check(tally["gated_matmul"].get((b * s, cfg.d_model), 0)
+              >= cfg.n_layers * n,
+              f"{run}: gated_matmul did not launch at {b * s} rows")
+    compare_greedy(run, base, toks, gaps, BF16_LOGIT_TOL)
+    return verify_tally
 
 
 def _paged_prefill_and_step(cfg, params, toks, device, kv_dtype):
@@ -2197,6 +2480,7 @@ def main() -> int:
     del fp_spans
     timed("3g", run_recalibration, dataclasses.replace(
         cfg, n_layers=min(RECAL_LAYERS, cfg.n_layers)), host_params)
+    verify_fp = timed("3i", run_speculative, cfg, host_params)
     counts_3b = timed("3b+3e", run_mistral, SEED)
     counts_3c = timed("3c", run_offload_oneshot, cfg, host_params, oprompts)
     counts_3d = timed("3d", run_mamba, SEED)
@@ -2206,6 +2490,8 @@ def main() -> int:
 
     entries = timed("4", check_kernels, cfg, launches, q8_shapes,
                     paged_shapes)
+    entries += timed("4v", check_verify_shapes, cfg, verify_fp,
+                     counts_3b["3i_bf16"])
     entries += timed("4b", check_dense_kernels,
                      get_config("mistral-nemo-12b"), cfg, counts_3b,
                      counts_3c)

@@ -194,15 +194,23 @@ class HeteGenEngine:
                     seen.add(p.group)
 
     def _host_matmul(self, x_np: np.ndarray, name: str) -> np.ndarray:
+        """The host share's product.  numpy runs a 3-D ``x @ w`` as one
+        product per leading index, each reading the whole share, so an
+        input of several tokens per row (a verify step, a batched
+        admission) is multiplied as one (rows, K) product; one-token rows
+        (decode) keep the 3-D call (``tools/host_gemm_shapes.py`` times
+        both)."""
         w = self._host_part[name]
+        x2 = x_np.reshape(-1, x_np.shape[-1]) \
+            if x_np.ndim > 2 and x_np.shape[-2] > 1 else x_np
         with self.tracer.span(name, track="cpu_gemm", bytes=w.nbytes,
                               rows=x_np.size // x_np.shape[-1],
                               module=name, phase=self.trace_phase):
             t0 = time.perf_counter()
-            y = x_np @ w
+            y = x2 @ w
             with self._lock:
                 self.stats.cpu += time.perf_counter() - t0
-        return y
+        return y.reshape(x_np.shape[:-1] + (y.shape[-1],))
 
     def _transfer(self, staged: Staged, name: str, seq: Optional[int]):
         """Copy a staged slot to the device (transfer thread).  Returns the

@@ -33,19 +33,28 @@ trace JSON, :meth:`LLM.overlap_report` computes the I/O-hidden fraction,
 stream utilization and critical path (paper Fig. 5c), and
 :meth:`LLM.metrics` flattens every serving counter into one snapshot.
 
-Not ported yet: speculative decoding (``spec=``) and tokenizers, which
-raise when asked for, and the streaming front ends (``LLM.stream``,
-``LLM.stream_text``, per-token callbacks, ``AsyncLLM``).
+``spec=`` (:class:`repro_torch.serving.speculative.SpecConfig`) serves
+through speculative decoding (host drafts, one batched verify a step);
+``tokenizer=`` (e.g. :class:`repro_torch.serving.tokenizer.ByteTokenizer`)
+takes text prompts and fills ``RequestOutput.text``.  :meth:`LLM.stream`
+yields a request's tokens as they decode, :meth:`LLM.stream_text` its
+text, and ``submit(on_token=)`` (or ``GenRequest.stream``) calls back
+per token.  :class:`AsyncLLM` is the event-loop front end: a background
+thread owns the ``step()`` crank, on the backend's device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import queue
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import model as M
@@ -55,6 +64,8 @@ from repro_torch.serving.engine import Generator
 from repro_torch.serving.sampling import (SamplingParams, request_key,
                                           seed_key)
 from repro_torch.serving.scheduler import SchedulerPolicy
+from repro_torch.serving.speculative import SpecConfig
+from repro_torch.serving.tokenizer import StreamDecoder, Tokenizer
 from repro_torch.telemetry.export import write_chrome_trace
 from repro_torch.telemetry.metrics import MetricsRegistry
 from repro_torch.telemetry.overlap import OverlapReport, compute_overlap
@@ -71,8 +82,9 @@ class GenRequest:
     max_new: int
     eos: Optional[int] = None
     sampling: SamplingParams = SamplingParams()
+    stream: Optional[Callable[[int], None]] = None   # per-token callback
     rid: Optional[int] = None                        # assigned by the LLM
-    priority: int = 0
+    priority: int = 0           # larger = more important (priority policy)
 
 
 @dataclasses.dataclass
@@ -86,6 +98,7 @@ class RequestOutput:
     # one entry per token when SamplingParams.logprobs was set:
     # {"token": id, "logprob": float, "top": {id: logprob, ...}}
     logprobs: Optional[List[Dict]] = None
+    text: Optional[str] = None  # decoded tokens when the LLM has a tokenizer
 
 
 def _finish_reason(tokens: List[int], eos: Optional[int]) -> str:
@@ -110,17 +123,14 @@ class LLM:
                  chunk_tokens: Optional[int] = None,
                  prefix_dedupe: Optional[bool] = None,
                  seed: int = 0,
-                 spec=None, tokenizer=None,
+                 spec: Optional[SpecConfig] = None,
+                 tokenizer: Optional[Tokenizer] = None,
                  trace: Union[bool, Tracer] = False,
                  selfcheck: bool = False,
                  wstream: Optional[str] = None,
                  device=None):
         if backend is None and params is None:
             raise ValueError("LLM needs params or a backend")
-        for name, val in (("spec", spec), ("tokenizer", tokenizer)):
-            if val:
-                raise NotImplementedError(f"LLM({name}=...) is not ported "
-                                          "yet")
         if wstream not in (None, "fp", "q8"):
             raise ValueError(f"unknown wire format {wstream!r} "
                              "(expected 'fp' or 'q8')")
@@ -154,6 +164,8 @@ class LLM:
                 self._resident_backend()
         self.sampling = sampling
         self.seed = seed
+        self.spec = spec
+        self.tokenizer = tokenizer
         # observability: trace=True records zero-sync spans across the
         # whole stack (batcher steps, engine streams, scheduler events);
         # the registry is always live and merges the stats() keys on
@@ -172,11 +184,14 @@ class LLM:
             retune_hysteresis=retune_hysteresis, policy=policy,
             optimistic=optimistic, preempt_mode=preempt_mode,
             chunk_tokens=chunk_tokens, prefix_dedupe=prefix_dedupe,
-            selfcheck=selfcheck, sampling=sampling, seed=seed,
+            selfcheck=selfcheck, sampling=sampling, seed=seed, spec=spec,
             tracer=self.tracer, metrics=self._metrics)
         self._ids = itertools.count()
         self._batcher: Optional[ContinuousBatcher] = None
         self._generator: Optional[Generator] = None
+        self._callbacks: Dict[int, Callable[[int], None]] = {}
+        self._delivered: Dict[int, int] = {}
+        self._streaming: set = set()    # rids owned by live stream() iters
         self._closed = False
         self.last_executor: Optional[str] = None
         self.last_metrics: Dict[str, float] = {}
@@ -205,13 +220,37 @@ class LLM:
                 self._generator = Generator(self.cfg, backend=self._backend)
         return self._generator
 
+    @property
+    def device(self) -> torch.device:
+        """The device the facade serves on: its backend's, or the one its
+        resident params were placed on."""
+        if self._backend is not None:
+            return torch.device(self._backend.device)
+        return resolve_device(self._device)
+
     # -- request normalization -----------------------------------------
+    def _encode(self, text: str) -> List[int]:
+        if self.tokenizer is None:
+            raise ValueError("text prompts need a tokenizer "
+                             "(LLM(..., tokenizer=ByteTokenizer()))")
+        return list(self.tokenizer.encode(text))
+
+    def _decode(self, tokens: Sequence[int]) -> Optional[str]:
+        return None if self.tokenizer is None \
+            else self.tokenizer.decode(tokens)
+
+    def _default_eos(self, eos: Optional[int]) -> Optional[int]:
+        if eos is None and self.tokenizer is not None:
+            return self.tokenizer.eos_id
+        return eos
+
     def _as_requests(self, prompts, max_new, eos, sampling
                      ) -> List[GenRequest]:
-        if isinstance(prompts, GenRequest):
+        if isinstance(prompts, (GenRequest, str)):
             prompts = [prompts]
         elif prompts and isinstance(prompts[0], (int, np.integer)):
             prompts = [prompts]          # a single raw token sequence
+        eos = self._default_eos(eos)
         reqs: List[GenRequest] = []
         for i, p in enumerate(prompts):
             if isinstance(p, GenRequest):
@@ -221,8 +260,9 @@ class LLM:
                     raise ValueError("max_new is required for raw prompts")
                 sp = sampling[i] if isinstance(sampling, (list, tuple)) \
                     else (sampling or self.sampling)
-                req = GenRequest(list(int(t) for t in p), max_new, eos=eos,
-                                 sampling=sp)
+                toks = self._encode(p) if isinstance(p, str) \
+                    else list(int(t) for t in p)
+                req = GenRequest(toks, max_new, eos=eos, sampling=sp)
             if req.rid is None:
                 req.rid = next(self._ids)
             reqs.append(req)
@@ -236,9 +276,10 @@ class LLM:
 
         A rectangular batch with nothing else in flight runs one-shot
         (one prefill + the decode loop); ragged prompts, per-request
-        budgets, logprobs, or overlap with submitted work run through the
-        continuous batcher.  Either way the tokens are the same
-        (request-owned sampling streams)."""
+        budgets, logprobs, a per-token callback, speculative decoding, or
+        overlap with submitted work run through the continuous batcher.
+        Either way the tokens are the same (request-owned sampling
+        streams)."""
         reqs = self._as_requests(prompts, max_new, eos, sampling)
         if not reqs:
             return []
@@ -246,8 +287,11 @@ class LLM:
             self._batcher.queue or self._batcher.scheduler.resident())
         rect = (len({len(r.prompt) for r in reqs}) == 1
                 and len({r.max_new for r in reqs}) == 1
+                and not any(r.stream for r in reqs)
                 # logprob extraction rides the batcher's sampler
-                and not any(r.sampling.logprobs is not None for r in reqs))
+                and not any(r.sampling.logprobs is not None for r in reqs)
+                # draft -> verify -> rollback lives in the batcher's step
+                and self.spec is None)
         if rect and not busy:
             return self._generate_oneshot(reqs)
         return self._generate_batched(reqs)
@@ -270,7 +314,8 @@ class LLM:
             if req.eos is not None and req.eos in row:
                 row = row[:row.index(req.eos) + 1]
             outs.append(RequestOutput(req.rid, req.prompt, list(row),
-                                      _finish_reason(row, req.eos)))
+                                      _finish_reason(row, req.eos),
+                                      text=self._decode(row)))
         return outs
 
     def _generate_batched(self, reqs: List[GenRequest]
@@ -291,30 +336,42 @@ class LLM:
         return [self._take_result(r.rid) for r in reqs]
 
     # -- incremental ----------------------------------------------------
-    def submit(self, prompt: Union[Prompt, GenRequest],
+    def submit(self, prompt: Union[str, Prompt, GenRequest],
                max_new: Optional[int] = None, *,
                eos: Optional[int] = None,
                sampling: Optional[SamplingParams] = None,
-               priority: Optional[int] = None) -> int:
-        """Queue one request on the continuous batcher; returns its id."""
+               priority: Optional[int] = None,
+               on_token: Optional[Callable[[int], None]] = None) -> int:
+        """Queue one request on the continuous batcher; returns its id.
+        ``on_token`` (or ``GenRequest.stream``) is called with each new
+        token as steps deliver it; ``priority``, when given, overrides a
+        ``GenRequest``'s own (0 included)."""
         req = self._as_requests(prompt, max_new, eos, sampling)[0]
         if priority is not None:
             req.priority = priority
-        return self._submit_req(req)
+        return self._submit_req(req, on_token)
 
-    def _submit_req(self, req: GenRequest) -> int:
+    def _submit_req(self, req: GenRequest,
+                    on_token: Optional[Callable[[int], None]] = None
+                    ) -> int:
         b = self._ensure_batcher()
         b.submit(req.prompt, req.max_new, req.eos,
                  sampling=req.sampling, rid=req.rid,
                  priority=req.priority)
+        self._delivered[req.rid] = 0
+        cb = on_token or req.stream
+        if cb is not None:
+            self._callbacks[req.rid] = cb
         return req.rid
 
     def step(self) -> int:
-        """Advance the scheduler one step; returns the number of active
-        slots after it."""
+        """Advance the scheduler one step and fire the per-token
+        callbacks; returns the number of active slots after it."""
         if self._batcher is None:
             return 0
-        return self._batcher.step()
+        n = self._batcher.step()
+        self._deliver()
+        return n
 
     def _step_or_stall(self) -> int:
         """One scheduler step that refuses to spin: an idle scheduler
@@ -328,6 +385,64 @@ class LLM:
                 and not b.scheduler.resident():
             raise RuntimeError("scheduler stalled with queued requests")
         return n
+
+    def stream(self, prompt: Union[str, Prompt, GenRequest],
+               max_new: Optional[int] = None, *,
+               eos: Optional[int] = None,
+               sampling: Optional[SamplingParams] = None
+               ) -> Iterator[int]:
+        """Submit one request and yield its tokens as they decode.
+
+        Submission is eager (the request is in the scheduler when this
+        returns); only the delivery is lazy.  Other in-flight requests
+        advance underneath; several iterators interleave freely."""
+        rid = self.submit(prompt, max_new, eos=eos, sampling=sampling)
+        # the iterator owns this request's reporting: a concurrent drain()
+        # must neither evict it mid-iteration nor report it
+        self._streaming.add(rid)
+        return self._stream_tokens(rid)
+
+    def _stream_tokens(self, rid: int) -> Iterator[int]:
+        b = self._batcher
+        req = b.requests[rid]
+        sent = 0
+        try:
+            while True:
+                while sent < len(req.generated):
+                    yield req.generated[sent]
+                    sent += 1
+                if req.done:
+                    break
+                self._step_or_stall()
+            self.last_executor = "batcher"
+        finally:
+            self._streaming.discard(rid)
+            if req.done:
+                self._take_result(rid)  # evict: fully delivered by yield
+
+    def stream_text(self, prompt: Union[str, Prompt, GenRequest],
+                    max_new: Optional[int] = None, *,
+                    eos: Optional[int] = None,
+                    sampling: Optional[SamplingParams] = None
+                    ) -> Iterator[str]:
+        """:meth:`stream`, decoded: yields text chunks as tokens land.
+        A multi-byte character split across tokens is held back until it
+        is complete (empty chunks are skipped), so the chunks join to
+        ``decode(tokens)`` without a trailing eos."""
+        if self.tokenizer is None:
+            raise ValueError("stream_text needs a tokenizer")
+        dec = StreamDecoder(self.tokenizer)
+        eos = self._default_eos(eos)
+        for tok in self.stream(prompt, max_new, eos=eos,
+                               sampling=sampling):
+            if eos is not None and tok == eos:
+                break
+            chunk = dec.push(tok)
+            if chunk:
+                yield chunk
+        tail = dec.flush()
+        if tail:
+            yield tail
 
     def drain(self, max_steps: int = 100_000) -> Dict[int, RequestOutput]:
         """Run the batcher until every submitted request finishes; each
@@ -350,7 +465,7 @@ class LLM:
                              "tokens_per_s": toks / dt}
         return {rid: self._take_result(rid)
                 for rid in list(b.requests)
-                if b.requests[rid].done}
+                if b.requests[rid].done and rid not in self._streaming}
 
     def result(self, rid: int) -> RequestOutput:
         """Output of a batcher-scheduled request (complete or partial)."""
@@ -359,12 +474,26 @@ class LLM:
         return RequestOutput(req.rid, req.prompt, list(req.generated),
                              reason,
                              logprobs=None if req.logprobs is None
-                             else list(req.logprobs))
+                             else list(req.logprobs),
+                             text=self._decode(req.generated))
 
     def _take_result(self, rid: int) -> RequestOutput:
+        """result() + eviction: a reported request leaves the
+        scheduler's books."""
         out = self.result(rid)
         self._batcher.requests.pop(rid, None)
+        self._delivered.pop(rid, None)
         return out
+
+    def _deliver(self) -> None:
+        for rid, cb in list(self._callbacks.items()):
+            req = self._batcher.requests[rid]
+            sent = self._delivered.get(rid, 0)
+            for tok in req.generated[sent:]:
+                cb(tok)
+            self._delivered[rid] = len(req.generated)
+            if req.done:
+                del self._callbacks[rid]
 
     # -- introspection / lifecycle -------------------------------------
     @property
@@ -409,6 +538,12 @@ class LLM:
                                "mapped_pages": kv.n_pages - 1
                                - kv.free_pages}
                 st["kv"] = kv.stats()
+            if self._batcher.spec is not None:
+                spec = self._batcher.spec_stats.as_dict()
+                spec["per_request"] = {
+                    rid: s.as_dict()
+                    for rid, s in self._batcher.spec_by_req.items()}
+                st["spec"] = spec
         return st
 
     def metrics(self) -> Dict:
@@ -442,6 +577,243 @@ class LLM:
             self._backend.close()
 
     def __enter__(self) -> "LLM":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# ---------------------------------------------------------------------------
+# AsyncLLM: the event-loop front end
+# ---------------------------------------------------------------------------
+
+_CLOSED = object()          # queue sentinel: no more tokens
+
+
+class AsyncRequest:
+    """Handle for a request submitted to :class:`AsyncLLM`.
+
+    Iterate it to stream tokens as the background loop decodes them, or
+    call :meth:`result` to wait for the finished :class:`RequestOutput`.
+    Both are safe from any thread; tokens already queued keep flowing
+    after the request completes."""
+
+    def __init__(self, rid: int):
+        self.rid = rid
+        self._q: "queue.Queue" = queue.Queue()
+        self._done = threading.Event()
+        self._output: Optional[RequestOutput] = None
+        self._error: Optional[BaseException] = None
+
+    # called by the AsyncLLM loop thread
+    def _push(self, tok: int) -> None:
+        self._q.put(tok)
+
+    def _finish(self, output: Optional[RequestOutput] = None,
+                error: Optional[BaseException] = None) -> None:
+        self._output, self._error = output, error
+        self._done.set()
+        self._q.put(_CLOSED)
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> RequestOutput:
+        """Block until the request finished.  Raises the loop's failure
+        (scheduler stall, closed mid-flight) instead of returning a
+        partial output."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"request {self.rid} still in flight")
+        if self._error is not None:
+            raise self._error
+        return self._output
+
+    def __iter__(self) -> Iterator[int]:
+        while True:
+            item = self._q.get()
+            if item is _CLOSED:
+                # keep the sentinel so a second iteration terminates too
+                self._q.put(_CLOSED)
+                if self._error is not None:
+                    raise self._error
+                return
+            yield item
+
+
+class AsyncLLM:
+    """Event-loop serving: a background thread drives the scheduler.
+
+    ``submit`` returns an :class:`AsyncRequest` at once and the loop
+    thread steps the scheduler whenever requests are in flight:
+    ``stream()`` yields tokens with no caller-driven stepping,
+    ``result()`` blocks, and many threads can submit and consume at once
+    (the facade is guarded by one lock; each step batches work from every
+    submitter).  The loop thread enters the backend's CUDA device before
+    it steps (the current device and stream belong to each thread), so
+    the kernels launch where the weights are.
+
+        with AsyncLLM(cfg, params, policy="priority") as allm:
+            hi = allm.submit(p1, max_new=32, priority=5)
+            for tok in allm.stream(p2, max_new=64):   # no step() anywhere
+                ...
+            out = hi.result()
+
+    Construction forwards every keyword to :class:`LLM`, or wraps an
+    existing facade via ``llm=``; ``close()`` tears down what it built.
+    ``close(drain=True)`` (the default) finishes in-flight requests
+    first; ``close(drain=False)`` fails their handles with a
+    ``RuntimeError``.  A scheduler failure (e.g. a stalled page pool)
+    fails every in-flight handle and surfaces on the next ``submit``."""
+
+    def __init__(self, cfg: Optional[ModelConfig] = None,
+                 params: Optional[Dict] = None, *,
+                 llm: Optional[LLM] = None, **llm_kwargs):
+        if llm is None:
+            llm = LLM(cfg, params, **llm_kwargs)
+            self._own_llm = True
+        else:
+            if llm_kwargs or cfg is not None or params is not None:
+                raise ValueError("pass either llm= or LLM constructor "
+                                 "arguments, not both")
+            self._own_llm = False
+        self._llm = llm
+        self._lock = threading.RLock()
+        self._work = threading.Condition(self._lock)
+        self._handles: Dict[int, AsyncRequest] = {}
+        self._closed = False
+        self._failure: Optional[BaseException] = None
+        self._busy_s = 0.0          # loop seconds spent inside step()
+        self._tokens_done = 0       # tokens of finished requests
+        self._thread = threading.Thread(target=self._run,
+                                        name="asyncllm-step", daemon=True)
+        self._thread.start()
+
+    # -- submission -----------------------------------------------------
+    def _register(self, req: GenRequest) -> AsyncRequest:
+        if self._closed:
+            raise RuntimeError("AsyncLLM is closed")
+        if self._failure is not None:
+            raise RuntimeError("AsyncLLM loop failed") from self._failure
+        h = AsyncRequest(-1)
+        if req.stream is None:
+            on_tok = h._push
+        else:
+            # the GenRequest's own callback keeps firing (from the loop
+            # thread) beside the handle's queue
+            def on_tok(tok, _user=req.stream, _push=h._push):
+                _user(tok)
+                _push(tok)
+        h.rid = self._llm._submit_req(req, on_token=on_tok)
+        self._handles[h.rid] = h
+        return h
+
+    def submit(self, prompt: Union[str, Prompt, GenRequest],
+               max_new: Optional[int] = None, *,
+               eos: Optional[int] = None,
+               sampling: Optional[SamplingParams] = None,
+               priority: Optional[int] = None) -> AsyncRequest:
+        """Queue one request; returns its handle at once.  The loop wakes
+        and decodes without further calls."""
+        with self._work:
+            req = self._llm._as_requests(prompt, max_new, eos, sampling)[0]
+            if priority is not None:
+                req.priority = priority
+            h = self._register(req)
+            self._work.notify_all()
+        return h
+
+    def stream(self, prompt: Union[str, Prompt, GenRequest],
+               max_new: Optional[int] = None, *,
+               eos: Optional[int] = None,
+               sampling: Optional[SamplingParams] = None,
+               priority: Optional[int] = None) -> Iterator[int]:
+        """Submit and iterate tokens as the loop decodes them."""
+        return iter(self.submit(prompt, max_new, eos=eos, sampling=sampling,
+                                priority=priority))
+
+    def generate(self, prompts, max_new: Optional[int] = None, *,
+                 eos: Optional[int] = None, sampling=None,
+                 timeout: Optional[float] = None) -> List[RequestOutput]:
+        """Blocking batch convenience over the event loop."""
+        with self._work:
+            reqs = self._llm._as_requests(prompts, max_new, eos, sampling)
+            handles = [self._register(r) for r in reqs]
+            self._work.notify_all()
+        return [h.result(timeout) for h in handles]
+
+    # -- the loop -------------------------------------------------------
+    def _run(self) -> None:
+        dev = self._llm.device
+        with torch.cuda.device(dev) if dev.type == "cuda" \
+                else contextlib.nullcontext():
+            self._loop()
+
+    def _loop(self) -> None:
+        while True:
+            with self._work:
+                while not self._handles and not self._closed:
+                    self._work.wait()
+                if not self._handles:          # closed and drained
+                    return
+                t0 = time.perf_counter()
+                try:
+                    self._llm._step_or_stall()
+                except BaseException as e:     # stall, backend death, ...
+                    self._failure = e
+                    for h in self._handles.values():
+                        h._finish(error=e)
+                    self._handles.clear()
+                    continue
+                self._busy_s += time.perf_counter() - t0
+                b = self._llm._batcher
+                fin = [rid for rid in self._handles
+                       if rid in b.requests and b.requests[rid].done]
+                for rid in fin:
+                    out = self._llm._take_result(rid)
+                    self._tokens_done += len(out.tokens)
+                    self._handles.pop(rid)._finish(output=out)
+
+    # -- introspection / lifecycle -------------------------------------
+    @property
+    def llm(self) -> LLM:
+        return self._llm
+
+    def stats(self) -> Dict:
+        with self._lock:
+            st = self._llm.stats()
+            st["in_flight"] = len(self._handles)
+            if self._busy_s > 0:
+                # the loop thread owns the crank, so report its own rate
+                st["executor"] = "batcher(async)"
+                st["tokens_per_s"] = self._tokens_done / self._busy_s
+            return st
+
+    def close(self, drain: bool = True,
+              timeout: Optional[float] = None) -> None:
+        """Stop the loop (idempotent).  ``drain=True`` lets in-flight
+        requests finish first; ``drain=False`` fails their handles with
+        ``RuntimeError``.  With a ``timeout``, raises ``TimeoutError`` if
+        the drain did not finish in time and leaves the backend open
+        under the still-stepping loop thread."""
+        with self._work:
+            if not drain and self._handles:
+                err = RuntimeError(
+                    "AsyncLLM closed with requests in flight")
+                for h in self._handles.values():
+                    h._finish(error=err)
+                self._handles.clear()
+            self._closed = True
+            self._work.notify_all()
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError(
+                "AsyncLLM close timed out with requests still draining; "
+                "retry close() or close(drain=False)")
+        if self._own_llm:
+            self._llm.close()
+
+    def __enter__(self) -> "AsyncLLM":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -15,7 +15,7 @@ module provides the concrete executions of that seam:
                       alpha-split / streamed).
 
 Both expose the same serving surface — ``init_cache`` / ``init_paged_cache``
-/ ``prefill`` / ``decode`` / ``linear`` — so
+/ ``prefill`` / ``decode`` / ``verify`` / ``linear`` — so
 :class:`repro_torch.serving.batcher.ContinuousBatcher` schedules over
 either one interchangeably.
 """
@@ -127,6 +127,14 @@ class ResidentBackend:
         return M.backend_decode(self.cfg, self.shared, token, cache,
                                 linear=self.linear, ops=self._ops)
 
+    def verify(self, batch: Dict, cache: Dict
+               ) -> Tuple[Dict, torch.Tensor]:
+        """Score all positions of a draft run: (B, S) tokens in, logits
+        (B, S, V) out — one prefill-shaped step replaces S decode steps."""
+        return M.backend_prefill(self.cfg, self.shared, batch, cache,
+                                 linear=self.linear, ops=self._ops,
+                                 all_logits=True)
+
     def close(self) -> None:
         pass
 
@@ -139,21 +147,24 @@ class HeteGenBackend:
     workload, one plan and engine partition per serving phase: decode
     moves every weight byte to produce ``batch`` tokens (small alpha),
     prefill computes ``batch * prompt`` positions against the same traffic
-    (alpha -> 1).  The prefill plan is (re)tuned lazily from the observed
-    prompt shape, with a multiplicative hysteresis
+    (alpha -> 1), and a speculative verify scores ``batch * (k + 1)``
+    positions against one weight stream (its own "verify" plan, between
+    the two).  The prefill and verify plans are (re)tuned lazily from the
+    observed shape, with a multiplicative hysteresis
     (``prefill_retune_factor``).  Engines share device-resident module
     copies through a common ``resident_store``.
 
     ``tile`` is the column granularity of every alpha split (128 by
     default, as in the JAX package).  ``hw`` defaults to
     :data:`repro_torch.core.hw.H100_HOST`, one host's
-    measured speeds.  ``recalibrate=`` adapts the decode plan to the host
-    it runs on: every ``recalibrate_every`` decode steps the stream speeds
-    measured from the tracer's spans re-solve the alpha law, and the
-    decode engine is rebuilt when the refined alpha moved by more than
-    ``recalibrate`` (absolute).  It needs a tracer (``set_tracer``, or
-    ``LLM(trace=True)``).  Every fit's alpha is kept in ``fit_alphas``;
-    each rebuild is a ``replan`` span carrying the new ``alpha``.
+    measured speeds.  ``recalibrate=`` adapts the decode and verify plans
+    to the host it runs on: every ``recalibrate_every`` decode or verify
+    steps the stream speeds measured from each phase's spans re-solve the
+    alpha law, and that phase's engine is rebuilt when its refined alpha
+    moved by more than ``recalibrate`` (absolute).  It needs a tracer
+    (``set_tracer``, or ``LLM(trace=True)``).  Every fit's alpha is kept
+    in ``fit_alphas``; each rebuild is a ``replan`` span carrying the
+    phase and the new ``alpha``.
     """
 
     cache_batch_axis = 0
@@ -288,6 +299,20 @@ class HeteGenBackend:
                 return
         self.retune(batch, phase="prefill", tokens_per_seq=seq)
 
+    def _ensure_verify_plan(self, batch: int, seq: int) -> None:
+        """Tune the verify plan to the observed draft-run shape.  Verify
+        is a phase of its own: admission prefills run at batch x prompt
+        (hundreds of tokens), verify at batch x (k + 1) (a handful), and
+        one shared plan would thrash between them.  Same multiplicative
+        hysteresis, so adaptive-k wobble does not rebuild the engine."""
+        cur = self.policies.get("verify")
+        intensity = max(batch, 1) * max(seq, 1)
+        if cur is not None:
+            f = self.prefill_retune_factor
+            if cur.intensity / f <= intensity <= cur.intensity * f:
+                return
+        self.retune(batch, phase="verify", tokens_per_seq=seq)
+
     # -- tracing + trace-driven recalibration --------------------------
     def set_tracer(self, tracer: Tracer) -> None:
         """Attach a tracer to the backend and every live phase engine."""
@@ -326,27 +351,35 @@ class HeteGenBackend:
         self._open_engine(phase)
 
     def _maybe_recalibrate(self) -> None:
-        """Periodic trace-driven re-tune, called at the top of a decode
-        step — the engines are idle there, so swapping the decode
+        """Periodic trace-driven re-tune, called at the top of a decode or
+        verify step — the engines are idle there, so swapping a phase's
         partition is safe.  Opt-in (``recalibrate=``), with the drift
-        threshold acting as hysteresis: the plan is only rebuilt when
-        |refined - current| exceeds it.  The fit reads the decode-tagged
-        spans recorded since the last fit."""
+        threshold acting as hysteresis: a plan is only rebuilt when
+        |refined - current| exceeds it.  Each phase with a plan ("decode",
+        then "verify") fits its own spans recorded since the last fit;
+        each rebuild is a ``replan`` span."""
         if self.recalibrate is None or not self.tracer:
             return
         self._recal_steps += 1
         if self._recal_steps % self.recalibrate_every:
             return
         mark = self.tracer.mark()
-        fit = self.recalibrate_from_trace("decode")
-        if fit is None:
-            return
-        if abs(fit.alpha - self.policies["decode"].alpha) > self.recalibrate:
-            with self.tracer.span("replan", track="replan", phase="decode",
-                                  alpha=float(fit.alpha)):
-                self._apply_alpha("decode", fit.alpha)
-            self.recalibrations += 1
-        self._recal_mark = mark
+        fitted = False
+        for phase in ("decode", "verify"):
+            if phase not in self.policies:
+                continue
+            fit = self.recalibrate_from_trace(phase)
+            if fit is None:
+                continue
+            fitted = True
+            if abs(fit.alpha - self.policies[phase].alpha) \
+                    > self.recalibrate:
+                with self.tracer.span("replan", track="replan", phase=phase,
+                                      alpha=float(fit.alpha)):
+                    self._apply_alpha(phase, fit.alpha)
+                self.recalibrations += 1
+        if fitted:
+            self._recal_mark = mark
 
     # -- LinearBackend surface -----------------------------------------
     def linear(self, x: torch.Tensor, name: str) -> torch.Tensor:
@@ -383,6 +416,23 @@ class HeteGenBackend:
         self._maybe_recalibrate()
         return M.backend_decode(self.cfg, self.shared, token, cache,
                                 linear=self.linear, ops=self._ops)
+
+    def verify(self, batch: Dict, cache: Dict
+               ) -> Tuple[Dict, torch.Tensor]:
+        """Speculative scoring pass under the "verify" phase plan —
+        intensity batch x (k + 1), the prefill-like regime, though the
+        step advances the decode frontier.  Logits (B, S, V)."""
+        self._maybe_recalibrate()
+        if self.phase_plans:
+            b, s = batch["tokens"].shape
+            self._ensure_verify_plan(b, s)
+            self._phase = "verify"
+        try:
+            return M.backend_prefill(self.cfg, self.shared, batch, cache,
+                                     linear=self.linear, ops=self._ops,
+                                     all_logits=True)
+        finally:
+            self._phase = "decode"
 
     def prefetch_next_step(self) -> None:
         """Drive step N+1's pins while step N's host tail drains: by the

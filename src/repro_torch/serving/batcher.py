@@ -34,6 +34,13 @@ sampler's sort.
 :class:`repro_torch.serving.kv_cache.PagedKVCache`; its pools are device
 tensors the model updates in place, so no pool is copied back after a
 step.  ``kv_dtype="int8"`` stores int8 pages.
+
+``spec=`` (:class:`repro_torch.serving.speculative.SpecConfig`) turns on
+speculative decoding: the host drafts before the plan, the scheduler
+reserves each drafted request's ``k + 1`` positions, and the decode step
+becomes one ``backend.verify`` over ``[pending] + drafts`` per row,
+accepted on the host and rolled back by ``PagedKVCache.truncate`` (or a
+dense length reset).
 """
 
 from __future__ import annotations
@@ -53,6 +60,9 @@ from repro_torch.serving.sampling import (SamplingParams, greedy,
                                           sample_rows, seed_key, step_key)
 from repro_torch.serving.scheduler import (PREFILLING, RequestState, RUNNING,
                                            Scheduler, SchedulerPolicy)
+from repro_torch.serving.speculative import (AdaptiveK, SpecConfig,
+                                             SpecStats, accept_drafts,
+                                             logprob_record)
 from repro_torch.telemetry.metrics import MetricsRegistry
 from repro_torch.telemetry.tracer import NULL_TRACER, Tracer
 
@@ -72,6 +82,7 @@ class ContinuousBatcher:
                  preempt_mode: Optional[str] = None,
                  chunk_tokens: Optional[int] = None,
                  prefix_dedupe: Optional[bool] = None,
+                 spec: Optional[SpecConfig] = None,
                  selfcheck: bool = False,
                  tracer: Tracer = NULL_TRACER,
                  metrics: Optional[MetricsRegistry] = None,
@@ -133,6 +144,20 @@ class ContinuousBatcher:
         self.retune_hysteresis = retune_hysteresis
         self._plan_batch = max_slots
         self.retunes = 0
+        # speculative decoding: host drafting + one batched verify a step;
+        # the batcher owns the drafter's per-request state
+        self.spec = spec
+        self.spec_stats = SpecStats()
+        self.spec_by_req: Dict[int, SpecStats] = {}
+        self._adaptive: Optional[AdaptiveK] = None
+        if spec is not None:
+            if not hasattr(self.backend, "verify"):
+                raise ValueError(
+                    "speculative decoding needs a backend exposing "
+                    "verify(batch, cache); "
+                    f"{type(self.backend).__name__} does not")
+            if spec.adaptive:
+                self._adaptive = AdaptiveK(spec.k, spec.k_min, spec.k_max)
         self._closed = False
 
     # -- scheduler views ------------------------------------------------
@@ -374,6 +399,10 @@ class ContinuousBatcher:
             if slot is not None:
                 self.cache["len"][slot] = 0
                 st.slot = None
+            if self.spec is not None:
+                self.spec.drafter.release(st.rid)
+                if self._adaptive is not None:
+                    self._adaptive.release(st.rid)
 
     # ------------------------------------------------------------------
     def step(self) -> int:
@@ -399,7 +428,16 @@ class ContinuousBatcher:
         if self.kv is not None and self.kv.check:
             self.kv.validate()
         with self.tracer.span("plan", track="phase"):
-            plan = self.scheduler.plan()
+            # drafting comes before the plan: the scheduler reserves each
+            # drafted request's k + 1 positions up front; proposals of
+            # requests the plan preempts are dropped (deterministic
+            # drafters re-propose the same run on resume)
+            proposals = self._draft_proposals() if self.spec is not None \
+                else None
+            advances = None
+            if proposals:
+                advances = {rid: len(d) + 1 for rid, d in proposals.items()}
+            plan = self.scheduler.plan(advances)
         admit_cm = self.tracer.span("prefill", track="phase") \
             if (plan.preempt or plan.start or plan.prefill) \
             else contextlib.nullcontext()
@@ -440,6 +478,17 @@ class ContinuousBatcher:
             self.backend.retune(executed, phase="decode")
             self._plan_batch = executed
             self.retunes += 1
+        if proposals:
+            proposals = {rid: d for rid, d in proposals.items()
+                         if d and rid in self.requests
+                         and self.requests[rid].status == RUNNING}
+        if proposals:
+            # drafted and undrafted rows share one verify step (an
+            # undrafted row's bonus draw is the baseline decode draw)
+            sp.set(phase="verify")
+            with self.tracer.span("verify", track="phase"):
+                self._spec_step(proposals, active)
+            return int(self.scheduler.active_mask().sum())
         sp.set(phase="decode")
         with self.tracer.span("decode", track="phase"):
             if self.paged and occ < self.max_slots:
@@ -455,6 +504,132 @@ class ContinuousBatcher:
             st.generated.append(nxt[st.slot])
             self._maybe_finish(st)
         return int(self.scheduler.active_mask().sum())
+
+    def _draft_proposals(self) -> Dict[int, List[int]]:
+        """Host-side drafting over the running slots, capped per request
+        so a fully accepted run never overshoots ``max_new`` (the bonus
+        token needs headroom of 1) or ``max_len`` (``kv_len + k + 1 <=
+        max_len``)."""
+        out: Dict[int, List[int]] = {}
+        for st in self.scheduler.running():
+            k = self._adaptive.k_for(st.rid) if self._adaptive is not None \
+                else self.spec.k
+            k = min(k, st.max_new - len(st.generated) - 1,
+                    self.max_len - st.kv_len - 1)
+            if k <= 0:
+                continue
+            d = self.spec.drafter.propose(st.rid, st.prompt + st.generated,
+                                          k)
+            if d:
+                out[st.rid] = [int(t) for t in d[:k]]
+        return out
+
+    def _spec_step(self, proposals: Dict[int, List[int]],
+                   active: np.ndarray) -> None:
+        """Draft -> verify -> accept -> rollback, as one step.
+
+        Every running slot joins the verify batch — drafted rows carry
+        ``[pending] + drafts``, undrafted rows their pending token —
+        padded to the widest run.  Paged: the active slots' block-table
+        and length rows form the batch, each row scored at its own
+        ``kv_len`` (the paged-prefill kernel's per-row offset), pad
+        positions past a row's pages written to the trash page.  Dense:
+        the full slot width, lengths restored after the call and set per
+        row below.  Acceptance runs on the host over one copy of the
+        (rows, width, V) logits; the bonus tokens of stochastic rows are
+        drawn in one ``sample_rows`` call on the logits' device with each
+        request's plain step key.  Rejected drafts roll back as metadata
+        (``PagedKVCache.truncate`` / the length): stale KV past a length
+        is never attended before it is overwritten."""
+        slot_req = self.scheduler.slot_req
+        slots = [int(s) for s in np.flatnonzero(active)]
+        drafts = {s: proposals.get(slot_req[s].rid, []) for s in slots}
+        width = max(len(d) for d in drafts.values()) + 1
+
+        def row_tokens(s: int) -> List[int]:
+            d = drafts[s]
+            return [slot_req[s].generated[-1]] + d + [0] * (width - 1 - len(d))
+
+        if self.paged:
+            idx = torch.as_tensor(slots, device=self.device)
+            sub = {k: v for k, v in self.cache.items()
+                   if k.startswith("pages_")}
+            sub["block_tables"] = self.cache["block_tables"][idx]
+            sub["len"] = self.cache["len"][idx]
+            _, logits = self.backend.verify(
+                {"tokens": self._tokens([row_tokens(s) for s in slots])},
+                sub)
+            row_of = {s: i for i, s in enumerate(slots)}
+        else:
+            lens_before = self.cache["len"].clone()
+            toks = self._tokens([row_tokens(s) if active[s] else [0] * width
+                                 for s in range(self.max_slots)])
+            self.cache, logits = self.backend.verify({"tokens": toks},
+                                                     self.cache)
+            self.cache["len"] = lens_before
+            row_of = {s: s for s in slots}
+        self._prefetch_next_step()
+
+        with self.tracer.span("sample", track="sample", rows=len(slots)):
+            # the step's one copy of the verify logits to the host
+            lg = logits.float().cpu().numpy()            # (rows, width, V)
+            emitted: Dict[int, List[int]] = {}
+            bonus: List[int] = []
+            for s in slots:
+                st = slot_req[s]
+                m = len(drafts[s])
+                out, owed = accept_drafts(lg[row_of[s], :m + 1], drafts[s],
+                                          st.sampling, st.key,
+                                          len(st.generated))
+                if owed and st.sampling.kind == "greedy":
+                    out.append(int(np.argmax(lg[row_of[s], m])))
+                elif owed:
+                    bonus.append(s)
+                emitted[s] = out
+            if bonus:
+                at_row = torch.as_tensor([row_of[s] for s in bonus],
+                                         device=logits.device)
+                at_pos = torch.as_tensor([len(drafts[s]) for s in bonus],
+                                         device=logits.device)
+                reqs = [slot_req[s] for s in bonus]
+                drawn = sample_rows(
+                    logits[at_row, at_pos].float(),
+                    [step_key(r.key, len(r.generated) + len(drafts[s]))
+                     for r, s in zip(reqs, bonus)],
+                    pack_sampling([r.sampling for r in reqs],
+                                  device=logits.device)).tolist()
+                for s, t in zip(bonus, drawn):
+                    emitted[s].append(int(t))
+
+        for s in slots:
+            st = slot_req[s]
+            m = len(drafts[s])
+            out = emitted[s]
+            n_full = len(out) - 1                 # drafts accepted, pre-cut
+            if st.eos is not None and st.eos in out:
+                out = out[:out.index(st.eos) + 1]
+            accepted = min(len(out), n_full)
+            if m > 0:
+                self.spec_stats.record(m, accepted)
+                self.spec_by_req.setdefault(st.rid, SpecStats()) \
+                    .record(m, accepted)
+                if self._adaptive is not None:
+                    self._adaptive.update(st.rid, m, accepted)
+            if st.sampling.logprobs is not None:
+                rows = lg[row_of[s]]
+                for j, t in enumerate(out):
+                    st.logprobs.append(
+                        logprob_record(rows[j], t, st.sampling.logprobs))
+            st.generated.extend(out)
+            # rollback: kv_len now counts only pending + accepted drafts;
+            # pages past it unmap (paged) and the length shrinks
+            new_len = st.kv_len
+            if self.paged:
+                self.cache = self.kv.truncate(self.cache, s, new_len)
+                self.scheduler.tables_dirty = True
+            self.cache["len"][s] = new_len
+            self.tokens[s] = out[-1]
+            self._maybe_finish(st)
 
     def _prefetch_next_step(self) -> None:
         if hasattr(self.backend, "prefetch_next_step"):

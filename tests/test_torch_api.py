@@ -21,7 +21,10 @@ from repro_torch.core.hw import PAPER_A10 as T_A10
 from repro_torch.models import model as TM
 from repro_torch.serving.api import LLM
 from repro_torch.serving.backends import HeteGenBackend
+from repro_torch.launch import serve
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.speculative import NgramDrafter, SpecConfig
+from repro_torch.serving.tokenizer import ByteTokenizer
 
 
 @pytest.fixture(scope="module", params=["tiny", "opt-125m"])
@@ -91,8 +94,20 @@ def test_unported_features_raise(setup):
         outs = llm.generate(prompts[:2], max_new=3)
         assert llm.last_executor == "batcher"
         assert [len(o.tokens) for o in outs] == [3, 3]
-    with pytest.raises(NotImplementedError):
-        LLM(cfg, tp, device="cpu", spec=object())
+    # speculative decoding and text I/O are served now, token-identical
+    # to the plain run; what is still unported (the launcher's --dryrun,
+    # which needs launch/dryrun.py) raises
+    with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32,
+             spec=SpecConfig(NgramDrafter(), k=2),
+             tokenizer=ByteTokenizer(eos_id=None)) as llm:
+        spec_outs = llm.generate(prompts[:2], max_new=3)
+        assert llm.last_executor == "batcher"
+        assert [o.tokens for o in spec_outs] == [o.tokens for o in outs]
+        assert spec_outs[0].text == ByteTokenizer().decode(outs[0].tokens)
+        assert "spec" in llm.stats()
+    with pytest.raises(NotImplementedError, match="dryrun"):
+        serve.serve(serve.build_parser().parse_args(
+            ["--arch", cfg.name, "--device", "cpu", "--dryrun"]))
     # tracing and trace-driven recalibration are served now
     with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32,
              trace=True) as llm:

@@ -1253,3 +1253,143 @@ def test_sample_rows_in_cuda_graph(cuda):
     want, winfo = smp.sample_rows(new_l, new_k, packed, top_logprobs=3)
     assert torch.equal(out, want)
     assert all(torch.equal(info[k], winfo[k]) for k in info)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding on the card: verify-shaped paged prefill, greedy
+# identity, the model drafter and the event loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,q8", [(torch.float32, False),
+                                      (torch.float32, True),
+                                      (torch.bfloat16, False),
+                                      (torch.bfloat16, True)])
+@pytest.mark.parametrize("s", [2, 3, 4, 5])
+def test_paged_prefill_verify_shapes(cuda, dtype, q8, s):
+    """A verify batch: 4 rows of S = k + 1 queries at ragged kv offsets;
+    rows 1 and 3 carry one real token and S - 1 pads, so their block
+    tables end at the trash page past kv_len + 1, as the batcher exports
+    them.  Within ``ref.paged_prefill_attention_limit`` of the plain
+    version, one launch, the same bits from a second call."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(40 + s)
+    b, hq, hkv, d, ps = 4, 8, 2, 128, 16
+    offs = (47, 52, 63, 69)
+    nb = max(-(-(o + s) // ps) for o in offs)
+    kp, vp, ks, vs, bt = _pool(gen, b, hkv, nb, ps, d, q8, cuda)
+    if not q8:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    for i in (1, 3):
+        bt[i, -(-(offs[i] + 1) // ps):] = 0
+    q = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs)
+    before = ops.launch_counts()["paged_prefill_attention"]
+    got = ops.paged_prefill_attention(q, kp, vp, bt, off, **kw)
+    assert ops.launch_counts()["paged_prefill_attention"] == before + 1
+    want = ref.paged_prefill_attention(q, kp, vp, bt, off, **kw)
+    limit = ref.paged_prefill_attention_limit(q, kp, vp, bt, off, want,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_within(got, want, limit)
+    assert torch.equal(ops.paged_prefill_attention(q, kp, vp, bt, off, **kw),
+                       got)
+
+
+def _spec_prompts(vocab, n=4, run=6, length=24, seed=9):
+    rng = np.random.default_rng(seed)
+    return [([int(t) for t in rng.integers(0, vocab, run)]
+             * (length // run + 1))[:length] for _ in range(n)]
+
+
+@pytest.mark.parametrize("arch", ["opt-6.7b", "mistral-nemo-12b"])
+def test_spec_greedy_on_card_equals_plain(cuda, arch):
+    """Greedy speculation (prompt lookup, k 4) on the card gives the
+    plain paged run's tokens: reduced OPT offloaded through
+    ``HeteGenBackend(tile=16)`` (a verify engine of its own), reduced
+    Mistral resident; the verify forwards launch the paged prefill
+    kernel and no plain attention."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.backends import HeteGenBackend
+    from repro_torch.serving.speculative import NgramDrafter, SpecConfig
+    cfg = reduced(get_config(arch))
+    params = M.init_params(cfg, 0, device=cuda)
+    prompts = _spec_prompts(cfg.vocab_size)
+
+    def serve(spec):
+        kw = dict(paged=True, max_slots=4, max_len=64, page_size=16,
+                  spec=spec)
+        if arch == "opt-6.7b":
+            kw.update(backend=HeteGenBackend(
+                cfg, M.tree_to(params, "cpu"), batch=4, tile=16,
+                device=cuda), own_backend=True)
+            llm = LLM(cfg, **kw)
+        else:
+            llm = LLM(cfg, params, **kw)
+        with llm:
+            ops.reset_launch_counts()
+            outs = llm.generate(prompts, max_new=12)
+            st = llm.stats()
+        return [o.tokens for o in outs], st, ops.launch_counts()
+
+    base, _, _ = serve(None)
+    got, st, n = serve(SpecConfig(NgramDrafter(), k=4))
+    assert got == base
+    assert st["spec"]["drafted"] > 0
+    assert n["paged_prefill_attention"] > 0
+    assert n["plain_dense_attention"] == 0
+    if arch == "opt-6.7b":
+        assert "verify" in st["phase_alpha"]
+
+
+def test_model_drafter_self_draft_on_card(cuda):
+    """The target model as its own drafter on the card (a dense cache per
+    request, flash and decode kernels): the tokens are the plain run's
+    and nearly every draft is accepted."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import LLM
+    from repro_torch.serving.speculative import ModelDrafter, SpecConfig
+    cfg = reduced(get_config("opt-6.7b"))
+    params = M.init_params(cfg, 0, device=cuda)
+    prompts = _spec_prompts(cfg.vocab_size, n=2, seed=10)
+    with LLM(cfg, params, paged=True, max_slots=2, max_len=64) as llm:
+        base = [o.tokens for o in llm.generate(prompts, max_new=10)]
+    drafter = ModelDrafter(cfg, params, max_len=64)
+    assert drafter.device.type == "cuda"
+    with LLM(cfg, params, paged=True, max_slots=2, max_len=64,
+             spec=SpecConfig(drafter, k=3)) as llm:
+        got = [o.tokens for o in llm.generate(prompts, max_new=10)]
+        st = llm.stats()["spec"]
+    drafter.close()
+    assert got == base
+    assert st["drafted"] > 0 and st["acceptance_rate"] >= 0.9
+
+
+def test_async_llm_on_card(cuda):
+    """AsyncLLM's loop thread launches the kernels on the card (it enters
+    the backend's device) and streams the synchronous facade's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import LLM, AsyncLLM
+    cfg = get_config("tiny")
+    params = M.init_params(cfg, 0, device=cuda)
+    prompts = _spec_prompts(cfg.vocab_size, n=3, seed=11)
+    with LLM(cfg, params, paged=True, max_slots=4, max_len=64) as llm:
+        rids = [llm.submit(p, 8) for p in prompts]
+        out = llm.drain()
+        want = [out[r].tokens for r in rids]
+    ops.reset_launch_counts()
+    with AsyncLLM(cfg, params, paged=True, max_slots=4,
+                  max_len=64) as allm:
+        assert allm.llm.device.type == "cuda"
+        its = [allm.stream(p, 8) for p in prompts]
+        got = [list(it) for it in its]
+    n = ops.launch_counts()
+    assert got == want
+    assert n["paged_prefill_attention"] > 0 and n["paged_decode_attention"] > 0

@@ -31,8 +31,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
+
+# modules the scan must reach (walk_packages finds them by itself; the
+# list guards against a package that stops being walked)
+MUST_SCAN = ("repro_torch.serving.speculative",
+             "repro_torch.serving.tokenizer",
+             "repro_torch.launch.serve")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -40,7 +46,9 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 42          # every module was walked
+    names = out.stdout.split()
+    assert len(names) >= 42                       # every module was walked
+    assert set(MUST_SCAN) <= set(names)
 
 
 def test_chip_smoke_imports_only_torch_numpy_and_the_port():
