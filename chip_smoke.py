@@ -124,6 +124,24 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    identical as in 3i with ``BF16_LOGIT_TOL``; every verify forward
    launches ``paged_prefill_attention`` at its (B, S) and ``gated_matmul``
    at B x S rows, once per layer;
+3j. the scan-stacked families at full width, bf16, random weights made
+   on the card from a seed: Gemma-2-2B (26 layers, local/global with a
+   4096 window, softcaps 50 / 30, head dim 256; four ``GEMMA_PROMPT``-token
+   prompts, past the window), MiniCPM3-4B (62 layers, MLA) and
+   Zamba2-1.2B (38 Mamba2 layers, the shared block at 7 sites) at full
+   depth, Llama-4 Scout at ``SCOUT_LAYERS`` of 48 layers (16 experts and
+   a shared one a layer, about 37 GiB; reduced depth), four
+   ``FAMILY_PROMPT``-token prompts for the others, ``FAMILY_NEW`` new
+   tokens each.  Each runs ``LLM(cfg, params).generate`` one-shot with
+   the launches :func:`family_launches` predicts (MLA attends in plain
+   PyTorch, so MiniCPM3 launches no attention kernel; a local layer's
+   decode takes the counted plain attention) and first tokens equal to
+   the prefill logits' argmax; then, but for Zamba2 (the batcher takes
+   no hybrid), the same prompts with ragged budgets through
+   ``LLM(paged=False)``'s batcher, whose backend must be
+   ``ScanResidentBackend``, with the same kernels launched and the same
+   first tokens but at a near tie.  A reduced model of each family runs
+   on the card and on the CPU first (:func:`check_small_reference`);
 4. every kernel against its plain PyTorch version on the same card
    inputs at the main path's shapes (these launches come after the
    counters were read, so they do not count), with CUDA-event times of kernel,
@@ -181,6 +199,18 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    cuBLASLt call; PyTorch has no single call for the gated function, so
    its ``library_ms`` is null); one shape off the main path each, logged
    only;
+4j. every shape 3j's tally recorded for flash attention, flash-decode,
+   ``gated_matmul`` and RMSNorm (Gemma-2's head dim 256 with window and
+   softcap, Scout's GQA group of 5 and its qk-norms, Zamba2's shared
+   block at head dim 64, MLA's latent norms, the SiLU and GELU MLP
+   widths), and ``ssd_chunk`` at Zamba2's shape, against their plain
+   versions with 4b's, 4c's and 4d's checks; each limit shown to reject
+   keys outside the window, scores without their softcap and, at decode,
+   64 values lost mid-sequence.  A softcap's q is widened
+   ``SOFTCAP_QSCALE`` times so that the cap bites; its decode entry is
+   held on the unshaped cache and, with a hot last key (its softmax
+   share logged), against an off-by-one mask.  The softcapped entries'
+   library call is ``flex_attention`` under ``torch.compile``;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -227,11 +257,12 @@ from repro_torch.kernels import q8_matmul as k_q8  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as k_rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as k_ssd  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import sampling as smp  # noqa: E402
-from repro_torch.serving.api import LLM, AsyncLLM  # noqa: E402
-from repro_torch.serving.backends import (HeteGenBackend,  # noqa: E402
-                                          ResidentBackend, enumerate_linears)
+from repro_torch.serving.api import LLM, AsyncLLM, GenRequest  # noqa: E402
+from repro_torch.serving.backends import (  # noqa: E402
+    HeteGenBackend, ResidentBackend, ScanResidentBackend, enumerate_linears)
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 from repro_torch.serving.scheduler import PREFILLING  # noqa: E402
 from repro_torch.serving.speculative import (NgramDrafter,  # noqa: E402
@@ -284,6 +315,11 @@ SPEC_RUN = 12                      # 3i: the random run each prompt repeats
 SPEC_NEW = 16                      # 3i: new tokens per request
 SPEC_K = 4                         # 3i: draft tokens per verify step
 CHI2_DRAWS = 1 << 16               # 3h: card draws for the chi-square
+FAMILY_PROMPT = 512                # 3j: prompt tokens per row
+GEMMA_PROMPT = 4608                # 3j: Gemma-2's, past its 4096 window
+FAMILY_NEW = 16                    # 3j: new tokens per row
+SCOUT_LAYERS = 8                   # 3j: Llama-4 Scout's layers (of 48)
+SOFTCAP_QSCALE = 4.0               # 4j: q widened so that a softcap bites
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "smoke_out")
 
@@ -1202,7 +1238,9 @@ def check_small_reference(cfg, seed, prompt_len=24):
 
     toks = torch.tensor([list(rng.integers(0, small.vocab_size, prompt_len))
                          for _ in range(8)], dtype=torch.int32)
-    kv_dtypes = (None, "int8") if small.family != "ssm" else (None,)
+    # an int8 cache where the family has one (GQA stacks)
+    kv_dtypes = (None, "int8") if small.family in ("dense", "vlm") \
+        and small.attn_kind == "gqa" else (None,)
     tol = SSM_BF16_MODEL_TOL if small.family == "ssm" else BF16_MODEL_TOL
     for kv_dtype in kv_dtypes:
         bf = dataclasses.replace(small, dtype="bfloat16", kv_dtype=kv_dtype)
@@ -1215,15 +1253,29 @@ def check_small_bf16(run, bf, seed, forward, tol):
     """``forward(cfg, params, device)`` -> (prefill logits, decode-step
     logits) of a bf16 config on the card and on the CPU, held within
     ``tol`` of the largest |logit| (and beside the plain bf16 model's own
-    distance from fp32)."""
+    distance from fp32).  For MoE the router's expert choices are held
+    first (:func:`moe_flips`), and the rows a near-tie flip excuses are
+    left out of the logits' comparison."""
     f32 = dataclasses.replace(bf, dtype="float32")
     p_bf = M.init_params(bf, seed, device="cpu")
     runs = {"card": (bf, M.tree_to(p_bf, "cuda"), "cuda"),
             "cpu": (bf, p_bf, "cpu"),
             "cpu_fp32": (f32, _to_float(p_bf), "cpu")}
-    out = {name: forward(c, p, dev) for name, (c, p, dev) in runs.items()}
+    out, routes = {}, {}
+    for name, (c, p, dev) in runs.items():
+        out[name], routes[name] = record_routes(
+            lambda: forward(c, p, dev))
+    b, s = out["cpu"][0].shape[:2]
+    rows = list(range(b))
+    if bf.n_experts:
+        excused = moe_flips(run, routes["card"], routes["cpu"], b, s)
+        rows = [r for r in rows if r not in excused]
+        log(f"{run}: {len(excused)} of {b} rows excused for a router flip "
+            f"at a near tie")
+        check(len(rows) > 0, f"{run}: every row excused")
     for i, what in enumerate(("prefill logits", "decode-step logits")):
-        card, cpu, exact = (out[n][i] for n in ("card", "cpu", "cpu_fp32"))
+        card, cpu, exact = (out[n][i][rows]
+                            for n in ("card", "cpu", "cpu_fp32"))
         scale = float(cpu.abs().max())
         rel = float((card - cpu).abs().max()) / scale
         own = float((cpu - exact).abs().max()) / scale
@@ -1237,6 +1289,61 @@ def check_small_bf16(run, bf, seed, forward, tol):
         check(rel <= tol, f"{run}: {what} disagree")
         check(bool(same.all()) and int(stable.sum()) > 0,
               f"{run}: {what} argmax differs at a stable position")
+
+
+def record_routes(fn):
+    """``fn()`` with each call of the MoE router (``layers.moe_route``)
+    recorded on the host, per token: the chosen expert, whether it was
+    kept, and the gap between the top two router logits beside their
+    largest |value|.  Returns ``fn()``'s result and the calls in order."""
+    calls, inner = [], L.moe_route
+
+    def recorded(cfg, p, x, *, capacity):
+        out = inner(cfg, p, x, capacity=capacity)
+        logits = (x @ p["router"].to(x.dtype)).float()
+        top = torch.topk(logits, 2, dim=-1).values
+        calls.append({"idx": out[0].reshape(-1).cpu(),
+                      "keep": out[3].reshape(-1).cpu(),
+                      "gap": (top[..., 0] - top[..., 1]).reshape(-1).cpu(),
+                      "scale": logits.abs().amax(-1).reshape(-1).cpu()})
+        return out
+
+    L.moe_route = recorded
+    try:
+        return fn(), calls
+    finally:
+        L.moe_route = inner
+
+
+def moe_flips(run, card, cpu, b, s):
+    """The rows of a (b, s) batch that a router flip excuses.  The card's
+    and the CPU's router calls, in order (the prefill's groups over the
+    b * s tokens row after row, then a decode step's b tokens), keep the
+    same tokens (the reduced config's capacity drops none) and pick the
+    same experts, but for a token whose top two router logits lie within
+    ``BF16_LOGIT_TOL`` of their largest |value| on the CPU: a near tie
+    that bf16 rounding on the other side may flip.  Its row is excused
+    from then on, since every later input of that row differs.  Each
+    flip is logged."""
+    check(len(card) == len(cpu), f"{run}: {len(card)} router calls on the "
+          f"card, {len(cpu)} on the CPU")
+    excused = set()
+    for i, (c, w) in enumerate(zip(card, cpu)):
+        check(torch.equal(c["keep"], w["keep"]),
+              f"{run}: router call {i}: capacity drops differ")
+        per_row = s if c["idx"].numel() == b * s else 1
+        for tok in torch.nonzero(c["idx"] != w["idx"]).flatten().tolist():
+            row = tok // per_row
+            gap, scale = float(w["gap"][tok]), float(w["scale"][tok])
+            log(f"{run}: router call {i} token {tok} (row {row}): expert "
+                f"{int(c['idx'][tok])} on the card, {int(w['idx'][tok])} "
+                f"on the CPU, top-two gap {gap:.3e} of max|router logit| "
+                f"{scale:.3e}")
+            if row not in excused:
+                check(gap <= BF16_LOGIT_TOL * scale, f"{run}: router call "
+                      f"{i} picks another expert away from a near tie")
+                excused.add(row)
+    return excused
 
 
 def _to_float(tree):
@@ -1276,7 +1383,7 @@ def compare_whole_model_logits(cfg, params, prompts):
     return torch.argmax(want, dim=-1).tolist()
 
 
-def rows_width(x, *_):
+def rows_width(x, *_, **__):
     """(rows, width) of an operand: the shape key of :func:`tally_rows`."""
     return x.numel() // x.shape[-1], x.shape[-1]
 
@@ -1287,7 +1394,8 @@ def tally_rows(fn, names=("rmsnorm",), key=rows_width):
     operand by default; ``key`` may also be a dict by name; the model and
     the engine call the ``ops`` entry points, which launch the kernels on
     CUDA tensors), so that each shape gets its own launches; returns
-    ``fn()``'s result and ``{name: {shape: calls}}``."""
+    ``fn()``'s result and ``{name: {shape: calls}}``.  A key takes the
+    call's keyword arguments too."""
     tally = {name: {} for name in names}
     inner = {name: getattr(ops, name) for name in names}
     keys = key if isinstance(key, dict) else {name: key for name in names}
@@ -1295,7 +1403,7 @@ def tally_rows(fn, names=("rmsnorm",), key=rows_width):
     def tallied(name):
         def fn_(x, *a, **kw):
             if x.is_cuda:
-                shape = keys[name](x, *a)
+                shape = keys[name](x, *a, **kw)
                 rows = tally[name]
                 rows[shape] = rows.get(shape, 0) + 1
             return inner[name](x, *a, **kw)
@@ -1812,6 +1920,180 @@ def run_mamba(seed):
     return {"launches": launches, "rmsnorm_rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: the scan-stacked families through LLM(paged=False)
+# ---------------------------------------------------------------------------
+
+def family_launches(cfg, new_tokens):
+    """What the route rule predicts for one rectangular one-shot run of a
+    3j family: a flash-attention launch per attention layer (the prefill
+    from position 0; none for MLA, which attends in plain PyTorch), a
+    flash-decode launch per global attention layer and decode step, the
+    plain dense attention at each local layer's decode step, an RMSNorm
+    launch per norm (the block's two, Gemma-2's two post-norms, the
+    qk-norms or MLA's two latent norms; a Mamba2 layer's two) plus the
+    final one per forward, and one ``gated_matmul`` per MLP (a dense MLP,
+    a shared expert, the hybrid's shared MLP) and forward; Zamba2 adds one
+    ``ssd_chunk`` launch per Mamba2 layer and reaches the attention
+    kernels at its shared-block sites only."""
+    steps = new_tokens - 1
+    n = cfg.n_layers
+    if cfg.family == "hybrid":
+        sites = len(cfg.shared_attn_sites())
+        return {"ssd_chunk": n, "plain_ssd_scan": 0,
+                "flash_attention": sites, "decode_attention": sites * steps,
+                "plain_dense_attention": 0,
+                "rmsnorm": (2 * n + 2 * sites + 1) * new_tokens,
+                "gated_matmul": sites * new_tokens, "matmul": 0}
+    kinds = cfg.layer_kinds()
+    local = sum(k == "local" for k in kinds)
+    attn = 0 if cfg.attn_kind == "mla" else n
+    norms = 2 + 2 * cfg.post_norm + 2 * (cfg.qk_norm
+                                         or cfg.attn_kind == "mla")
+    mlps = sum(k != "moe" or cfg.shared_expert for k in kinds)
+    return {"flash_attention": attn,
+            "decode_attention": (attn - local) * steps,
+            "plain_dense_attention": local * steps,
+            "rmsnorm": (norms * n + 1) * new_tokens,
+            "gated_matmul": mlps * new_tokens, "matmul": 0, "ssd_chunk": 0}
+
+
+def first_tokens_match(run, firsts, logits):
+    """Each row's first token against the prefill logits' argmax; a
+    mismatch passes only where the top two logits lie within
+    ``BF16_LOGIT_TOL`` of the largest |logit| (a near tie another batch
+    shape may round the other way), and is logged."""
+    want = torch.argmax(logits, dim=-1).tolist()
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    gap = (top[:, 0] - top[:, 1]).tolist()
+    scale = float(logits.float().abs().max())
+    for i, (got, w) in enumerate(zip(firsts, want)):
+        if got != w:
+            log(f"{run}: row {i} first token {got}, prefill argmax {w}, "
+                f"top-two gap {gap[i]:.3e} of max|logit| {scale:.3e}")
+            check(gap[i] <= BF16_LOGIT_TOL * scale,
+                  f"{run}: first token differs from the prefill argmax")
+
+
+# 3j's shape keys, each a call's whole shape, so that 4j can rebuild it:
+# flash (B, Hq, Hkv, S, D, window, softcap), decode (B, Hq, Hkv, T, D,
+# softcap), gated_matmul (rows, K, N, activation), rmsnorm (rows, width,
+# plus_one); every family's calls carry its ``norm_eps``
+FAMILY_KEYS = {
+    "flash_attention": lambda q, k, v, **kw: (
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+        kw.get("window"), kw.get("softcap")),
+    "decode_attention": lambda q, k, v, kv_len, **kw: (
+        q.shape[0], q.shape[1], k.shape[1], k.shape[2], q.shape[2],
+        kw.get("softcap")),
+    "gated_matmul": lambda x, wg, wu, **kw: (
+        *rows_width(x), wg.shape[1], kw.get("activation", "silu")),
+    "rmsnorm": lambda x, w, **kw: (*rows_width(x),
+                                   kw.get("plus_one", False)),
+}
+
+
+def run_family(name, layers, prompt_len, seed):
+    """One 3j family at full width, bf16, random weights made on the card:
+    a reduced model of the family card against CPU
+    (:func:`check_small_reference`); ``LLM(cfg, params).generate`` of
+    four ``prompt_len``-token prompts, ``FAMILY_NEW`` new tokens each,
+    one-shot on the stacked cache, with the launches
+    :func:`family_launches` predicts and the first tokens equal to the
+    prefill logits' argmax; then, for a family the batcher takes, the same
+    prompts with ragged budgets through the dense batcher's
+    ``ScanResidentBackend``.  Returns the one-shot run's launches and its
+    calls by shape (attention by window and softcap, MLP and norm by
+    rows and width; :data:`FAMILY_KEYS`)."""
+    full = get_config(name)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    log(f"3j model: {name} at full width, {cfg.n_layers} of "
+        f"{full.n_layers} layers, d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.hd} ffn={cfg.d_ff} attn={cfg.attn_kind} "
+        f"kinds={sorted(set(cfg.layer_kinds()))} experts={cfg.n_experts} "
+        f"window={cfg.window} softcaps={cfg.attn_softcap}/"
+        f"{cfg.logit_softcap} vocab={cfg.vocab_size} dtype={cfg.dtype}")
+    check_small_reference(cfg, seed, prompt_len=48)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"3j {name} init: {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.default_rng(seed + 5)
+    prompts = [list(rng.integers(0, cfg.vocab_size, prompt_len))
+               for _ in range(4)]
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    _, logits = M.prefill(cfg, params, {"tokens": toks},
+                          M.init_cache(cfg, len(prompts),
+                                       prompt_len + FAMILY_NEW,
+                                       device="cuda"))
+    check(bool(torch.isfinite(logits).all()), f"3j {name}: non-finite "
+          "logits")
+    (out, launches, llm), tally = tally_rows(
+        lambda: run_oneshot(f"3j {name}", lambda: LLM(cfg, params), prompts,
+                            FAMILY_NEW, cfg), tuple(FAMILY_KEYS),
+        FAMILY_KEYS)
+    llm.close()
+    log(f"3j {name}: calls by shape {tally}")
+    check_launches(f"3j {name}", launches, family_launches(cfg, FAMILY_NEW))
+    kernels = ["flash_attention", "decode_attention", "gated_matmul",
+               "rmsnorm"]
+    if cfg.attn_kind == "mla":                 # MLA attends in plain code
+        kernels = ["gated_matmul", "rmsnorm"]
+    if cfg.family == "hybrid":
+        kernels.append("ssd_chunk")
+    for k in kernels:
+        check(launches[k] > 0, f"3j {name}: {k} never launched")
+    first_tokens_match(f"3j {name}", [t[0] for t in out], logits)
+    if cfg.family != "hybrid":
+        budgets = [FAMILY_NEW, FAMILY_NEW - 4] * 2
+        with LLM(cfg, params, max_len=prompt_len + FAMILY_NEW) as llm:
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            outs = llm.generate([GenRequest(list(p), n)
+                                 for p, n in zip(prompts, budgets)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            blaunches = ops.launch_counts()
+            check(llm.last_executor == "batcher", f"3j {name}: executor "
+                  f"{llm.last_executor}, want batcher")
+            check(isinstance(llm.backend, ScanResidentBackend),
+                  f"3j {name}: batcher backend {type(llm.backend)}")
+        log(f"3j {name} batcher: budgets {budgets}: wall {wall:.3f} s, "
+            f"launches={blaunches}")
+        check([len(o.tokens) for o in outs] == budgets,
+              f"3j {name} batcher: short outputs")
+        for k in kernels:
+            check(blaunches[k] > 0, f"3j {name} batcher: {k} never launched")
+        first_tokens_match(f"3j {name} batcher", [o.tokens[0] for o in outs],
+                           logits)
+    del params, llm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tally": tally, "cfg": cfg,
+            "prompt": prompt_len}
+
+
+def run_families(seed):
+    """Phase 3j: Gemma-2-2B, MiniCPM3-4B and Zamba2-1.2B at full depth and
+    Llama-4 Scout at ``SCOUT_LAYERS`` of 48 layers (about 40 GB of bf16
+    weights), each at full width through ``LLM(paged=False)``."""
+    runs = {}
+    for name, layers, prompt_len in (
+            ("gemma2-2b", None, GEMMA_PROMPT),
+            ("minicpm3-4b", None, FAMILY_PROMPT),
+            ("llama4-scout-17b-16e", SCOUT_LAYERS, FAMILY_PROMPT),
+            ("zamba2-1.2b", None, FAMILY_PROMPT)):
+        t0 = time.perf_counter()
+        runs[name] = run_family(name, layers, prompt_len, seed)
+        log(f"phase 3j {name}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1948,27 +2230,33 @@ def rejects(bad, want, limit, what):
     check(beyond > 0, f"the limit would pass {what}")
 
 
-def flash_scores_bf16(q, k, v):
+def flash_scores_bf16(q, k, v, window=None, softcap=None):
     """The plain causal flash attention with the fault a tensor-core
-    kernel invites: each score q . k rounded to bf16 before the scale and
-    the softmax."""
+    kernel invites: each score q . k rounded to bf16 before the scale (the
+    softcap and the window as the plain version applies them) and the
+    softmax."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     qf = q.reshape(b, hkv, hq // hkv, sq, d).float()
     s = torch.einsum("bkgsd,bktd->bkgst", qf, k.float())
     s = s.to(torch.bfloat16).float() / (d ** 0.5)
-    ok = torch.arange(skv, device=q.device)[None, :] \
-        <= torch.arange(sq, device=q.device)[:, None]
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    ok = kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
     p = torch.softmax(torch.where(ok, s, ref.NEG_INF), dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
-def rms_faults(x, w, eps):
+def rms_faults(x, w, eps, plus_one=False):
     """Plain RMSNorms with one fault each, all within one bf16 step of the
     plain version: squares rounded to bf16 before the mean, x * rsqrt
     rounded to bf16 before the scale, the mean over D - 1."""
-    xf, wf = x.float(), w.float()
+    xf, wf = x.float(), w.float() + (1.0 if plus_one else 0.0)
     d = x.shape[-1]
     sq = xf * xf
 
@@ -1985,24 +2273,28 @@ def rms_faults(x, w, eps):
     }
 
 
-def rms_entry(name, gen, cfg, rows, d, launches):
+def rms_entry(name, gen, cfg, rows, d, launches, *, plus_one=False):
     """The RMSNorm kernel on a bf16 (rows, d) input against its plain
-    version, within ``ref.rmsnorm_limit`` and bit-equal to it but for at
-    most ``ref.RMSNORM_UNEQUAL_MAX`` of the elements, a check each of
-    three faults that stay within the limit must fail; timed beside
-    ``F.rms_norm``."""
+    version (the scale ``1 + w`` with ``plus_one``, Gemma's), within
+    ``ref.rmsnorm_limit`` and bit-equal to it but for at most
+    ``ref.RMSNORM_UNEQUAL_MAX`` of the elements, a check each of three
+    faults that stay within the limit must fail; timed beside
+    ``F.rms_norm`` (with ``plus_one`` over ``1 + w`` rounded to bf16
+    once, outside the timed call)."""
     x = torch.randn((rows, d), generator=gen, device="cuda") \
         .to(torch.bfloat16)
     w = torch.randn(d, generator=gen, device="cuda").to(torch.bfloat16)
     eps = cfg.norm_eps
-    got = k_rms.rmsnorm(x, w, eps=eps)
-    want = ref.rmsnorm(x, w, eps=eps)
+    kw = dict(eps=eps, plus_one=plus_one)
+    got = k_rms.rmsnorm(x, w, **kw)
+    want = ref.rmsnorm(x, w, **kw)
     share = ref.unequal_share(got, want)
     log(f"kernel {name}: {share:.2e} of elements not bit-equal to the "
         f"plain version (at most {ref.RMSNORM_UNEQUAL_MAX:.0e})")
     check(share <= ref.RMSNORM_UNEQUAL_MAX,
           f"{name}: {share:.2e} of elements not bit-equal")
-    for what, bad in rms_faults(x, w, eps).items():
+    w_lib = (w.float() + 1.0).to(w.dtype) if plus_one else w
+    for what, bad in rms_faults(x, w, eps, plus_one).items():
         bad_share = ref.unequal_share(bad, want)
         log(f"control {name}, {what}: {bad_share:.2e} of elements not "
             f"bit-equal")
@@ -2011,10 +2303,231 @@ def rms_entry(name, gen, cfg, rows, d, launches):
     return kernel_entry(
         name, "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm.py:41", launches, got, want,
-        ref.rmsnorm_limit(want), lambda: k_rms.rmsnorm(x, w, eps=eps),
-        lambda: ref.rmsnorm(x, w, eps=eps),
-        lambda: F.rms_norm(x, (d,), w, eps),
+        ref.rmsnorm_limit(want), lambda: k_rms.rmsnorm(x, w, **kw),
+        lambda: ref.rmsnorm(x, w, **kw),
+        lambda: F.rms_norm(x, (d,), w_lib, eps),
         (2 * x.numel() + d) * 2, 4 * x.numel(), BF16_FLOPS)
+
+
+def decode_entry(name, gen, cfg, dtype, kv_dt, layout, t, lens, launches, *,
+                 softcap=None, qscale=1.0, hot_last=None):
+    """The flash-decode kernel on B = len(lens) rows of a random cache of
+    ``t`` positions (``qscale`` widens q, so that a ``softcap`` bites),
+    held by :func:`hold_decode`; timed beside the plain version and the
+    library call: ``F.scaled_dot_product_attention`` with a length mask
+    (no int8), or with a softcap ``flex_attention``
+    (:func:`flex_library`).  ``hot_last`` sets each row's last key along its
+    kv-group's mean query, scored about ``hot_last`` before the softcap
+    (a recent token drawing most of the weight; its share is logged), so
+    that an off-by-one mask shows over thousands of keys; before that,
+    the same shape is held on the unshaped cache, where the bulk of the
+    keys carries the weight and the mask's off-by-one is out of sight."""
+    b = len(lens)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q8 = kv_dt == torch.int8
+    k, v, ks, vs = dense_cache(gen, b, hkv, t, d, kv_dt, layout)
+    q = (torch.randn((b, hq, d), generator=gen, device="cuda")
+         * qscale).to(dtype)
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, softcap=softcap)
+    if hot_last is not None:
+        run = f"{name} on the unshaped cache"
+        got, want, limit = hold_decode(run, q, k, v, kl, kw,
+                                       mask_control=False)
+        err, ratio = excess(got, want, limit)
+        log(f"kernel {run}: max_abs_err={err:.3e} worst err/limit="
+            f"{ratio:.3f}")
+        check(ratio <= 1.0, f"{run}: worst error {ratio:.3f} x its limit")
+        qg = q.float().reshape(b, hkv, hq // hkv, d).mean(2)
+        hot = qg * (hot_last * d ** 0.5
+                    / qg.pow(2).sum(-1, keepdim=True))
+        for i, n in enumerate(lens):           # k is (B, Hkv, T, D) in
+            k[i, :, n - 1] = hot[i].to(k.dtype)  # either layout
+        share = last_key_share(q, k, kl, softcap)
+        log(f"kernel {name}: the hot last key's softmax share over the "
+            f"rows and heads: min {float(share.min()):.4f} mean "
+            f"{float(share.mean()):.4f} max {float(share.max()):.4f}")
+    got, want, limit = hold_decode(name, q, k, v, kl, kw)
+    lib = None
+    if softcap is not None:
+        lib = flex_library(q, k, v, want, limit, softcap=softcap, lens=kl)
+    elif not q8:
+        mask = (torch.arange(t, device="cuda")[None, :]
+                < kl[:, None].long())[:, None, None, :]
+        lib = sdpa(q[:, :, None], k, v, attn_mask=mask)
+    el = q.element_size()
+    kvb = (1 if q8 else el) * 2 * hkv * d * sum(lens) \
+        + (8 * hkv * sum(lens) if q8 else 0)
+    return kernel_entry(
+        name, "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:151", launches, got,
+        want, limit,
+        lambda: k_dense.decode_attention(q, k, v, kl, **kw),
+        lambda: ref.decode_attention(q, k, v, kl, **kw), lib,
+        2 * q.numel() * el + kvb + 4 * b, 4 * hq * d * sum(lens),
+        BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+
+
+def hold_decode(run, q, k, v, kl, kw, *, mask_control=True):
+    """The kernel's output on these inputs (the same on two calls), the
+    plain version's and the per-element limit, the limit shown to reject
+    an off-by-one mask (``mask_control``), 64 values lost mid-sequence in
+    each row (one block of a split-KV sum dropped or combined with the
+    wrong weight) and, with a softcap, the scores without it."""
+    got = k_dense.decode_attention(q, k, v, kl, **kw)
+    check(torch.equal(k_dense.decode_attention(q, k, v, kl, **kw), got),
+          f"{run}: two calls differ")
+    want = ref.decode_attention(q, k, v, kl, **kw)
+    limit = ref.decode_attention_limit(q, k, v, kl, want, **kw)
+    if mask_control:
+        rejects(ref.decode_attention(q, k, v, kl - 1, **kw), want, limit,
+                f"{run}, an off-by-one mask")
+    lost = v.clone()
+    for i, n in enumerate(kl.tolist()):
+        lo = max(n // 2 - 32, 0)
+        lost[i, :, lo:lo + 64] = 0
+    rejects(ref.decode_attention(q, k, lost, kl, **kw), want, limit,
+            f"{run}, 64 values lost mid-sequence")
+    if kw["softcap"] is not None:
+        rejects(ref.decode_attention(q, k, v, kl, k_scale=kw["k_scale"],
+                                     v_scale=kw["v_scale"]),
+                want, limit, f"{run}, scores without their softcap")
+    return got, want, limit
+
+
+def last_key_share(q, k, kl, softcap):
+    """Each row's and head's softmax weight on its last key (kv_len - 1),
+    from the plain scores of a 16-bit cache (B, Hkv, T, D)."""
+    b, hq, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    sc = torch.einsum("bkgd,bktd->bkgt",
+                      q.float().reshape(b, hkv, hq // hkv, d), k.float())
+    sc = sc / d ** 0.5
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+    past = torch.arange(t, device=q.device) >= kl.long()[:, None]
+    p = torch.softmax(sc.masked_fill(past[:, None, None], -math.inf), -1)
+    last = (kl.long() - 1)[:, None, None, None].expand(b, hkv, hq // hkv, 1)
+    return p.gather(-1, last)
+
+
+def flex_library(q, k, v, want, limit, *, softcap, window=None, lens=None):
+    """``flex_attention`` under ``torch.compile``, the softcap as its
+    ``score_mod`` and, as its block mask, the causal window (flash: q
+    (B, Hq, S, D)) or each row's length ``lens`` (decode: q (B, Hq, D)):
+    the one PyTorch call that computes a softcapped attention, timed as
+    ``library_ms``.  None, with the reason logged, where it does not
+    compile or lies beyond the limit.  Inductor's and Triton's caches go
+    under ``smoke_out/``, and it compiles in this process."""
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(OUT_DIR, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(OUT_DIR, "triton"))
+    import torch._inductor.config as inductor_cfg
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    inductor_cfg.compile_threads = 1
+    decode = q.dim() == 3
+    qq = q[:, :, None] if decode else q
+
+    def cap(score, bi, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def keep(bi, h, qi, ki):
+        if decode:
+            return ki < lens[bi]
+        ok = ki <= qi
+        return ok if window is None else ok & (qi - ki < window)
+
+    t0 = time.perf_counter()
+    try:
+        mask = create_block_mask(keep, q.shape[0] if decode else None, None,
+                                 qq.shape[2], k.shape[2], device="cuda")
+        fn = torch.compile(flex_attention, dynamic=False)
+
+        def call():
+            o = fn(qq, k, v, score_mod=cap, block_mask=mask, enable_gqa=True)
+            return o[:, :, 0] if decode else o
+        out = call()
+    except Exception as e:                  # a yardstick, not a check
+        log(f"library flex_attention: not used ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200] if str(e) else ''})")
+        return None
+    err, ratio = excess(out, want, limit)
+    log(f"library flex_attention: compiled and run in "
+        f"{time.perf_counter() - t0:.1f} s, max_abs_err={err:.3e} worst "
+        f"err/limit={ratio:.3f}")
+    if ratio > 1.0:
+        log("library flex_attention: disagrees; not used")
+        return None
+    return call
+
+
+def causal_pairs(s, window=None):
+    """(query, key) pairs a causal attention over ``s`` positions scores,
+    within ``window`` where one is set."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_entry(name, gen, cfg, dtype, layout, s, t, launches, *, b=4,
+                window=None, softcap=None, qscale=1.0):
+    """The flash-attention kernel over the first ``s`` of ``t`` cache
+    positions (causal, optionally within ``window`` and softcapped;
+    ``qscale`` widens q so that a softcap bites), within
+    ``ref.flash_attention_limit``, the limit shown to reject an
+    off-by-one mask, scores rounded to bf16 (in bf16) or q and k rounded
+    to TF32 (in fp32), and each of the window and the softcap left out;
+    timed beside the plain version and, where one call computes the same
+    function, ``F.scaled_dot_product_attention`` (causal, or with the
+    window's mask), or with a softcap ``flex_attention``
+    (:func:`flex_library`)."""
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k, v, _, _ = dense_cache(gen, b, hkv, t, d, dtype, layout)
+    k, v = k[:, :, :s], v[:, :, :s]
+    q = (torch.randn((b, s, hq, d), generator=gen, device="cuda")
+         * qscale).to(dtype).transpose(1, 2)
+    kw = dict(window=window, softcap=softcap)
+    got = k_flash.flash_attention(q, k, v, **kw)
+    check(torch.equal(k_flash.flash_attention(q, k, v, **kw), got),
+          f"{name}: two calls differ")
+    want = ref.flash_attention(q, k, v, **kw)
+    limit = ref.flash_attention_limit(q, k, v, want, **kw)
+    bad = want.clone()                       # query i misses key i
+    bad[:, :, 1:] = ref.flash_attention(q[:, :, 1:], k[:, :, :-1],
+                                        v[:, :, :-1], **kw)
+    rejects(bad, want, limit, f"{name}, an off-by-one mask")
+    if dtype == torch.bfloat16:
+        rejects(flash_scores_bf16(q, k, v, **kw), want, limit,
+                f"{name}, scores rounded to bf16 before the softmax")
+    else:
+        rejects(ref.flash_attention(tf32(q), tf32(k), v, **kw), want, limit,
+                f"{name}, q and k rounded to TF32")
+    if window is not None and window < s:
+        rejects(ref.flash_attention(q, k, v, softcap=softcap), want, limit,
+                f"{name}, keys outside the window")
+    if softcap is not None:
+        rejects(ref.flash_attention(q, k, v, window=window), want, limit,
+                f"{name}, scores without their softcap")
+    if softcap is not None:
+        lib = flex_library(q, k, v, want, limit, softcap=softcap,
+                           window=window)
+    elif window is None:
+        lib = sdpa(q, k, v, is_causal=True)
+    else:
+        pos = torch.arange(s, device="cuda")
+        ok = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+        lib = sdpa(q, k, v, attn_mask=ok)
+    el = q.element_size()
+    return kernel_entry(
+        name, "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106", launches, got, want,
+        limit, lambda: k_flash.flash_attention(q, k, v, **kw),
+        lambda: ref.flash_attention(q, k, v, **kw), lib,
+        (2 * q.numel() + 2 * k.numel()) * el,
+        4 * b * hq * d * causal_pairs(s, window),
+        BF16_FLOPS if dtype == torch.bfloat16 else F32_ATTN_PEAK)
 
 
 def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
@@ -2024,88 +2537,23 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
     Returns the ``kernels`` entries; the ragged T = 4096 shape, which no
     main path runs, is checked and logged only."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    src = "src/repro_torch/csrc/"
     b = 4
-
-    def decode_entry(name, cfg, dtype, kv_dt, layout, t, lens, launches):
-        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q8 = kv_dt == torch.int8
-        k, v, ks, vs = dense_cache(gen, b, hkv, t, d, kv_dt, layout)
-        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
-        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        kw = dict(k_scale=ks, v_scale=vs)
-        got = k_dense.decode_attention(q, k, v, kl, **kw)
-        check(torch.equal(k_dense.decode_attention(q, k, v, kl, **kw), got),
-              f"{name}: two calls differ")
-        want = ref.decode_attention(q, k, v, kl, **kw)
-        limit = ref.decode_attention_limit(q, k, v, kl, want, **kw)
-        rejects(ref.decode_attention(q, k, v, kl - 1, **kw), want, limit,
-                f"{name}, an off-by-one mask")
-        lib = None
-        if not q8:
-            mask = (torch.arange(t, device="cuda")[None, :]
-                    < kl[:, None].long())[:, None, None, :]
-            lib = sdpa(q[:, :, None], k, v, attn_mask=mask)
-        el = q.element_size()
-        kvb = (1 if q8 else el) * 2 * hkv * d * sum(lens) \
-            + (8 * hkv * sum(lens) if q8 else 0)
-        return kernel_entry(
-            name, src + "decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:151", launches, got,
-            want, limit,
-            lambda: k_dense.decode_attention(q, k, v, kl, **kw),
-            lambda: ref.decode_attention(q, k, v, kl, **kw), lib,
-            2 * q.numel() * el + kvb + 4 * b, 4 * hq * d * sum(lens),
-            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-
-    def flash_entry(name, cfg, dtype, layout, s, t, launches):
-        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        k, v, _, _ = dense_cache(gen, b, hkv, t, d, dtype, layout)
-        k, v = k[:, :, :s], v[:, :, :s]
-        q = torch.randn((b, s, hq, d), generator=gen, device="cuda") \
-            .to(dtype).transpose(1, 2)
-        got = k_flash.flash_attention(q, k, v)
-        check(torch.equal(k_flash.flash_attention(q, k, v), got),
-              f"{name}: two calls differ")
-        want = ref.flash_attention(q, k, v)
-        limit = ref.flash_attention_limit(q, k, v, want)
-        bad = want.clone()                       # query i misses key i
-        bad[:, :, 1:] = ref.flash_attention(q[:, :, 1:], k[:, :, :-1],
-                                            v[:, :, :-1])
-        rejects(bad, want, limit, f"{name}, an off-by-one mask")
-        if dtype == torch.bfloat16:
-            rejects(flash_scores_bf16(q, k, v), want, limit,
-                    f"{name}, scores rounded to bf16 before the softmax")
-        else:
-            rejects(ref.flash_attention(tf32(q), tf32(k), v), want, limit,
-                    f"{name}, q and k rounded to TF32")
-        el = q.element_size()
-        return kernel_entry(
-            name, src + "flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:106", launches, got, want,
-            limit, lambda: k_flash.flash_attention(q, k, v),
-            lambda: ref.flash_attention(q, k, v),
-            sdpa(q, k, v, is_causal=True),
-            (2 * q.numel() + 2 * k.numel()) * el,
-            4 * b * hq * d * s * (s + 1) // 2,
-            BF16_FLOPS if dtype == torch.bfloat16 else F32_ATTN_PEAK)
-
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     t3b = ONESHOT_PROMPT + ONESHOT_NEW
     full = [t3b - 1] * b                    # the last decode step's kv_len
     t3c = OFFLOAD_PROMPT + OFFLOAD_NEW
     rows = counts_3b["bf16_rmsnorm_rows"]
     entries = [
-        decode_entry("decode_attention_bf16", mcfg, bf, bf, "bhtd", t3b,
+        decode_entry("decode_attention_bf16", gen, mcfg, bf, bf, "bhtd", t3b,
                      full, counts_3b["bf16"]["decode_attention"]),
-        decode_entry("decode_attention_q8", mcfg, bf, i8, "bhtd", t3b, full,
-                     counts_3b["int8"]["decode_attention"]),
-        decode_entry("decode_attention_f32", ocfg, f32, f32, "bthd", t3c,
-                     [t3c - 1] * b, counts_3c["decode_attention"]),
-        flash_entry("flash_attention_bf16", mcfg, bf, "bhtd", ONESHOT_PROMPT,
-                    t3b, counts_3b["bf16"]["flash_attention"]),
-        flash_entry("flash_attention_f32", ocfg, f32, "bthd", OFFLOAD_PROMPT,
-                    t3c, counts_3c["flash_attention"]),
+        decode_entry("decode_attention_q8", gen, mcfg, bf, i8, "bhtd", t3b,
+                     full, counts_3b["int8"]["decode_attention"]),
+        decode_entry("decode_attention_f32", gen, ocfg, f32, f32, "bthd",
+                     t3c, [t3c - 1] * b, counts_3c["decode_attention"]),
+        flash_entry("flash_attention_bf16", gen, mcfg, bf, "bhtd",
+                    ONESHOT_PROMPT, t3b, counts_3b["bf16"]["flash_attention"]),
+        flash_entry("flash_attention_f32", gen, ocfg, f32, "bthd",
+                    OFFLOAD_PROMPT, t3c, counts_3c["flash_attention"]),
         rms_entry("rmsnorm_prefill", gen, mcfg, b * ONESHOT_PROMPT,
                   mcfg.d_model, rows.get((b * ONESHOT_PROMPT, mcfg.d_model),
                                          0)),
@@ -2117,8 +2565,8 @@ def check_dense_kernels(mcfg, ocfg, counts_3b, counts_3c):
     for name, kv_dt, layout in (("bf16_ragged_bhtd", bf, "bhtd"),
                                 ("bf16_ragged_bthd", bf, "bthd"),
                                 ("q8_ragged_bhtd", i8, "bhtd")):
-        decode_entry("decode_attention_" + name, mcfg, bf, kv_dt, layout,
-                     4096, ragged, "none (not a main-path shape)")
+        decode_entry("decode_attention_" + name, gen, mcfg, bf, kv_dt,
+                     layout, 4096, ragged, "none (not a main-path shape)")
     return entries
 
 
@@ -2240,6 +2688,68 @@ def check_ssd_kernel(counts_3d):
         entries.append(rms_entry(f"rmsnorm_mamba_{phase}_d{d}", gen, cfg,
                                  rows, d, n))
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the 3j families' new kernel shapes against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_family_kernels(runs):
+    """Phase 4j: every shape 3j's tally recorded (:data:`FAMILY_KEYS`) for
+    the four kernels it counts, and ``ssd_chunk`` at Zamba2's shape (64
+    heads of 64, state 64, chunk 128), each against its plain version with
+    4b's / 4c's / 4d's checks and times, with the one-shot run's launches
+    of that shape.  A softcap's q is widened by ``SOFTCAP_QSCALE`` so that
+    the cap bites, and its decode entry also holds the unshaped cache
+    (:func:`decode_entry`).  No earlier phase runs these widths."""
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    bf = torch.bfloat16
+    entries = []
+    for name, run in runs.items():
+        tag, cfg, tally = FAMILY_TAGS[name], run["cfg"], run["tally"]
+        for (b, hq, hkv, s, d, window, cap), n in sorted(
+                tally["flash_attention"].items(), key=str):
+            heads = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                        head_dim=d)
+            entries.append(flash_entry(
+                f"flash_attention_{tag}_h{hq}x{hkv}_d{d}_s{s}"
+                + family_suffix(window, cap), gen, heads, bf, "bhtd", s,
+                s + FAMILY_NEW, n, b=b, window=window, softcap=cap,
+                qscale=SOFTCAP_QSCALE if cap else 1.0))
+        for (b, hq, hkv, t, d, cap), n in sorted(
+                tally["decode_attention"].items(), key=str):
+            heads = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                        head_dim=d)
+            entries.append(decode_entry(
+                f"decode_attention_{tag}_h{hq}x{hkv}_d{d}_t{t}"
+                + family_suffix(None, cap), gen, heads, bf, bf, "bhtd", t,
+                [t - 1] * b, n, softcap=cap,
+                qscale=SOFTCAP_QSCALE if cap else 1.0,
+                hot_last=20.0 if cap else None))
+        for (m, k, nn, act), n in sorted(tally["gated_matmul"].items(),
+                                         key=str):
+            entries.append(mm_entry(
+                f"gated_matmul_{act}_{tag}_m{m}_{k}x{nn}", gen, bf, m, k,
+                nn, n, gated=True, act=act))
+        for (m, d, plus_one), n in sorted(tally["rmsnorm"].items(),
+                                          key=str):
+            entries.append(rms_entry(
+                f"rmsnorm_{tag}_m{m}_d{d}" + ("_plus1" if plus_one else ""),
+                gen, cfg, m, d, n, plus_one=plus_one))
+        if cfg.family == "hybrid":
+            entries.append(ssd_entry(f"ssd_chunk_{tag}_bf16", cfg, 4,
+                                     run["prompt"], bf,
+                                     run["launches"]["ssd_chunk"], gen))
+    return entries
+
+
+FAMILY_TAGS = {"gemma2-2b": "gemma2", "minicpm3-4b": "minicpm3",
+               "llama4-scout-17b-16e": "scout", "zamba2-1.2b": "zamba2"}
+
+
+def family_suffix(window, cap):
+    return (f"_w{window}" if window else "") \
+        + (f"_cap{cap:g}" if cap else "")
 
 
 # ---------------------------------------------------------------------------
@@ -2440,7 +2950,7 @@ def main() -> int:
     (_, l_fp, _, fp_spans), fp_tally = tally_rows(
         lambda: run_main_path(cfg, host_params, prompts, wstream="fp",
                               kv_dtype=None), paged, keys)
-    keys["q8_matmul"] = lambda x, q, *_: (*x.shape, q.shape[1])
+    keys["q8_matmul"] = lambda x, q, *_, **__: (*x.shape, q.shape[1])
     (_, l_q8, _, _), q8_tally = tally_rows(
         lambda: run_main_path(cfg, host_params, prompts, wstream="q8",
                               kv_dtype="int8"), ("q8_matmul", *paged), keys)
@@ -2484,6 +2994,7 @@ def main() -> int:
     counts_3b = timed("3b+3e", run_mistral, SEED)
     counts_3c = timed("3c", run_offload_oneshot, cfg, host_params, oprompts)
     counts_3d = timed("3d", run_mamba, SEED)
+    runs_3j = timed("3j", run_families, SEED)
     for kind in ("paged_decode_attention", "paged_prefill_attention"):
         launches[kind + "_3e"] = {kv: counts_3b["3e"][kv][kind]
                                   for kv in ("bf16", "int8")}
@@ -2497,6 +3008,7 @@ def main() -> int:
                      counts_3c)
     entries += timed("4c", check_ssd_kernel, counts_3d)
     entries += timed("4d", check_matmul_kernels, counts_3b, counts_3f)
+    entries += timed("4j", check_family_kernels, runs_3j)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,10 @@
 
 Carries the configurations the port serves today: the paper's OPT family,
 Mistral-NeMo-12B (the Llama-style GQA decoder: RMSNorm, gated SiLU, RoPE,
-bf16), Mamba2-2.7B (the attention-free SSD family) and the ``tiny`` test
+bf16), Gemma-2-2B (local/global layers, softcaps, sandwich norms),
+MiniCPM3-4B (MLA), Llama-4 Scout and Maverick (top-1 MoE with a shared
+expert), Mamba2-2.7B (the attention-free SSD family), Zamba2-1.2B (a
+Mamba2 trunk with one shared attention block) and the ``tiny`` test
 model.  ``get_config(name)`` returns the full-size
 config; ``reduced(cfg)`` returns a smoke-test-scale config of the same
 family/pattern (small widths, tiny vocab) used by the CPU tests.
@@ -38,8 +41,9 @@ def list_archs() -> List[str]:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from repro_torch.configs import (mamba2_2_7b, mistral_nemo_12b,  # noqa: F401
-                                     opt, tiny)
+    from repro_torch.configs import (  # noqa: F401
+        gemma2_2b, llama4_maverick_400b_a17b, llama4_scout_17b_16e,
+        mamba2_2_7b, minicpm3_4b, mistral_nemo_12b, opt, tiny, zamba2_1_2b)
 
 
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
@@ -76,6 +80,8 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
     )
     if cfg.n_experts:
         changes["n_experts"] = min(cfg.n_experts, 4)
+        # no-drop capacity so prefill and decode agree exactly; a test of
+        # capacity drops sets its own factor and group size
         changes["capacity_factor"] = float(changes["n_experts"])
     if cfg.attn_kind == "mla":
         changes.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,

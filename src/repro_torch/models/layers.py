@@ -1,8 +1,10 @@
-"""Layer math of the dense decoder families, as plain functions on tensors.
+"""Layer math of the decoder families, as plain functions on tensors.
 
-The PyTorch counterpart of the dense subset of the JAX package's
-``models/layers.py``: norms, RoPE, softcap, the masked GQA attention core,
-the q/k/v and output projections, and the four MLP kinds.  Parameters are
+The PyTorch counterpart of the JAX package's ``models/layers.py``: norms
+(Gemma's ``(1+w)`` RMSNorm among them), RoPE, softcap, the masked GQA
+attention core, the q/k/v and output projections, MLA over its compressed
+cache (MiniCPM3), the four MLP kinds, and top-1 MoE with capacity
+dispatch and a shared expert (Llama-4).  Parameters are
 plain dicts of tensors; every weight matmul can be routed through an
 injected ``linear(x, name)`` callable (the backend seam).  Norm statistics
 and attention scores are computed in fp32.  Every RMSNorm (the block
@@ -167,6 +169,61 @@ def attn_out(cfg, p: Dict, o: torch.Tensor, linear=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (minicpm3 / deepseek style)
+# ---------------------------------------------------------------------------
+
+def mla_project_q(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Return (q_nope (B,S,H,dn), q_rope (B,S,H,dr))."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    ql = K.rmsnorm(x @ p["wq_a"], p["q_a_norm"], eps=cfg.norm_eps)
+    q = (ql @ p["wq_b"]).reshape(b, s, h, dn + dr)
+    return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def mla_latent_kv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compressed per-token cache entries: (latent (B,S,R), k_rope
+    (B,S,dr))."""
+    r = cfg.kv_lora_rank
+    ckv = x @ p["wkv_a"]                                # (B,S,R+dr)
+    latent = K.rmsnorm(ckv[..., :r], p["kv_a_norm"], eps=cfg.norm_eps)
+    k_rope = rope(ckv[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
+    return latent, k_rope
+
+
+def mla_attend(cfg, p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
+               latent: torch.Tensor, k_rope: torch.Tensor, *,
+               q_positions, kv_positions, kv_len=None,
+               causal: bool = True) -> torch.Tensor:
+    """Attention over the compressed cache through the weight-absorption
+    identity ``(q_nope @ Wk) . latent == (q_nope @ Wk_absorbed) . latent``:
+    scores are computed in the R-dim latent space and values expanded once
+    per step, as the JAX package's ``absorbed=True`` path does.  Scores and
+    their softmax are fp32; the products round to the model dtype where
+    the JAX package's do.  Plain PyTorch on every device: the JAX package
+    computes it outside any Pallas kernel."""
+    b, sq, h, dn = q_nope.shape
+    skv = latent.shape[1]
+    r, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    wk = p["wk_b"].reshape(r, h, dn)                    # latent -> k_nope
+    wv = p["wv_b"].reshape(r, h, dv)                    # latent -> v
+    scale = 1.0 / math.sqrt(dn + cfg.qk_rope_dim)
+    bias = _mask_bias(q_positions.expand(b, sq), kv_positions.expand(b, skv),
+                      causal=causal, window=None, kv_len=kv_len)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk)          # absorb Wk
+    s_nope = torch.einsum("bshr,btr->bhst", q_lat.float(), latent.float())
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
+    scores = (s_nope + s_rope) * scale + bias[:, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs.to(latent.dtype).float(),
+                         latent.float()).to(latent.dtype)
+    o = torch.einsum("bshr,rhd->bshd", o_lat, wv)
+    return o.reshape(b, sq, h * dv) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -222,4 +279,90 @@ def mlp(cfg, p: Dict, x: torch.Tensor, linear=None) -> torch.Tensor:
     y = h @ p["w_down"]
     if cfg.attn_bias and "b_down" in p:
         y = y + p["b_down"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MoE — top-1 (Switch-style) with GShard capacity dispatch
+# ---------------------------------------------------------------------------
+
+def moe_route(cfg, p: Dict, x: torch.Tensor, *, capacity: int):
+    """Top-1 routing of ``x`` (G, n, d), each of the G groups on its own.
+
+    Returns ``(idx, gate, slot, keep)``, each (G, n): the chosen expert,
+    its softmax gate (fp32), the token's position in that expert's buffer
+    (the cumsum order: earlier tokens of the group first) and whether it
+    fits the expert's ``capacity``.  The router runs in the model dtype
+    and the softmax in fp32, as in the JAX package."""
+    logits = (x @ p["router"].to(x.dtype)).float()
+    gates = torch.softmax(logits, dim=-1)
+    gate, idx = torch.max(gates, dim=-1)
+    onehot = F.one_hot(idx, cfg.n_experts).float()
+    pos = torch.cumsum(onehot, dim=1) * onehot - 1.0
+    slot = pos.amax(dim=-1).long()
+    return idx, gate, slot, slot < capacity
+
+
+def _experts(cfg, p: Dict, xin: torch.Tensor) -> torch.Tensor:
+    """Every expert's MLP over its buffer: xin (E, C, d) -> (E, C, d), the
+    products in the model dtype (plain PyTorch: the JAX package's expert
+    einsums run outside any Pallas kernel)."""
+    kind = cfg.mlp_kind
+    if kind.startswith("gated"):
+        act = F.silu if kind == "gated_silu" else _gelu
+        h = act(torch.bmm(xin, p["we_gate"])) * torch.bmm(xin, p["we_up"])
+    else:
+        h = torch.relu(torch.bmm(xin, p["we_in"]))
+    return torch.bmm(h, p["we_down"])
+
+
+def _dispatch(cfg, p: Dict, xg: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Route the tokens of xg (G, n, d) into per-(group, expert) buffers of
+    ``capacity`` rows, run the experts and combine: y (G, n, d), each kept
+    token's expert output times its gate (rounded to the model dtype), a
+    dropped token's 0.  The scatter and gather stand in for the JAX
+    package's one-hot dispatch/combine einsums, which select the same rows
+    exactly; a dropped token writes to a spare row no expert reads."""
+    g, n, d = xg.shape
+    e = cfg.n_experts
+    idx, gate, slot, keep = moe_route(cfg, p, xg, capacity=capacity)
+    rows = g * e * capacity
+    grp = torch.arange(g, device=xg.device)[:, None]
+    flat = torch.where(keep, (grp * e + idx) * capacity + slot,
+                       rows)                             # the spare row
+    buf = torch.zeros((rows + 1, d), dtype=xg.dtype, device=xg.device)
+    buf[flat.reshape(-1)] = xg.reshape(-1, d)
+    xin = buf[:rows].reshape(g, e, capacity, d).transpose(0, 1) \
+        .reshape(e, g * capacity, d)
+    xout = _experts(cfg, p, xin).reshape(e, g, capacity, d).transpose(0, 1)
+    out = torch.cat([xout.reshape(rows, d),
+                     torch.zeros((1, d), dtype=xout.dtype,
+                                 device=xout.device)])
+    y = out[flat.reshape(-1)].reshape(g, n, d)
+    return gate.to(xg.dtype)[..., None] * y
+
+
+def moe(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Top-1 routed experts with an optional always-on shared expert.
+
+    Prefill (S > 1) routes in groups of ``moe_group_size`` tokens, each
+    expert taking at most ``ceil(group * capacity_factor * top_k / E)``
+    tokens of a group in the cumsum order, the rest dropped; single-token
+    decode is dropless (capacity = batch), as the JAX package's
+    ``_moe_decode``.  The shared expert is :func:`mlp` (its first stage
+    through the ``gated_matmul`` kernel on the card)."""
+    b, s, d = x.shape
+    if s == 1:
+        y = _dispatch(cfg, p, x[:, 0][None], b)[0][:, None]
+    else:
+        tokens = b * s
+        n_groups = max(tokens // min(cfg.moe_group_size, tokens), 1)
+        gs = tokens // n_groups
+        cap = max(1, int(math.ceil(gs * cfg.capacity_factor * cfg.top_k
+                                   / cfg.n_experts)))
+        y = _dispatch(cfg, p, x.reshape(n_groups, gs, d), cap
+                      ).reshape(b, s, d)
+    if cfg.shared_expert:
+        y = y + mlp(cfg, {"w_gate": p["ws_gate"], "w_up": p["ws_up"],
+                          "w_down": p["ws_down"]}, x)
     return y

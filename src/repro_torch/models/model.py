@@ -1,30 +1,36 @@
-"""Model assembly for the dense decoder families and Mamba2.
+"""Model assembly for the decoder families, Mamba2 and the Zamba2 hybrid.
 
 The PyTorch counterpart of the JAX package's ``models/model.py`` for the
-dense GQA families and the attention-free SSM family (Mamba2): parameter
-init, the embedding / head, and two executions of the dense layer math —
+decoder-only transformer families (dense GQA, Gemma-2's local/global
+pattern, MLA, top-1 MoE), the attention-free SSM family (Mamba2) and the
+hybrid (a Mamba2 trunk with one shared attention block): parameter init,
+the embedding / head, and two executions of the layer math —
 
 * the resident whole model (:func:`prefill` / :func:`decode_step` over the
-  stacked (n_super, B, Hkv, T, hd) cache of :func:`init_cache`, fp or
-  int8), which the one-shot :class:`repro_torch.serving.engine.Generator`
-  runs;
+  stacked caches of :func:`init_cache`: (n_super, B, Hkv, T, hd) K/V, fp
+  or int8, or MLA's (n_super, B, T, R) latents and rope keys), which the
+  one-shot :class:`repro_torch.serving.engine.Generator` and
+  :class:`repro_torch.serving.backends.ScanResidentBackend` run;
 * the backend path (:func:`backend_prefill` / :func:`backend_decode` over
   the per-layer KV cache, dense or paged), with every weight matmul
   routed through an injected ``linear(x, name)`` callable — the seam that
   lets :mod:`repro_torch.serving.backends` run it resident or
-  HeteGen-offloaded.
+  HeteGen-offloaded.  It takes dense GQA decoders only, as in the JAX
+  package (:func:`extract_backend_params`).
 
-The SSM family runs only the resident whole model: :func:`prefill` /
-:func:`decode_step` over the (n_groups, period, B, ...) state cache of
-:func:`init_cache`, the Mamba2 blocks of :mod:`repro_torch.models.ssm` in
-a loop (:func:`_mamba_trunk`); it has no backend path, as in the JAX
-package (:func:`extract_backend_params` takes dense decoders only).
+The SSM and hybrid families run only the resident whole model: the Mamba2
+blocks of :mod:`repro_torch.models.ssm` in a loop over the
+(n_groups, period, B, ...) state cache (:func:`_mamba_trunk`), the hybrid's
+shared block at the start of each group and before the tail layers.
+Encoder-decoder and VLM families are not ported.
 
 Dense-cache attention picks its route once per forward
 (:func:`attention_route`): decode runs the flash-decode kernel, a prefill
 from position 0 the flash-attention kernel, and anything else the plain
 :func:`repro_torch.models.layers.attention` (counted on the card as
 ``plain_dense_attention``).  Paged caches always run the paged kernels.
+MLA attends in plain PyTorch on every route
+(:func:`repro_torch.models.layers.mla_attend`).
 
 Parameters are plain nested dicts with the JAX package's layout
 (per-super-block leaves stacked on a leading axis), so
@@ -73,21 +79,29 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def _check_whole_model(cfg: ModelConfig) -> None:
-    """The families the resident whole model runs: dense GQA and SSM."""
-    if cfg.family == "ssm":
+    """The families the resident whole model runs: decoder-only
+    transformers (GQA or MLA attention, dense or MoE), SSM and hybrid."""
+    if cfg.family in ("ssm", "hybrid"):
         return
-    if cfg.family == "hybrid":
+    if cfg.family not in ("dense", "moe") \
+            or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            "the port runs the SSM family, not the hybrid (shared "
-            "attention) one")
-    _check_dense(cfg)
+            "the port's whole model runs decoder-only transformers, SSM "
+            f"and hybrid models (got family={cfg.family}, "
+            f"attn={cfg.attn_kind})")
 
 
 def _ssm_groups(cfg: ModelConfig) -> Tuple[int, int]:
     """(n_groups, period) of the SSM trunk's stacked layers; the SSM family
-    has one group of every layer."""
+    has one group of every layer, the hybrid one group per shared-block
+    site (the layers past the last whole group are the "tail")."""
     period = cfg.shared_attn_period or cfg.n_layers
     return cfg.n_layers // period, period
+
+
+def _ssm_tail(cfg: ModelConfig) -> int:
+    n_groups, period = _ssm_groups(cfg)
+    return cfg.n_layers - n_groups * period
 
 
 def _pattern_period(cfg: ModelConfig) -> int:
@@ -101,7 +115,7 @@ def _pattern_period(cfg: ModelConfig) -> int:
 def init_params(cfg: ModelConfig,
                 generator: Union[torch.Generator, int] = 0, *,
                 device=None) -> Dict:
-    """Random params for a dense GQA decoder or a Mamba2 model, drawn from
+    """Random params for any family the whole model runs, drawn from
     ``generator`` (a ``torch.Generator`` on ``device``, or an int seed).
     Same tree layout as the JAX package's ``init_params``; the numbers
     differ (the two frameworks' generators do)."""
@@ -111,12 +125,12 @@ def init_params(cfg: ModelConfig,
         generator = torch.Generator(device=dev).manual_seed(generator)
     dt = torch_dtype(cfg)
 
-    def dense(shape, scale=None):
+    def dense(shape, scale=None, dtype=dt):
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (w.mul_(std)).to(dt)
+        return (w.mul_(std)).to(dtype)
 
     def norm(d):
         p = {"scale": torch.ones((d,), dtype=dt, device=dev)}
@@ -126,29 +140,63 @@ def init_params(cfg: ModelConfig,
             p["scale"] = torch.zeros((d,), dtype=dt, device=dev)
         return p
 
-    def zeros(n):
-        return torch.zeros((n,), dtype=dt, device=dev)
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dt, device=dev)
 
     d, f = cfg.d_model, cfg.d_ff
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
 
-    def block():
-        attn = {"wq": dense((d, hq * hd)), "wk": dense((d, hkv * hd)),
-                "wv": dense((d, hkv * hd)), "wo": dense((hq * hd, d))}
+    def gqa(d_in=d, d_out=d):
+        attn = {"wq": dense((d_in, hq * hd)), "wk": dense((d_in, hkv * hd)),
+                "wv": dense((d_in, hkv * hd)), "wo": dense((hq * hd, d_out))}
         if cfg.attn_bias:
             attn.update(bq=zeros(hq * hd), bk=zeros(hkv * hd),
-                        bv=zeros(hkv * hd), bo=zeros(d))
+                        bv=zeros(hkv * hd), bo=zeros(d_out))
         if cfg.qk_norm:
-            attn.update(q_norm=torch.ones((hd,), dtype=dt, device=dev),
-                        k_norm=torch.ones((hd,), dtype=dt, device=dev))
+            attn.update(q_norm=ones(hd), k_norm=ones(hd))
+        return attn
+
+    def mla():
+        r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        return {"wq_a": dense((d, r_q)), "q_a_norm": ones(r_q),
+                "wq_b": dense((r_q, hq * (dn + dr))),
+                "wkv_a": dense((d, r_kv + dr)), "kv_a_norm": ones(r_kv),
+                "wk_b": dense((r_kv, hq * dn)), "wv_b": dense((r_kv, hq * dv)),
+                "wo": dense((hq * dv, d))}
+
+    def mlp(d_in=d, d_out=d):
         if cfg.mlp_kind.startswith("gated"):
-            mlp = {"w_gate": dense((d, f)), "w_up": dense((d, f)),
-                   "w_down": dense((f, d))}
+            return {"w_gate": dense((d_in, f)), "w_up": dense((d_in, f)),
+                    "w_down": dense((f, d_out))}
+        p = {"w_in": dense((d_in, f)), "w_down": dense((f, d_out))}
+        if cfg.attn_bias:
+            p.update(b_in=zeros(f), b_down=zeros(d_out))
+        return p
+
+    def moe():
+        e = cfg.n_experts
+        p = {"router": dense((d, e), dtype=torch.float32)}
+        if cfg.mlp_kind.startswith("gated"):
+            p.update(we_gate=dense((e, d, f)), we_up=dense((e, d, f)),
+                     we_down=dense((e, f, d)))
         else:
-            mlp = {"w_in": dense((d, f)), "w_down": dense((f, d))}
-            if cfg.attn_bias:
-                mlp.update(b_in=zeros(f), b_down=zeros(d))
-        p = {"ln1": norm(d), "ln2": norm(d), "attn": attn, "mlp": mlp}
+            p.update(we_in=dense((e, d, f)), we_down=dense((e, f, d)))
+        if cfg.shared_expert:
+            p.update(ws_gate=dense((d, f)), ws_up=dense((d, f)),
+                     ws_down=dense((f, d)))
+        return p
+
+    def block(kind):
+        p = {"ln1": norm(d), "ln2": norm(d),
+             "attn": mla() if cfg.attn_kind == "mla" else gqa()}
+        if kind == "moe":
+            p["moe"] = moe()
+        else:
+            p["mlp"] = mlp()
         if cfg.post_norm:
             p["ln1_post"] = norm(d)
             p["ln2_post"] = norm(d)
@@ -167,8 +215,8 @@ def init_params(cfg: ModelConfig,
                 "A_log": torch.zeros((h,), **f32),          # A = -1
                 "D": torch.ones((h,), **f32),
                 "dt_bias": torch.full((h,), -1.0, **f32),
-                "gnorm": torch.ones((din,), dtype=dt, device=dev),
-                "out_proj": dense((din, d)), "ln": norm(d)}
+                "gnorm": ones(din), "out_proj": dense((din, d)),
+                "ln": norm(d)}
 
     params: Dict = {"embed": dense((cfg.vocab_size, d), scale=1.0),
                     "final_norm": norm(d)}
@@ -176,14 +224,30 @@ def init_params(cfg: ModelConfig,
         params["lm_head"] = dense((d, cfg.vocab_size))
     if cfg.pos_emb == "learned":
         params["pos"] = dense((cfg.max_seq, d), scale=0.02)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         n_groups, period = _ssm_groups(cfg)
         params["blocks"] = _stack([_stack([mamba() for _ in range(period)])
                                    for _ in range(n_groups)])
+        if _ssm_tail(cfg):
+            params["tail"] = _stack([mamba() for _ in range(_ssm_tail(cfg))])
+        if cfg.family == "hybrid":
+            # one shared transformer block over concat([x, emb0]) (2 d
+            # wide), projected back to d, with a per-site LoRA on q
+            d2 = 2 * d
+            params["shared"] = {"ln1": norm(d2), "ln2": norm(d2),
+                                "attn": gqa(d2, d2), "mlp": mlp(d2, d2),
+                                "proj": dense((d2, d))}
+            n_sites, r = len(cfg.shared_attn_sites()), cfg.shared_lora_rank
+            if r:
+                params["shared_lora"] = {
+                    "a": dense((n_sites, d2, r), scale=0.02),
+                    "b": zeros(n_sites, r, hq * hd)}
         return params
     period = _pattern_period(cfg)
-    supers = [{f"pos{j}": block() for j in range(period)}
-              for _ in range(cfg.n_layers // period)]
+    kinds = cfg.layer_kinds()
+    supers = [{f"pos{j}": block(kinds[g * period + j])
+               for j in range(period)}
+              for g in range(cfg.n_layers // period)]
     params["blocks"] = _stack(supers)
     return params
 
@@ -196,18 +260,23 @@ def _pick(tree, idx):
 
 
 def _stack(trees):
+    """Stack a list of like trees leaf by leaf, dropping each per-layer
+    leaf as soon as its stack exists, so the peak holds one leaf's copies
+    beyond the model, not a second model."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
     out = torch.stack(trees, dim=0)
-    trees.clear()            # drop the per-layer copies as we go
+    trees.clear()
     return out
 
 
 def params_from_numpy(tree, device=None):
     """A param tree of numpy arrays (e.g. the JAX package's params through
     ``np.asarray``, bfloat16 leaves included) -> the same tree of tensors
-    on ``device``."""
+    on ``device``.  Every family's tree crosses leaf by leaf: MLA's
+    low-rank projections, MoE's fp32 router and (E, d, f) expert stacks,
+    the hybrid's ``tail`` layers, ``shared`` block and ``shared_lora``."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
@@ -238,7 +307,8 @@ def tree_to(tree, device):
 def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens.long()]
     if cfg.emb_scale:
-        x = x * math.sqrt(cfg.d_model)
+        # sqrt(d) in the model dtype, as the JAX package rounds it
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
@@ -502,7 +572,10 @@ def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
 def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None):
     norm = norm_fn or (lambda pp, h: L.apply_norm(cfg, pp, h))
     h = norm(p["ln2"], x)
-    y = L.mlp(cfg, p["mlp"], h, linear=linear)
+    if kind == "moe":
+        y = L.moe(cfg, p["moe"], h)
+    else:
+        y = L.mlp(cfg, p["mlp"], h, linear=linear)
     if cfg.post_norm:
         y = norm(p["ln2_post"], y)
     return x + y
@@ -670,31 +743,51 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     int8 with fp32 per-(token, head) scales "ks{j}"/"vs{j}"
     (n_super, B, Hkv, T).
 
-    The SSM family's cache is its recurrent state instead, whatever
-    ``max_len``: "ssm" (n_groups, period, B, H, P, N) fp32 and the causal
-    convolutions' last inputs "conv_x" (..., B, conv - 1, d_inner) and
-    "conv_bc" (..., B, conv - 1, 2 G N) in the model dtype."""
+    An MLA model caches its compressed entries instead: "lat{j}"
+    (n_super, B, T, kv_lora_rank) and "kr{j}" (n_super, B, T, qk_rope_dim).
+
+    The SSM family's cache is its recurrent state, whatever ``max_len``:
+    "ssm" (n_groups, period, B, H, P, N) fp32 and the causal convolutions'
+    last inputs "conv_x" (..., B, conv - 1, d_inner) and "conv_bc"
+    (..., B, conv - 1, 2 G N) in the model dtype, the tail layers' under
+    "ssm_tail" / "conv_x_tail" / "conv_bc_tail" (tail, B, ...).  The
+    hybrid adds its shared block's K/V, one per site: "shared_k" /
+    "shared_v" (n_sites, B, Hkv, T, hd)."""
     _check_whole_model(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
-    if cfg.family == "ssm":
-        lead = _ssm_groups(cfg) + (batch,)
+    cache: Dict = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def mk(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family in ("ssm", "hybrid"):
         k1 = cfg.ssm_conv - 1
-        return {"len": torch.zeros((), dtype=torch.int32, device=dev),
-                "ssm": torch.zeros(lead + (cfg.ssm_heads, cfg.ssm_head_dim,
-                                          cfg.ssm_state),
-                                   dtype=torch.float32, device=dev),
-                "conv_x": torch.zeros(lead + (k1, cfg.d_inner), dtype=dt,
-                                      device=dev),
-                "conv_bc": torch.zeros(
-                    lead + (k1, 2 * cfg.ssm_groups * cfg.ssm_state),
-                    dtype=dt, device=dev)}
+        state = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        gn2 = 2 * cfg.ssm_groups * cfg.ssm_state
+        tail = _ssm_tail(cfg)
+        for lead, sfx in ((_ssm_groups(cfg), ""), ((tail,), "_tail")):
+            if lead[0] == 0:
+                continue
+            lead = lead + (batch,)
+            cache["ssm" + sfx] = mk(lead + state, torch.float32)
+            cache["conv_x" + sfx] = mk(lead + (k1, cfg.d_inner))
+            cache["conv_bc" + sfx] = mk(lead + (k1, gn2))
+        if cfg.family == "hybrid":
+            shape = (len(cfg.shared_attn_sites()), batch, cfg.n_kv_heads,
+                     max_len, cfg.hd)
+            cache["shared_k"] = mk(shape)
+            cache["shared_v"] = mk(shape)
+        return cache
     period = _pattern_period(cfg)
     n_super = cfg.n_layers // period
     shape = (n_super, batch, cfg.n_kv_heads, max_len, cfg.hd)
-    cache: Dict = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
     for j in range(period):
-        if cfg.kv_dtype == "int8":
+        if cfg.attn_kind == "mla":
+            cache[f"lat{j}"] = mk((n_super, batch, max_len,
+                                   cfg.kv_lora_rank))
+            cache[f"kr{j}"] = mk((n_super, batch, max_len, cfg.qk_rope_dim))
+        elif cfg.kv_dtype == "int8":
             for nm in (f"k{j}", f"v{j}"):
                 cache[nm] = torch.zeros(shape, dtype=torch.int8, device=dev)
             for nm in (f"ks{j}", f"vs{j}"):
@@ -706,10 +799,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return cache
 
 
-def _stack_write(stack, new, li, cur_len):
-    """Write ``new`` (B, s, H, D) into layer ``li`` of a (L, B, H, T, D)
-    stack at ``cur_len`` (scalar or (B,)), in place."""
-    return _update_kv(stack[li], new, cur_len, dim=2)
+def _stack_write(stack, new, li, cur_len, dim: int = 2):
+    """Write ``new`` (B, s, ...) into layer ``li`` of a stack at ``cur_len``
+    (scalar or (B,)), in place: a (L, B, H, T, D) K/V stack (``dim`` 2), or
+    a (L, B, T, ...) MLA stack (``dim`` 1)."""
+    return _update_kv(stack[li], new, cur_len, dim=dim)
 
 
 def _stack_write_q8(stack, scale_stack, new, li, cur_len):
@@ -725,9 +819,25 @@ def _apply_attn_layer_stacked(cfg, p, x, positions, *, kind: str, stacks,
     """Pre-norm attention + residual against layer ``li`` of the stacked
     cache: the new rows are written in place and the layer's slice is
     attended along ``route`` (:func:`attention_route`).  ``stacks`` is
-    (k, v) or, for an int8 cache, (k, v, k_scale, v_scale)."""
+    (k, v) or, for an int8 cache, (k, v, k_scale, v_scale); for MLA
+    (latent, k_rope), attended in plain PyTorch
+    (:func:`repro_torch.models.layers.mla_attend`)."""
     window = cfg.window if kind == "local" else None
     h = L.apply_norm(cfg, p["ln1"], x)
+    if cfg.attn_kind == "mla":
+        q_nope, q_rope = L.mla_project_q(cfg, p["attn"], h, positions)
+        latent, k_rope = L.mla_latent_kv(cfg, p["attn"], h, positions)
+        lat_st, kr_st = stacks
+        _stack_write(lat_st, latent, li, cur_len, dim=1)
+        _stack_write(kr_st, k_rope, li, cur_len, dim=1)
+        kvpos = torch.arange(lat_st.shape[2], device=x.device)
+        out = L.mla_attend(cfg, p["attn"], q_nope, q_rope, lat_st[li],
+                           kr_st[li], q_positions=positions,
+                           kv_positions=kvpos[None],
+                           kv_len=cur_len + latent.shape[1])
+        if cfg.post_norm:
+            out = L.apply_norm(cfg, p["ln1_post"], out)
+        return x + out
     q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions)
     if len(stacks) == 4:
         k_st, v_st, ks_st, vs_st = stacks
@@ -752,10 +862,16 @@ def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
                        route: str):
     """The decoder stack as a loop over super-blocks and their pattern
     positions (the JAX package scans it), updating the stacked cache in
-    place."""
+    place: the pattern position j of super-block g is layer g * period +
+    j, of kind ``layer_kinds()[j]`` (Gemma-2's local/global pair,
+    Maverick's dense/MoE pair)."""
     kinds = cfg.layer_kinds()
     period = _pattern_period(cfg)
-    keys = ("k", "v", "ks", "vs") if cfg.kv_dtype == "int8" else ("k", "v")
+    if cfg.attn_kind == "mla":
+        keys = ("lat", "kr")
+    else:
+        keys = ("k", "v", "ks", "vs") if cfg.kv_dtype == "int8" \
+            else ("k", "v")
     blocks = params["blocks"]
     for g in range(cfg.n_layers // period):
         p_blk = _pick(blocks, g)
@@ -769,32 +885,82 @@ def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
     return x
 
 
-def _mamba_trunk(cfg, params, x, *, cache):
-    """The SSM trunk as a loop over its groups and their layers (the JAX
-    package scans it): pre-norm Mamba2 block + residual, each layer's
-    recurrent and convolution states updated in the cache in place."""
+def _shared_block(cfg, params, x, emb0, positions, *, site: int, cache,
+                  cur_len, route: str):
+    """The hybrid's shared transformer block at site ``site``: pre-norm
+    attention and MLP over concat([x, emb0]) (2 d wide), the site's LoRA
+    added to q, its K/V written into the site's slice of the shared cache
+    and attended along ``route``; projected back to d and added to x."""
+    p = params["shared"]
+    h2 = torch.cat([x, emb0], dim=-1)
+    h = L.apply_norm(cfg, p["ln1"], h2)
+    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions)
+    if "shared_lora" in params:
+        b, s, _ = h.shape
+        la = params["shared_lora"]["a"][site]
+        lb = params["shared_lora"]["b"][site]
+        dq = ((h @ la) @ lb).reshape(b, s, cfg.n_heads, cfg.hd)
+        if cfg.pos_emb == "rope":
+            dq = L.rope(dq, positions, cfg.rope_theta)
+        q = q + dq
+    k_buf, v_buf = cache["shared_k"][site], cache["shared_v"][site]
+    _update_kv(k_buf, k, cur_len, dim=2)
+    _update_kv(v_buf, v, cur_len, dim=2)
+    out = _dense_attend(cfg, q, k_buf, v_buf, positions,
+                        cur_len + k.shape[1], None, route, layout="bhtd")
+    b, s, hq, hd = out.shape
+    h2 = h2 + out.reshape(b, s, hq * hd) @ p["attn"]["wo"]
+    h2 = h2 + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h2))
+    return x + h2 @ p["proj"]
+
+
+def _mamba_trunk(cfg, params, x, *, cache, positions=None, cur_len=None,
+                 route: Optional[str] = None):
+    """The SSM / hybrid trunk as a loop over its groups and their layers
+    (the JAX package scans it): pre-norm Mamba2 block + residual, each
+    layer's recurrent and convolution states updated in the cache in
+    place.  The hybrid runs its shared block (:func:`_shared_block`) at
+    the start of every group, site g for group g, and once more before
+    the tail layers where the tail starts at a site; it reads the
+    embeddings ``x`` enters with."""
     n_groups, period = _ssm_groups(cfg)
+    hybrid = cfg.family == "hybrid"
+    emb0 = x
+    shared = dict(params=params, emb0=emb0, positions=positions,
+                  cache=cache, cur_len=cur_len, route=route)
+
+    def mamba_one(x, p, sfx, idx):
+        ssm, cx, cbc = (cache[k + sfx][idx] for k in ("ssm", "conv_x",
+                                                      "conv_bc"))
+        h = L.apply_norm(cfg, p["ln"], x)
+        y, s2, (cx2, cbc2) = S.mamba_block(cfg, p, h, ssm_state=ssm,
+                                           conv_state=(cx, cbc))
+        ssm.copy_(s2)
+        cx.copy_(cx2)
+        cbc.copy_(cbc2)
+        return x + y
+
     blocks = params["blocks"]
     for g in range(n_groups):
+        if hybrid:
+            x = _shared_block(cfg, x=x, site=g, **shared)
         for j in range(period):
-            p = _pick(blocks, (g, j))
-            ssm, cx, cbc = (cache[k][g, j] for k in ("ssm", "conv_x",
-                                                      "conv_bc"))
-            h = L.apply_norm(cfg, p["ln"], x)
-            y, s2, (cx2, cbc2) = S.mamba_block(cfg, p, h, ssm_state=ssm,
-                                               conv_state=(cx, cbc))
-            ssm.copy_(s2)
-            cx.copy_(cx2)
-            cbc.copy_(cbc2)
-            x = x + y
+            x = mamba_one(x, _pick(blocks, (g, j)), "", (g, j))
+    tail = _ssm_tail(cfg)
+    if tail:
+        if hybrid and n_groups * period in cfg.shared_attn_sites():
+            x = _shared_block(cfg, x=x, site=n_groups, **shared)
+        for t in range(tail):
+            x = mamba_one(x, _pick(params["tail"], t), "_tail", t)
     return x
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
             all_logits: bool = False) -> Tuple[Dict, torch.Tensor]:
     """Process ``batch["tokens"]`` (B, S) at ``cache["len"]``, writing the
-    stacked cache (or the SSM state) in place.  Returns (cache, logits):
-    (B, V) for the last position, or (B, S, V) with ``all_logits``."""
+    stacked cache (or the SSM / hybrid state) in place.  Returns (cache,
+    logits): (B, V) for the last position, or (B, S, V) with
+    ``all_logits``."""
     _check_whole_model(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -804,6 +970,9 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
     x = _add_learned_pos(cfg, params, x, positions)
     if cfg.family == "ssm":
         x = _mamba_trunk(cfg, params, x, cache=cache)
+    elif cfg.family == "hybrid":
+        x = _mamba_trunk(cfg, params, x, cache=cache, positions=positions,
+                         cur_len=cur_len, route=attention_route(cur_len, s))
     else:
         x = _transformer_trunk(cfg, params, x, positions, cache=cache,
                                cur_len=cur_len,

@@ -11,12 +11,14 @@ batcher (:class:`repro_torch.serving.batcher.ContinuousBatcher`)::
 Requests are the unit: each carries its prompt, budget, stop token and
 :class:`repro_torch.serving.sampling.SamplingParams` (greedy, temperature,
 top-k or top-p, with its own random stream and, when asked for, per-token
-logprobs in :class:`RequestOutput`).  ``backend=None``
-serves resident weights from ``params``: the batcher through
-:class:`repro_torch.serving.backends.ResidentBackend`, the one-shot
-generator through the stacked whole model.  Scheduling knobs (``policy``,
-``optimistic``, ``preempt_mode``, ``chunk_tokens``, ``prefix_dedupe``)
-are facade-level, as in the JAX package.
+logprobs in :class:`RequestOutput`).  ``backend=None`` serves resident
+weights from ``params``: the one-shot generator and the batcher through
+the stacked whole model (the batcher's
+:class:`repro_torch.serving.backends.ScanResidentBackend`), or, with
+``paged=True``, the batcher through
+:class:`repro_torch.serving.backends.ResidentBackend`.  Scheduling knobs
+(``policy``, ``optimistic``, ``preempt_mode``, ``chunk_tokens``,
+``prefix_dedupe``) are facade-level, as in the JAX package.
 
 ``generate`` picks the executor as the JAX facade does: a rectangular
 batch (one prompt length, one budget, no logprobs) with nothing else in
@@ -149,10 +151,11 @@ class LLM:
         self.cfg = cfg
         # without a backend the one-shot generator runs the stacked whole
         # model over these params (moved to the device only if they are
-        # elsewhere); the batcher wraps the same tensors in a
-        # ResidentBackend (per-layer views of them), built at its first
-        # use or here for paged serving, as in the JAX package, so a
-        # family no backend takes (SSM) still generates one-shot
+        # elsewhere), and so does the batcher, which builds its own
+        # ScanResidentBackend over the same tensors at its first use;
+        # paged serving wraps them in a ResidentBackend (per-layer views),
+        # built here, as in the JAX package.  A family the batcher does
+        # not take (SSM, hybrid) still generates one-shot
         self._params = None
         self._device = device
         self._backend = backend
@@ -161,7 +164,9 @@ class LLM:
         if backend is None:
             self._params = M.tree_to(params, resolve_device(device))
             if paged:
-                self._resident_backend()
+                from repro_torch.serving.backends import ResidentBackend
+                self._backend = ResidentBackend(cfg, self._params,
+                                                device=device)
         self.sampling = sampling
         self.seed = seed
         self.spec = spec
@@ -197,19 +202,18 @@ class LLM:
         self.last_metrics: Dict[str, float] = {}
 
     # -- executor -------------------------------------------------------
-    def _resident_backend(self):
-        if self._backend is None:
-            from repro_torch.serving.backends import ResidentBackend
-            self._backend = ResidentBackend(self.cfg, self._params,
-                                            device=self._device)
-        return self._backend
-
     def _ensure_batcher(self) -> ContinuousBatcher:
         if self._batcher is None:
-            # the facade manages backend lifetime, not the batcher
-            self._batcher = ContinuousBatcher(
-                self.cfg, backend=self._resident_backend(),
-                own_backend=False, **self._batcher_kw)
+            if self._backend is None:
+                # the batcher builds and owns its ScanResidentBackend
+                self._batcher = ContinuousBatcher(
+                    self.cfg, self._params, device=self._device,
+                    **self._batcher_kw)
+            else:
+                # the facade manages backend lifetime, not the batcher
+                self._batcher = ContinuousBatcher(
+                    self.cfg, backend=self._backend, own_backend=False,
+                    **self._batcher_kw)
         return self._batcher
 
     def _ensure_generator(self) -> Generator:
@@ -498,15 +502,18 @@ class LLM:
     # -- introspection / lifecycle -------------------------------------
     @property
     def backend(self):
-        """The serving backend: the one passed in, or the resident one
-        built for the batcher (None until then)."""
-        return self._backend
+        """The serving backend: the one passed in, the ResidentBackend
+        built for paged serving, or the batcher's ScanResidentBackend
+        (None until the batcher is first needed)."""
+        if self._backend is not None:
+            return self._backend
+        return self._batcher.backend if self._batcher is not None else None
 
     def stats(self) -> Dict:
         """Serving counters: per-phase plans, engine stream busy-time,
         scheduler and page-pool counters."""
         st: Dict = {"executor": self.last_executor, **self.last_metrics}
-        be = self._backend
+        be = self.backend
         if hasattr(be, "wstream"):
             st["wstream"] = be.wstream
         if hasattr(be, "policies"):

@@ -1,9 +1,17 @@
-"""Pluggable linear backends — one layer-math core, two executions.
+"""Serving backends — the surface the batcher schedules over.
 
-The decoder math is written once (:func:`repro_torch.models.model.decoder_layer`
-/ :func:`repro_torch.models.model.backend_prefill`) with every weight
+The dense GQA decoder math is written once
+(:func:`repro_torch.models.model.decoder_layer` /
+:func:`repro_torch.models.model.backend_prefill`) with every weight
 matmul routed through an injected ``linear(x, name)`` callable.  This
-module provides the concrete executions of that seam:
+module provides the concrete executions of that seam, and the
+scan-stacked whole model behind the same surface:
+
+    ScanResidentBackend  the stacked whole model (:func:`repro_torch.models.
+                      model.prefill` / ``decode_step``) over the stacked
+                      cache: every transformer family the whole model runs
+                      (Gemma-2's local/global layers, MLA, MoE, int8 KV),
+                      its linears not pluggable.  The batcher's default.
 
     ResidentBackend   weights live in device memory; the forward runs
                       eagerly layer by layer, each MLP's first stage
@@ -14,10 +22,12 @@ module provides the concrete executions of that seam:
                       batch- and phase-aware placement plan (resident /
                       alpha-split / streamed).
 
-Both expose the same serving surface — ``init_cache`` / ``init_paged_cache``
-/ ``prefill`` / ``decode`` / ``verify`` / ``linear`` — so
-:class:`repro_torch.serving.batcher.ContinuousBatcher` schedules over
-either one interchangeably.
+All expose the same serving surface — ``init_cache`` / ``prefill`` /
+``decode`` / ``verify`` — and the two linear backends also ``linear`` and
+``init_paged_cache``, so
+:class:`repro_torch.serving.batcher.ContinuousBatcher` schedules over any
+of them interchangeably; ``cache_batch_axis`` names the axis of the batch
+in every cache leaf (the batcher's slot-merge axis).
 """
 
 from __future__ import annotations
@@ -134,6 +144,54 @@ class ResidentBackend:
         return M.backend_prefill(self.cfg, self.shared, batch, cache,
                                  linear=self.linear, ops=self._ops,
                                  all_logits=True)
+
+    def close(self) -> None:
+        pass
+
+
+class ScanResidentBackend:
+    """The scan-stacked resident path behind the backend serving surface.
+
+    Runs :func:`repro_torch.models.model.prefill` /
+    :func:`~repro_torch.models.model.decode_step` over the stacked params —
+    the whole model the one-shot :class:`repro_torch.serving.engine.Generator`
+    runs.  Unlike :class:`ResidentBackend` it serves every transformer
+    family (Gemma-2's local/global layers, MLA, MoE, int8 KV), but its
+    per-linear execution is not pluggable and its cache is not pageable;
+    the batch axis of its cache leaves is 1 (stack-major).  The params are
+    used as they are (moved to ``device`` only where they lie elsewhere).
+    """
+
+    cache_batch_axis = 1
+
+    def __init__(self, cfg: ModelConfig, params: Dict, *, device=None):
+        M._check_whole_model(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = M.tree_to(params, self.device)
+
+    def init_cache(self, batch: int, max_len: int) -> Dict:
+        return M.init_cache(self.cfg, batch, max_len, device=self.device)
+
+    def init_paged_cache(self, batch: int, max_len: int, **kw):
+        raise NotImplementedError(
+            "the scan-stacked cache is not pageable; use ResidentBackend "
+            "or HeteGenBackend for paged serving")
+
+    def prefill(self, batch: Dict, cache: Dict
+                ) -> Tuple[Dict, torch.Tensor]:
+        return M.prefill(self.cfg, self.params, batch, cache)
+
+    def decode(self, token: torch.Tensor, cache: Dict
+               ) -> Tuple[Dict, torch.Tensor]:
+        return M.decode_step(self.cfg, self.params, token, cache)
+
+    def verify(self, batch: Dict, cache: Dict
+               ) -> Tuple[Dict, torch.Tensor]:
+        """Score all positions of a draft run: (B, S) tokens in, logits
+        (B, S, V) out."""
+        return M.prefill(self.cfg, self.params, batch, cache,
+                         all_logits=True)
 
     def close(self) -> None:
         pass

@@ -30,10 +30,12 @@ tokens.  ``SamplingParams.logprobs`` additionally records each sampled
 token's log-probability (and top-k alternatives) straight out of the
 sampler's sort.
 
-``paged=True`` swaps the dense per-layer cache for
-:class:`repro_torch.serving.kv_cache.PagedKVCache`; its pools are device
-tensors the model updates in place, so no pool is copied back after a
-step.  ``kv_dtype="int8"`` stores int8 pages.
+``paged=True`` swaps the dense cache for
+:class:`repro_torch.serving.kv_cache.PagedKVCache`, over a backend that
+pages (``ResidentBackend``, ``HeteGenBackend``; the
+``ScanResidentBackend`` built without a backend does not); its pools
+are device tensors the model updates in place, so no pool is copied
+back after a step.  ``kv_dtype="int8"`` stores int8 pages.
 
 ``spec=`` (:class:`repro_torch.serving.speculative.SpecConfig`) turns on
 speculative decoding: the host drafts before the plan, the scheduler
@@ -99,8 +101,11 @@ class ContinuousBatcher:
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._step_no = 0
         if backend is None:
-            from repro_torch.serving.backends import ResidentBackend
-            backend = ResidentBackend(cfg, params, device=device)
+            # the scan-stacked whole model, as in the JAX package (every
+            # transformer family); its cache is not pageable, so paged
+            # serving passes a ResidentBackend, as LLM(paged=True) does
+            from repro_torch.serving.backends import ScanResidentBackend
+            backend = ScanResidentBackend(cfg, params, device=device)
         self.backend = backend
         self.device = backend.device
         if tracer and hasattr(self.backend, "set_tracer"):
@@ -298,11 +303,14 @@ class ContinuousBatcher:
         self._maybe_finish(st)
 
     def _merge_dense(self, slot: int, one_cache: Dict, row: int = 0) -> None:
-        """Copy row ``row`` of a private dense cache into ``slot``."""
+        """Copy row ``row`` of a private dense cache into ``slot``, along
+        the backend's ``cache_batch_axis`` (0 for the per-layer cache, 1
+        for the stacked one)."""
+        axis = self.backend.cache_batch_axis
         for key, glob in self.cache.items():
             if key == "len" or glob.dim() == 0:
                 continue
-            glob[slot] = one_cache[key][row]
+            glob.select(axis, slot).copy_(one_cache[key].select(axis, row))
 
     def _prefill_dense_slot(self, slot: int, toks: torch.Tensor
                             ) -> torch.Tensor:

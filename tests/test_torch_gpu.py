@@ -334,7 +334,10 @@ def test_decode_attention_kernel(cuda, qdt, kvdt, layout, hq, hkv, d,
 @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
 @pytest.mark.parametrize("hq,hkv,d,t,softcap", [
     (32, 8, 128, 528, None), (8, 8, 64, 300, None), (16, 2, 256, 300, 30.0),
-    (32, 4, 128, 4096, None), (20, 1, 64, 130, 50.0)])
+    (32, 4, 128, 4096, None), (20, 1, 64, 130, 50.0),
+    # Llama-4 Scout (a group of 5), Zamba2's shared block, Gemma-2
+    (40, 8, 128, 528, None), (32, 32, 64, 528, None),
+    (8, 4, 256, 4624, 50.0)])
 def test_decode_attention_split_kernel(cuda, kvdt, layout, hq, hkv, d, t,
                                        softcap):
     """The split-KV kernel (bf16 q over a bf16 or int8 cache): group sizes
@@ -435,7 +438,8 @@ def test_flash_attention_f32_kernel(cuda, layout, b, hq, hkv, d, s):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,plus_one,sliced", [
     ((4, 5120), False, False), ((3, 7, 100), True, False),
-    ((4, 9, 5120), False, True), ((2, 6, 4, 128), False, False)])
+    ((4, 9, 5120), False, True), ((2, 6, 4, 128), False, False),
+    ((4, 2304), True, False)])
 def test_rmsnorm_kernel(cuda, dtype, shape, plus_one, sliced):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -453,10 +457,12 @@ def test_rmsnorm_kernel(cuda, dtype, shape, plus_one, sliced):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [2560, 5120])
+@pytest.mark.parametrize("d", [2560, 5120, 128, 256, 768, 2048, 2304, 4096])
 @pytest.mark.parametrize("rows", [1, 4, 2048])
 def test_rmsnorm_kernel_model_widths(cuda, rows, d, dtype):
-    """The model widths at decode and prefill row counts: within the
+    """The model widths (qk-norm's 128, MLA's latent 256 and 768, the
+    scan-stacked families' d_model) at decode and prefill row counts:
+    within the
     limit, and a bf16 output bit-equal to the plain version but for at
     most ``ref.RMSNORM_UNEQUAL_MAX`` of its elements."""
     from repro_torch.kernels import ops, ref
@@ -476,7 +482,10 @@ def test_rmsnorm_kernel_model_widths(cuda, rows, d, dtype):
 @pytest.mark.parametrize("hq,hkv,d,s,window,softcap", [
     (32, 8, 128, 512, None, None), (32, 8, 128, 500, None, None),
     (32, 8, 128, 77, None, None), (4, 2, 256, 200, None, None),
-    (4, 1, 256, 130, 50, 30.0)])
+    (4, 1, 256, 130, 50, 30.0),
+    # Llama-4 Scout (a group of 5), Zamba2's shared block, Gemma-2's local
+    (40, 8, 128, 512, None, None), (32, 32, 64, 512, None, None),
+    (8, 4, 256, 600, 512, 50.0)])
 def test_flash_attention_bf16_tensor_cores(cuda, hq, hkv, d, s, window,
                                            softcap):
     """The bf16 kernel at Mistral-NeMo's head layout (S 512, 500 and 77:
@@ -887,7 +896,9 @@ def _bf16_operands(gen, m, k, n, pad, dev, weights=2):
     return x, ws
 
 
-@pytest.mark.parametrize("k,n,pad", [(5120, 14336, 0), (1000, 3000, 24)])
+@pytest.mark.parametrize("k,n,pad", [(5120, 14336, 0), (1000, 3000, 24),
+                                     (2560, 6400, 0), (5120, 8192, 0),
+                                     (4096, 8192, 0)])
 @pytest.mark.parametrize("m", [49, 130, 500, 512, 2048])
 def test_gated_matmul_wgmma_kernel(cuda, m, k, n, pad):
     """bf16 ``gated_matmul`` above 48 rows (the persistent wgmma kernel)
@@ -1393,3 +1404,98 @@ def test_async_llm_on_card(cuda):
     n = ops.launch_counts()
     assert got == want
     assert n["paged_prefill_attention"] > 0 and n["paged_decode_attention"] > 0
+
+
+FAMILIES = ["gemma2-2b", "minicpm3-4b", "llama4-scout-17b-16e",
+            "llama4-maverick-400b-a17b", "zamba2-1.2b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_card_tokens_equal_cpu(cuda, arch):
+    """A reduced model of each scan-stacked family, fp32: one-shot
+    generation on the card (attention, norms, MLP first stages and SSD
+    chunks through the kernels) gives the CPU's greedy tokens; the
+    kernels the family reaches were launched (MLA attends in plain
+    code)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.api import LLM
+    cfg = reduced(get_config(arch))
+    params = M.init_params(cfg, 0, device="cpu")
+    prompts = [list(map(int, r)) for r in np.random.default_rng(12)
+               .integers(0, cfg.vocab_size, (3, 48))]
+    with LLM(cfg, params, device="cpu") as llm:
+        want = [o.tokens for o in llm.generate(prompts, max_new=8)]
+    ops.reset_launch_counts()
+    with LLM(cfg, M.tree_to(params, cuda)) as llm:
+        got = [o.tokens for o in llm.generate(prompts, max_new=8)]
+        assert llm.last_executor == "generator"
+    n = ops.launch_counts()
+    assert got == want
+    assert n["rmsnorm"] > 0 and n["gated_matmul"] > 0
+    if cfg.attn_kind != "mla":
+        assert n["flash_attention"] > 0 and n["decode_attention"] > 0
+    if cfg.family == "hybrid":
+        assert n["ssd_chunk"] > 0 and n["plain_ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "minicpm3-4b",
+                                  "llama4-scout-17b-16e"])
+def test_scan_resident_batcher_on_card(cuda, arch):
+    """The dense batcher's ScanResidentBackend on the card, with chunked
+    admissions and ragged budgets, gives the CPU batcher's tokens."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.backends import ScanResidentBackend
+    from repro_torch.serving.batcher import ContinuousBatcher
+    cfg = reduced(get_config(arch))
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(13)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (5, 11, 8, 11)]
+
+    def serve(device):
+        b = ContinuousBatcher(cfg, M.tree_to(params, device), max_slots=2,
+                              max_len=40, chunk_tokens=6, device=device)
+        assert isinstance(b.backend, ScanResidentBackend)
+        rids = [b.submit(p, n) for p, n in zip(prompts, (5, 7, 5, 7))]
+        out = b.run_until_done()
+        b.close()
+        return [out[r] for r in rids]
+
+    assert serve(cuda) == serve("cpu")
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_layer_on_card_equals_cpu(cuda, arch):
+    """The MoE layer in fp32 on the card and on the CPU: the same experts
+    and capacity drops (at a group of 8 tokens and capacity factor 1.25)
+    and outputs within 1e-5 of the largest |value|, at prefill and at
+    dropless decode."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              capacity_factor=1.25, moe_group_size=8)
+    params = M.init_params(cfg, 0, device="cpu")
+    j = 1 if arch.startswith("llama4-maverick") else 0
+    p = M._pick(params["blocks"][f"pos{j}"]["moe"], 0)
+    pc = M.tree_to(p, cuda)
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy((rng.standard_normal(cfg.d_model) + 0.5
+                          * rng.standard_normal((2, 12, cfg.d_model)))
+                         .astype(np.float32))
+    r_cpu = L.moe_route(cfg, p, x.reshape(3, 8, -1), capacity=3)
+    r_card = L.moe_route(cfg, pc, x.to(cuda).reshape(3, 8, -1), capacity=3)
+    for a, b in zip(r_cpu, r_card):
+        assert torch.equal(a, b.cpu()) if a.dtype != torch.float32 \
+            else torch.allclose(a, b.cpu(), rtol=1e-5, atol=1e-6)
+    assert not bool(r_cpu[3].all())
+    for xs in (x, x[:, :1]):
+        want = L.moe(cfg, p, xs)
+        got = L.moe(cfg, pc, xs.to(cuda)).cpu()
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale

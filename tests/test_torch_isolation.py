@@ -38,7 +38,12 @@ print(" ".join(names))
 # list guards against a package that stops being walked)
 MUST_SCAN = ("repro_torch.serving.speculative",
              "repro_torch.serving.tokenizer",
-             "repro_torch.launch.serve")
+             "repro_torch.launch.serve",
+             "repro_torch.configs.gemma2_2b",
+             "repro_torch.configs.minicpm3_4b",
+             "repro_torch.configs.llama4_scout_17b_16e",
+             "repro_torch.configs.llama4_maverick_400b_a17b",
+             "repro_torch.configs.zamba2_1_2b")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -47,7 +52,7 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 42                       # every module was walked
+    assert len(names) >= 47                       # every module was walked
     assert set(MUST_SCAN) <= set(names)
 
 

@@ -38,7 +38,8 @@ from repro_torch.core.hw import PAPER_A10 as T_A10
 from repro_torch.kernels import ops as K
 from repro_torch.models import model as TM
 from repro_torch.serving.api import LLM
-from repro_torch.serving.backends import HeteGenBackend, ResidentBackend
+from repro_torch.serving.backends import (HeteGenBackend, ResidentBackend,
+                                          ScanResidentBackend)
 from repro_torch.serving.engine import Generator
 from repro_torch.serving.offload_runtime import OffloadGenerator
 
@@ -303,16 +304,17 @@ def test_int8_cache_dequantizes_in_model_dtype(bf16_dots):
 
 
 def test_llm_builds_its_backend_lazily(setup):
-    """``LLM(cfg, params)`` builds its ResidentBackend when the batcher is
-    first needed (as the JAX facade builds its batcher), or at once for
-    ``paged=True``; one-shot generation needs none."""
+    """``LLM(cfg, params)`` builds its batcher, and the batcher its
+    ScanResidentBackend, when the batcher is first needed (as the JAX
+    facade does), or a ResidentBackend at once for ``paged=True``;
+    one-shot generation needs none."""
     cfg, _, tp, prompts = setup
     p = [list(r) for r in prompts]
     with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32) as llm:
         llm.generate(p, max_new=3)
         assert llm.backend is None
         llm.generate([p[0], p[1][:5]], max_new=3)
-        assert isinstance(llm.backend, ResidentBackend)
+        assert isinstance(llm.backend, ScanResidentBackend)
     with LLM(cfg, tp, device="cpu", paged=True, max_slots=2,
              max_len=32) as llm:
         assert isinstance(llm.backend, ResidentBackend)

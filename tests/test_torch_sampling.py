@@ -29,6 +29,7 @@ from repro.serving.speculative import filtered_probs
 from repro_torch.models import model as TM
 from repro_torch.serving import sampling as tsam
 from repro_torch.serving.api import LLM
+from repro_torch.serving.backends import ResidentBackend
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.sampling import SamplingParams
 
@@ -280,6 +281,9 @@ def _prompts(cfg, lens, seed=1):
 
 
 def _batcher(cfg, tp, reqs, **kw):
+    if kw.get("paged"):        # paged serving over the per-layer backend,
+        kw.update(backend=ResidentBackend(cfg, tp, device="cpu"),
+                  own_backend=True)            # as LLM(paged=True) builds
     b = ContinuousBatcher(cfg, tp, max_len=48, device="cpu",
                           **{"max_slots": 2, **kw})
     rids = [b.submit(p, n, sampling=sp, rid=rid) for rid, p, n, sp in reqs]
