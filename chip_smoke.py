@@ -142,6 +142,34 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``ScanResidentBackend``, with the same kernels launched and the same
    first tokens but at a near tie.  A reduced model of each family runs
    on the card and on the CPU first (:func:`check_small_reference`);
+3k. training, which reaches no kernel (the port's ``forward_train`` runs
+   the plain forms, and every kernel wrapper refuses an input that
+   requires grad under grad mode: shown on the card).  The kernel counters
+   are zeroed before each step below and must read 0 after it.
+   (a) every family the port trains at ``reduced()`` size in fp32 (``tiny``
+   as it is; OPT, Gemma-2, Mistral-NeMo, MiniCPM3, Llama-4 Scout with its
+   Adafactor, Mamba2, Zamba2): one ``loss_and_grads`` and one
+   ``make_train_step`` step from the same state and batch on the card and
+   on the CPU — loss within ``TRAIN_LOSS_TOL`` relative, every leaf's
+   gradient present, finite and within ``TRAIN_GRAD_TOL`` of that leaf's
+   largest |g| (OPT's key bias, whose exact gradient is 0, within 1e-5 of
+   the largest |g| of the tree on both);
+   (b) Gemma-2-2B whole at full width (26 layers, d 2304, 8/4 heads of 256,
+   FFN 9216, vocab 256000, window 4096, both softcaps, bf16, remat),
+   random weights made on the card: ``make_training_data``'s corpus, B 1 x
+   ``TRAIN_SEQ`` a microbatch, ``TRAIN_ACCUM`` microbatches, AdamW with
+   fp32 moments, ``TRAIN_STEPS`` steps; every loss finite and every param
+   leaf changed by step 1; logged: s per step, tokens/s, model FLOP/s as a
+   share of ``BF16_FLOPS`` and peak memory beside its reckoning;
+   (c) ``tiny`` under ``Trainer`` on the card: 6 steps against 3, a new
+   ``Trainer`` resuming from the checkpoint (async), 3 more — final
+   params within 1e-6; a bf16 state saved and restored on the card bit for
+   bit;
+   (d) ``python -m repro_torch.launch.train --arch tiny --steps 40`` as a
+   subprocess on the card: its last loss below its first.
+   After phase 3 a line ``cell 3 sim`` gives ``core.sim``'s decode
+   prediction for OPT-6.7B (32 layers, fp32 wire, batch 4) over the fitted
+   ``H100_HOST`` beside the measured tok/s (a log line, not a check);
 4. every kernel against its plain PyTorch version on the same card
    inputs at the main path's shapes (these launches come after the
    counters were read, so they do not count), with CUDA-event times of kernel,
@@ -244,7 +272,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.core import sim  # noqa: E402
 from repro_torch.core.hw import H100_HOST  # noqa: E402
+from repro_torch.data.pipeline import make_training_data  # noqa: E402
 from repro_torch.core.policy import build_policy  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import decode_attention as k_dense  # noqa: E402
@@ -270,6 +301,8 @@ from repro_torch.serving.speculative import (NgramDrafter,  # noqa: E402
 from repro_torch.telemetry import (Tracer, measured_speeds,  # noqa: E402
                                    recalibrate_alpha, validate_chrome_trace)
 from repro_torch.telemetry.overlap import stream_of  # noqa: E402
+from repro_torch.train import loop as TL  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM data sheet, fp32 without TC
@@ -320,6 +353,16 @@ GEMMA_PROMPT = 4608                # 3j: Gemma-2's, past its 4096 window
 FAMILY_NEW = 16                    # 3j: new tokens per row
 SCOUT_LAYERS = 8                   # 3j: Llama-4 Scout's layers (of 48)
 SOFTCAP_QSCALE = 4.0               # 4j: q widened so that a softcap bites
+TRAIN_FAMILIES = ("tiny", "opt-125m", "gemma2-2b", "mistral-nemo-12b",
+                  "minicpm3-4b", "llama4-scout-17b-16e", "mamba2-2.7b",
+                  "zamba2-1.2b")       # 3k(a): reduced, card against CPU
+TRAIN_SMALL_SEQ = 48               # 3k(a): past the reduced window of 32
+TRAIN_LOSS_TOL = 1e-5              # 3k(a): relative
+TRAIN_GRAD_TOL = 1e-4              # 3k(a): of each leaf's largest |g|
+TRAIN_SEQ = 4096                   # 3k(b): tokens a microbatch (train_4k)
+TRAIN_ACCUM = 2                    # 3k(b): microbatches a step
+TRAIN_STEPS = 3                    # 3k(b): optimizer steps
+TRAIN_LR = 1e-3                    # 3k(b): moves every bf16 weight at step 1
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "smoke_out")
 
@@ -2892,6 +2935,334 @@ def check_matmul_kernels(counts_3b, counts_3f):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 3k: training
+# ---------------------------------------------------------------------------
+
+def _paths(tree, prefix=()):
+    """(key path, leaf) pairs in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def _perturbed(params, seed):
+    """Draw the leaves that start at zero and would hide a mechanism
+    (Gemma's (1+w) norm scales, Zamba2's LoRA ``b``)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        norm = path[-1] == "scale" and not bool(t.any())
+        if norm or path[-2:] == ("shared_lora", "b"):
+            r = torch.randn(t.shape, generator=gen)
+            return (r * (0.2 if norm else 0.05)).to(t.dtype)
+        return t
+    return walk(params, ())
+
+
+def train_batch(vocab, b, s, seed):
+    t = np.random.default_rng(seed).integers(0, vocab, (b, s + 1)) \
+        .astype(np.int32)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def check_no_launches(run):
+    counts = ops.launch_counts()
+    check(not any(counts.values()),
+          f"{run}: training launched a kernel or a counted plain branch: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def check_guard_on_card():
+    """A kernel wrapper refuses, on the card, an input that requires grad
+    under grad mode, before it launches; under ``no_grad`` it launches."""
+    x = torch.randn(4, 64, device="cuda")
+    w = torch.ones(64, device="cuda", requires_grad=True)
+    ops.reset_launch_counts()
+    try:
+        ops.rmsnorm(x, w)
+    except RuntimeError as e:
+        check("no backward" in str(e), f"guard message: {e}")
+        log(f"3k guard: {e}")
+    else:
+        raise SystemExit("FAILED: rmsnorm launched under grad mode on an "
+                         "input that requires grad")
+    check(ops.launch_counts()["rmsnorm"] == 0, "the guard let rmsnorm launch")
+    with torch.no_grad():
+        ops.rmsnorm(x, w)
+    check(ops.launch_counts()["rmsnorm"] == 1, "rmsnorm under no_grad")
+
+
+def run_train_families(seed):
+    """3k(a): one ``loss_and_grads`` and one train step of each reduced
+    family on the card and on the CPU, from the same state and batch."""
+    for name in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if name != "tiny":
+            cfg = reduced(cfg)
+        tcfg = TL.TrainConfig(optimizer=OptimizerConfig(name=cfg.optimizer,
+                                                        lr=1e-2),
+                              warmup=2, total_steps=10)
+        step, opt_init = TL.make_train_step(cfg, tcfg)
+        params = _perturbed(M.init_params(cfg, seed, device="cpu"), seed)
+        host = {"params": params, "opt": opt_init(params),
+                "step": torch.zeros((), dtype=torch.int32)}
+        card = M.tree_to(host, "cuda")
+        batch = train_batch(cfg.vocab_size, 2, TRAIN_SMALL_SEQ, seed)
+        out = {}
+        for dev, state in (("cpu", host), ("cuda", card)):
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            ops.reset_launch_counts()
+            loss, met, grads = TL.loss_and_grads(cfg, state["params"], tb)
+            _, m = step(state, batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                check_no_launches(f"3k {name}")
+            out[dev] = (float(loss), float(met["aux"]), float(m["loss"]),
+                        _paths(grads))
+        (l_h, a_h, s_h, g_h), (l_d, a_d, s_d, g_d) = out["cpu"], out["cuda"]
+        for what, h, d in (("loss", l_h, l_d), ("aux", a_h, a_d),
+                           ("step loss", s_h, s_d)):
+            check(abs(d - h) <= TRAIN_LOSS_TOL * abs(h),
+                  f"3k {name}: {what} card {d} cpu {h}")
+        top = max(float(g.abs().max()) for _, g in g_h)
+        worst = 0.0
+        for (path, gh), (_, gd) in zip(g_h, g_d):
+            check(gh is not None and gd is not None,
+                  f"3k {name}: no gradient for {path}")
+            gd = gd.cpu()
+            check(bool(torch.isfinite(gd).all()),
+                  f"3k {name}: non-finite gradient in {path}")
+            if path[-1] == "bk":        # q . bk shifts a row: exact grad 0
+                check(max(float(gh.abs().max()), float(gd.abs().max()))
+                      <= 1e-5 * top, f"3k {name}: key bias gradient")
+                continue
+            scale = float(gh.abs().max())
+            err = float((gd - gh).abs().max())
+            check(err <= TRAIN_GRAD_TOL * scale,
+                  f"3k {name}: {path} gradient card-cpu {err:.3e} over "
+                  f"{TRAIN_GRAD_TOL} of {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+        log(f"3k {name}: {len(g_h)} leaves, loss card {l_d:.6f} cpu "
+            f"{l_h:.6f}, aux {a_d:.6f}, step loss {s_d:.6f}, worst leaf "
+            f"gradient error {worst:.3e} of its max |g|, optimizer "
+            f"{cfg.optimizer}, launches 0, {time.perf_counter() - t0:.1f} s")
+        del host, card
+
+
+def train_flops(cfg, n_params, tokens, n_seq, seq):
+    """Model FLOPs of one optimizer step: 6 N per token, the attention's
+    12 L S^2 d_head heads per sequence, times 4/3 under remat."""
+    attn = 12 * cfg.n_layers * seq * seq * cfg.hd * cfg.n_heads * n_seq
+    return (6 * n_params * tokens + attn) * (4 / 3 if cfg.remat else 1)
+
+
+def run_gemma_training(seed, smi):
+    """3k(b): Gemma-2-2B whole, trained ``TRAIN_STEPS`` steps on the card."""
+    cfg = get_config("gemma2-2b")
+    tcfg = TL.TrainConfig(accum_steps=TRAIN_ACCUM,
+                          optimizer=OptimizerConfig(name="adamw", lr=TRAIN_LR),
+                          warmup=1, total_steps=100)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step, opt_init = TL.make_train_step(cfg, tcfg)
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+    state = {"params": params, "opt": opt_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    start = [(path, p.to("cpu", copy=True)) for path, p in _paths(params)]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in _paths(params))
+    log(f"3k gemma2-2b: {cfg.n_layers} layers d={cfg.d_model} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} ffn={cfg.d_ff} vocab="
+        f"{cfg.vocab_size} window={cfg.window} softcaps="
+        f"{cfg.attn_softcap}/{cfg.logit_softcap} {cfg.dtype} remat="
+        f"{cfg.remat}, {n_params} params, init {time.perf_counter() - t0:.1f}"
+        f" s; B 1 x S {TRAIN_SEQ} x {TRAIN_ACCUM} microbatches, AdamW fp32 "
+        f"moments, lr {TRAIN_LR}")
+    data = make_training_data(cfg, batch=TRAIN_ACCUM, seq=TRAIN_SEQ,
+                              seed=seed)
+    tokens = TRAIN_ACCUM * TRAIN_SEQ
+    flops = train_flops(cfg, n_params, tokens, TRAIN_ACCUM, TRAIN_SEQ)
+    times = []
+    for i in range(TRAIN_STEPS):
+        batch = next(data)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        check_no_launches(f"3k gemma2-2b step {i + 1}")
+        check(math.isfinite(loss), f"3k gemma2-2b: step {i + 1} loss {loss}")
+        if i == 0:
+            same = [path for (path, p0), (_, p) in zip(start, _paths(
+                state["params"])) if torch.equal(p0, p.cpu())]
+            check(not same, f"3k gemma2-2b: leaves unchanged by step 1: "
+                            f"{same[:5]} ({len(same)})")
+            del start
+        log(f"3k gemma2-2b step {i + 1}: loss {loss:.4f} (nll "
+            f"{float(m['nll']):.4f}, lr {float(m['lr']):.3e}), {dt:.3f} s, "
+            f"{tokens / dt:.1f} tokens/s, {flops / dt / 1e12:.1f} model "
+            f"TFLOP/s = {flops / dt / BF16_FLOPS:.4f} of BF16_FLOPS")
+    data.close()
+    peak = torch.cuda.max_memory_allocated() - base
+    pbytes = 2 * n_params
+    logits = TRAIN_SEQ * cfg.vocab_size * 4
+    reckoned = 2 * pbytes + 2 * 4 * n_params + 4 * n_params + 4 * logits
+    steady = sorted(times[1:])[len(times[1:]) // 2] if len(times) > 1 \
+        else times[0]
+    log(f"3k gemma2-2b on {smi}: {TRAIN_STEPS} steps, s per step "
+        f"{[round(t, 3) for t in times]} (steady {steady:.3f}), "
+        f"{tokens / steady:.1f} tokens/s, model FLOP/s share "
+        f"{flops / steady / BF16_FLOPS:.4f}, peak memory "
+        f"{peak / 2**30:.2f} GiB against a reckoning of "
+        f"{reckoned / 2**30:.2f} GiB (bf16 params and grads, fp32 m, v and "
+        f"accumulation buffer, four fp32 logit-sized buffers)")
+    del state, params
+    torch.cuda.empty_cache()
+
+
+def run_trainer_resume(seed):
+    """3k(c): ``tiny`` under ``Trainer`` on the card, interrupted and
+    resumed against uninterrupted; a bf16 state's checkpoint round trip."""
+    cfg = get_config("tiny")
+    tcfg = TL.TrainConfig(optimizer=OptimizerConfig(lr=1e-2), warmup=2)
+    root = os.path.join(OUT_DIR, f"train_ckpt_{os.getpid()}")
+
+    def batches():
+        r = np.random.default_rng(seed + 7)
+        while True:
+            t = r.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+            yield {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    ops.reset_launch_counts()
+    t_all = TL.Trainer(cfg, tcfg, checkpoint_dir=os.path.join(root, "a"),
+                       checkpoint_every=3, async_checkpoint=False, seed=seed)
+    t_all.run(batches(), 6)
+    t1 = TL.Trainer(cfg, tcfg, checkpoint_dir=os.path.join(root, "b"),
+                    checkpoint_every=3, async_checkpoint=False, seed=seed)
+    gen = batches()
+    t1.run(gen, 3)
+    del t1
+    t2 = TL.Trainer(cfg, tcfg, checkpoint_dir=os.path.join(root, "b"),
+                    checkpoint_every=3, async_checkpoint=True, seed=seed)
+    check(t2.step == 3, f"3k resume: restored step {t2.step}")
+    t2.run(gen, 3)
+    check_no_launches("3k resume")
+    worst = 0.0
+    for (path, a), (_, b) in zip(_paths(t_all.state["params"]),
+                                 _paths(t2.state["params"])):
+        check(a.device.type == "cuda", "3k resume: params left the card")
+        err = float((a - b).abs().max())
+        check(bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6)),
+              f"3k resume: {path} differs by {err:.3e}")
+        worst = max(worst, err)
+    log(f"3k resume: 6 steps against 3 + restore + 3 on the card, losses "
+        f"{[round(m['loss'], 4) for m in t_all.metrics_log]} / "
+        f"{[round(m['loss'], 4) for m in t2.metrics_log]} (resumed part), "
+        f"largest param difference {worst:.3e}")
+    gen_ = torch.Generator(device="cuda").manual_seed(seed)
+    st = {"w": torch.randn(64, 48, generator=gen_, device="cuda")
+          .to(torch.bfloat16),
+          "m": torch.randn(48, generator=gen_, device="cuda"),
+          "step": torch.tensor(9, dtype=torch.int32, device="cuda")}
+    mgr = CheckpointManager(os.path.join(root, "bf16"), async_save=True)
+    mgr.save(9, st)
+    mgr.wait()
+    back = mgr.restore(9, {k: torch.zeros_like(v) for k, v in st.items()})
+    for k, v in st.items():
+        b = back[k]
+        check(b.device.type == "cuda" and b.dtype == v.dtype,
+              f"3k bf16 checkpoint: {k} restored as {b.dtype} on "
+              f"{b.device}")
+        bits = (lambda t: t.view(torch.int16)) if v.dtype == torch.bfloat16 \
+            else (lambda t: t)
+        check(torch.equal(bits(b), bits(v)),
+              f"3k bf16 checkpoint: {k} not bit-identical")
+    log("3k bf16 checkpoint: saved and restored on the card bit for bit")
+
+
+def run_train_launcher():
+    """3k(d): the training launcher as a subprocess on the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", "tiny", "--steps", "40"], env=env,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.splitlines():
+        log(f"3k launcher: {line}")
+    check(out.returncode == 0,
+          f"3k launcher exited {out.returncode}: {out.stderr[-2000:]}")
+    done = [line.split() for line in out.stdout.splitlines()
+            if line.startswith("done: loss")]
+    check(len(done) == 1, "3k launcher: no 'done' line")
+    first, last = float(done[0][2]), float(done[0][4])
+    check("device cuda" in out.stdout, "3k launcher did not run on cuda")
+    check(last < first, f"3k launcher: loss {first} -> {last} did not fall")
+
+
+def run_training(seed, smi):
+    """Phase 3k."""
+    check_guard_on_card()
+    timed("3k(a)", run_train_families, seed)
+    timed("3k(b)", run_gemma_training, seed, smi)
+    timed("3k(c)", run_trainer_resume, seed)
+    timed("3k(d)", run_train_launcher)
+
+
+def sim_decode_modules(cfg, batch, ctx, by=4):
+    """``core.sim`` modules of one decode step of a dense decoder, as the
+    JAX package's benchmarks build OPT's: per layer q, k, v, o, fc1 and fc2
+    linears of ``by`` bytes a weight (4: cell 3's fp32 wire) and the
+    attention core over ``ctx`` cached positions."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+
+    def linear(name, n_in, n_out, group):
+        return sim.SimModule(name, "linear", n_in * n_out * by, n_out, group,
+                             2 * batch * n_in * n_out)
+
+    mods = []
+    for l in range(cfg.n_layers):
+        mods += [linear(f"l{l}.wq", d, hq * hd, "attn"),
+                 linear(f"l{l}.wk", d, hkv * hd, "attn"),
+                 linear(f"l{l}.wv", d, hkv * hd, "attn"),
+                 sim.SimModule(f"l{l}.attn", "attn_core", 0, 0, "attn",
+                               4 * batch * d * ctx,
+                               cache_bytes=2 * batch * hkv * hd * ctx * by),
+                 linear(f"l{l}.wo", hq * hd, d, "attn"),
+                 linear(f"l{l}.w_in", d, f, "mlp"),
+                 linear(f"l{l}.w_down", f, d, "mlp_down")]
+    return mods
+
+
+def log_sim_prediction(full, fit, stats, layers, prompts):
+    """The simulator's decode prediction for cell 3's fp run over the
+    fitted host spec, beside the run's measured tok/s (a log line)."""
+    hw = dataclasses.replace(H100_HOST, **fit)
+    ctx = int(np.mean([len(p) for p in prompts])) + MAX_NEW // 2
+    mods = sim_decode_modules(full, 4, ctx)
+    r = sim.run_strategy(mods, "hetegen", hw, batch=4)
+    pl = sim.make_placements(mods, "hetegen", hw, batch=4)
+    alpha = next(p.alpha for p in pl.values() if p.mode == "hetegen")
+    util = " ".join(f"{k}={v:.4f}" for k, v in sorted(r.utilization.items()))
+    log(f"cell 3 sim (OPT-6.7B {full.n_layers} layers, fp32 wire, decode "
+        f"batch 4, context {ctx}, fitted H100_HOST): step {r.step_time:.4f}"
+        f" s, {r.throughput(4):.3f} tok/s, alpha {alpha:.4f}, utilization "
+        f"{util}; measured ({layers} layers, prefill and decode): "
+        f"{stats['tokens_per_s']:.3f} tok/s, {stats['steps']} steps, "
+        f"phase alpha {stats['phase_alpha']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2947,7 +3318,7 @@ def main() -> int:
 
     paged = ("paged_prefill_attention", "paged_decode_attention")
     keys = {name: paged_key for name in paged}
-    (_, l_fp, _, fp_spans), fp_tally = tally_rows(
+    (_, l_fp, st_fp, fp_spans), fp_tally = tally_rows(
         lambda: run_main_path(cfg, host_params, prompts, wstream="fp",
                               kv_dtype=None), paged, keys)
     keys["q8_matmul"] = lambda x, q, *_, **__: (*x.shape, q.shape[1])
@@ -2986,8 +3357,9 @@ def main() -> int:
     }
 
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
-    fit_host_spec(cfg, fp_spans, smi)
+    fit = fit_host_spec(cfg, fp_spans, smi)
     del fp_spans
+    log_sim_prediction(full, fit, st_fp, cfg.n_layers, prompts)
     timed("3g", run_recalibration, dataclasses.replace(
         cfg, n_layers=min(RECAL_LAYERS, cfg.n_layers)), host_params)
     verify_fp = timed("3i", run_speculative, cfg, host_params)
@@ -2995,6 +3367,7 @@ def main() -> int:
     counts_3c = timed("3c", run_offload_oneshot, cfg, host_params, oprompts)
     counts_3d = timed("3d", run_mamba, SEED)
     runs_3j = timed("3j", run_families, SEED)
+    timed("3k", run_training, SEED, smi)
     for kind in ("paged_decode_attention", "paged_prefill_attention"):
         launches[kind + "_3e"] = {kv: counts_3b["3e"][kv][kind]
                                   for kv in ("bf16", "int8")}

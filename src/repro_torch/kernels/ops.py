@@ -14,6 +14,12 @@ attention for a chunk at a cache offset above 0, or decode in a windowed
 layer) and ``plain_ssd_scan`` (a Mamba2 prefill whose length is not a
 multiple of the SSD chunk, or not above one chunk).  A run that should
 reach only kernels reads both as 0.
+
+No kernel has a backward.  On the CUDA route each wrapper raises when grad
+mode is on and an input requires grad (:func:`_check_no_grad`): a launch
+there would return a tensor without ``grad_fn`` and silently cut the
+upstream weights out of the gradient.  Training runs the plain forms
+(``plain=True`` in :mod:`repro_torch.models.layers`).
 """
 
 from __future__ import annotations
@@ -63,6 +69,17 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"no kernel route for device {t.device}")
 
 
+def _check_no_grad(name: str, *tensors) -> None:
+    """Refuse a kernel launch that autograd would have to see through."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            "grad under grad mode; run the plain form (plain=True) or "
+            "call it under torch.no_grad()")
+
+
 def launch_counts() -> Dict[str, int]:
     return {**{name: fn.launches for name, fn in _WRAPPERS.items()},
             **_PLAIN}
@@ -78,6 +95,7 @@ def reset_launch_counts() -> None:
 def q8_matmul(x, q, scale):
     if _route(x) == "cpu":
         return _ref.q8_matmul(x, q, scale)
+    _check_no_grad("q8_matmul", x, q, scale)
     return _q8.q8_matmul(x, q, scale)
 
 
@@ -87,6 +105,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len, *,
         return _ref.paged_decode_attention(
             q, k_pages, v_pages, block_tables, kv_len,
             k_scale=k_scale, v_scale=v_scale, softcap=softcap)
+    _check_no_grad("paged_decode_attention", q, k_pages, v_pages, k_scale, v_scale)
     return _decode.paged_decode_attention(
         q, k_pages, v_pages, block_tables, kv_len,
         k_scale=k_scale, v_scale=v_scale, softcap=softcap)
@@ -99,6 +118,7 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, kv_offset, *,
         return _ref.paged_prefill_attention(
             q, k_pages, v_pages, block_tables, kv_offset,
             k_scale=k_scale, v_scale=v_scale, softcap=softcap, window=window)
+    _check_no_grad("paged_prefill_attention", q, k_pages, v_pages, k_scale, v_scale)
     return _prefill.paged_prefill_attention(
         q, k_pages, v_pages, block_tables, kv_offset,
         k_scale=k_scale, v_scale=v_scale, softcap=softcap, window=window)
@@ -109,6 +129,7 @@ def decode_attention(q, k, v, kv_len, *, k_scale=None, v_scale=None,
     if _route(q) == "cpu":
         return _ref.decode_attention(q, k, v, kv_len, k_scale=k_scale,
                                      v_scale=v_scale, softcap=softcap)
+    _check_no_grad("decode_attention", q, k, v, k_scale, v_scale)
     return _dense_decode.decode_attention(q, k, v, kv_len, k_scale=k_scale,
                                           v_scale=v_scale, softcap=softcap)
 
@@ -117,6 +138,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     if _route(q) == "cpu":
         return _ref.flash_attention(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
+    _check_no_grad("flash_attention", q, k, v)
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
 
@@ -124,22 +146,26 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
 def rmsnorm(x, scale, *, eps=1e-6, plus_one=False):
     if _route(x) == "cpu":
         return _ref.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
+    _check_no_grad("rmsnorm", x, scale)
     return _rms.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
 
 
 def ssd_chunk(x, dt, a, b, c, *, chunk):
     if _route(x) == "cpu":
         return _ref.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    _check_no_grad("ssd_chunk", x, dt, a, b, c)
     return _ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk)
 
 
 def matmul(x, w, bias=None, *, activation=None):
     if _route(x) == "cpu":
         return _ref.matmul(x, w, bias, activation=activation)
+    _check_no_grad("matmul", x, w, bias)
     return _mm.matmul(x, w, bias, activation=activation)
 
 
 def gated_matmul(x, w_gate, w_up, *, activation="silu"):
     if _route(x) == "cpu":
         return _ref.gated_matmul(x, w_gate, w_up, activation=activation)
+    _check_no_grad("gated_matmul", x, w_gate, w_up)
     return _mm.gated_matmul(x, w_gate, w_up, activation=activation)

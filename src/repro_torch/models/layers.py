@@ -13,6 +13,12 @@ norms and the qk-norms) goes through
 over resident weights through ``ops.matmul`` / ``ops.gated_matmul``
 (:func:`mlp_in`): the hand-written kernels on a CUDA tensor, their plain
 versions on the CPU.
+
+The training path passes ``plain=True`` to every function that would reach
+a kernel (:func:`apply_norm`, :func:`gqa_qkv`, the MLA projections,
+:func:`mlp`, :func:`moe`): the kernels have no backward, so training runs
+the JAX package's plain forms on every device, as its ``forward_train``
+does.  :func:`moe_aux_loss` is the training path's load-balancing term.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as R
 
 NEG_INF = -2.0e38
 
@@ -41,11 +48,19 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def apply_norm(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float,
+            plus_one: bool = False, plain: bool = False) -> torch.Tensor:
+    """RMSNorm through the kernel, or its plain form with ``plain``."""
+    fn = R.rmsnorm if plain else K.rmsnorm
+    return fn(x, scale, eps=eps, plus_one=plus_one)
+
+
+def apply_norm(cfg, p: Dict, x: torch.Tensor, *,
+               plain: bool = False) -> torch.Tensor:
     if cfg.norm_kind == "layernorm":
         return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
-    return K.rmsnorm(x, p["scale"], eps=cfg.norm_eps,
-                     plus_one=cfg.post_norm)       # gemma-style (1+w)
+    return rmsnorm(x, p["scale"], eps=cfg.norm_eps,
+                   plus_one=cfg.post_norm, plain=plain)   # gemma (1+w)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +144,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def gqa_qkv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
-            linear=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            linear=None, *, plain: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project to q/k/v (with optional bias, qk-norm, rope).
 
     ``linear(x, "wq")`` must return ``x @ W_q`` with the bias applied;
@@ -150,8 +166,8 @@ def gqa_qkv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
             k = k + p["bk"].reshape(hkv, hd)
             v = v + p["bv"].reshape(hkv, hd)
     if cfg.qk_norm:
-        q = K.rmsnorm(q, p["q_norm"], eps=cfg.norm_eps)
-        k = K.rmsnorm(k, p["k_norm"], eps=cfg.norm_eps)
+        q = rmsnorm(q, p["q_norm"], eps=cfg.norm_eps, plain=plain)
+        k = rmsnorm(k, p["k_norm"], eps=cfg.norm_eps, plain=plain)
     if cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -172,23 +188,27 @@ def attn_out(cfg, p: Dict, o: torch.Tensor, linear=None) -> torch.Tensor:
 # MLA — multi-head latent attention (minicpm3 / deepseek style)
 # ---------------------------------------------------------------------------
 
-def mla_project_q(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor
+def mla_project_q(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                  *, plain: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Return (q_nope (B,S,H,dn), q_rope (B,S,H,dr))."""
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    ql = K.rmsnorm(x @ p["wq_a"], p["q_a_norm"], eps=cfg.norm_eps)
+    ql = rmsnorm(x @ p["wq_a"], p["q_a_norm"], eps=cfg.norm_eps,
+                 plain=plain)
     q = (ql @ p["wq_b"]).reshape(b, s, h, dn + dr)
     return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
 
-def mla_latent_kv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor
+def mla_latent_kv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                  *, plain: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compressed per-token cache entries: (latent (B,S,R), k_rope
     (B,S,dr))."""
     r = cfg.kv_lora_rank
     ckv = x @ p["wkv_a"]                                # (B,S,R+dr)
-    latent = K.rmsnorm(ckv[..., :r], p["kv_a_norm"], eps=cfg.norm_eps)
+    latent = rmsnorm(ckv[..., :r], p["kv_a_norm"], eps=cfg.norm_eps,
+                     plain=plain)
     k_rope = rope(ckv[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
     return latent, k_rope
 
@@ -252,16 +272,33 @@ def mlp_in(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     return h.reshape(*x.shape[:-1], h.shape[-1])
 
 
-def mlp(cfg, p: Dict, x: torch.Tensor, linear=None) -> torch.Tensor:
+def _resident_linear(cfg, p: Dict):
+    """``linear(h, name)`` over the weights in ``p``: ``h @ w`` plus the
+    layer's bias where it has one, as the JAX package's plain MLP."""
+    def linear(h, nm):
+        y = h @ p[nm]
+        bias = {"w_in": "b_in", "w_down": "b_down"}.get(nm)
+        if cfg.attn_bias and bias in p:
+            y = y + p[bias]
+        return y
+    return linear
+
+
+def mlp(cfg, p: Dict, x: torch.Tensor, linear=None, *,
+        plain: bool = False) -> torch.Tensor:
     """The MLP block.  Where ``p`` holds the first stage's weights (the
     stacked whole model's layer, or the per-layer dict of a backend that
     holds its weights whole on the device) that stage runs fused
     (:func:`mlp_in`); a backend that splits each weight between host and
     device leaves them out, and its ``linear(x, name)`` runs the stage and
     the activation follows, as in the JAX package.  ``w_down`` is
-    ``linear``'s where one is given, else ``h @ w (+ b)``."""
+    ``linear``'s where one is given, else ``h @ w (+ b)``.  ``plain``
+    runs the JAX package's form over the weights in ``p`` (each product
+    rounded to the model dtype, no kernel)."""
     kind = cfg.mlp_kind
-    if "w_gate" in p or "w_in" in p:
+    if plain:
+        linear = linear or _resident_linear(cfg, p)
+    if not plain and ("w_gate" in p or "w_in" in p):
         h = mlp_in(cfg, p, x)
     elif kind.startswith("gated"):
         act = F.silu if kind == "gated_silu" else _gelu
@@ -342,7 +379,8 @@ def _dispatch(cfg, p: Dict, xg: torch.Tensor, capacity: int) -> torch.Tensor:
     return gate.to(xg.dtype)[..., None] * y
 
 
-def moe(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def moe(cfg, p: Dict, x: torch.Tensor, *, plain: bool = False
+        ) -> torch.Tensor:
     """Top-1 routed experts with an optional always-on shared expert.
 
     Prefill (S > 1) routes in groups of ``moe_group_size`` tokens, each
@@ -350,7 +388,7 @@ def moe(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     tokens of a group in the cumsum order, the rest dropped; single-token
     decode is dropless (capacity = batch), as the JAX package's
     ``_moe_decode``.  The shared expert is :func:`mlp` (its first stage
-    through the ``gated_matmul`` kernel on the card)."""
+    through the ``gated_matmul`` kernel on the card, unless ``plain``)."""
     b, s, d = x.shape
     if s == 1:
         y = _dispatch(cfg, p, x[:, 0][None], b)[0][:, None]
@@ -364,5 +402,19 @@ def moe(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
                       ).reshape(b, s, d)
     if cfg.shared_expert:
         y = y + mlp(cfg, {"w_gate": p["ws_gate"], "w_up": p["ws_up"],
-                          "w_down": p["ws_down"]}, x)
+                          "w_down": p["ws_down"]}, x, plain=plain)
     return y
+
+
+def moe_aux_loss(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing loss over x (B, S, d): E times the sum
+    over experts of (share of tokens routed there) x (mean router
+    probability), the training path's aux term."""
+    d = x.shape[-1]
+    logits = x.reshape(-1, d) @ p["router"].to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    idx = torch.argmax(probs, dim=-1)
+    e = cfg.n_experts
+    frac_tokens = torch.mean(F.one_hot(idx, e).float(), dim=0)
+    frac_probs = torch.mean(probs, dim=0)
+    return e * torch.sum(frac_tokens * frac_probs)

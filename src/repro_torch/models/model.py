@@ -24,6 +24,13 @@ blocks of :mod:`repro_torch.models.ssm` in a loop over the
 shared block at the start of each group and before the tail layers.
 Encoder-decoder and VLM families are not ported.
 
+:func:`forward_train` is the training forward over a (B, S) batch with no
+cache: the same trunks on the JAX package's plain forms (``plain=True``
+in :mod:`repro_torch.models.layers` and :mod:`repro_torch.models.ssm`),
+so autograd sees every operation — the kernels have no backward — and
+``cfg.remat`` recomputes each super-block (or Mamba group) in the
+backward through ``torch.utils.checkpoint``.
+
 Dense-cache attention picks its route once per forward
 (:func:`attention_route`): decode runs the flash-decode kernel, a prefill
 from position 0 the flash-attention kernel, and anything else the plain
@@ -51,6 +58,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as K
@@ -289,6 +297,14 @@ def params_from_numpy(tree, device=None):
         return torch.from_numpy(arr.astype(np.float32)).to(
             dev, torch.bfloat16)
     return torch.from_numpy(arr).to(dev)
+
+
+def train_state_from_numpy(state, device=None):
+    """A train state of numpy arrays — ``{"params", "opt", "step"}`` from
+    the JAX package through ``np.asarray``, the optimizer's moments and
+    count and the step included — as the port's tensors on ``device``,
+    leaf by leaf (:func:`params_from_numpy`): bf16 stays bf16, int32 int32."""
+    return params_from_numpy(state, device)
 
 
 def tree_to(tree, device):
@@ -569,16 +585,22 @@ def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
                        kv_format="bhtd")
 
 
-def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None):
-    norm = norm_fn or (lambda pp, h: L.apply_norm(cfg, pp, h))
+def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None, *,
+               plain: bool = False, aux: Optional[torch.Tensor] = None):
+    """Pre-norm FFN + residual.  ``plain`` runs the plain forms (the
+    training path); with ``aux`` (a scalar) returns ``(x, aux)``, a MoE
+    layer adding its :func:`repro_torch.models.layers.moe_aux_loss`."""
+    norm = norm_fn or (lambda pp, h: L.apply_norm(cfg, pp, h, plain=plain))
     h = norm(p["ln2"], x)
     if kind == "moe":
-        y = L.moe(cfg, p["moe"], h)
+        y = L.moe(cfg, p["moe"], h, plain=plain)
+        if aux is not None:
+            aux = aux + L.moe_aux_loss(cfg, p["moe"], h)
     else:
-        y = L.mlp(cfg, p["mlp"], h, linear=linear)
+        y = L.mlp(cfg, p["mlp"], h, linear=linear, plain=plain)
     if cfg.post_norm:
         y = norm(p["ln2_post"], y)
-    return x + y
+    return (x + y) if aux is None else (x + y, aux)
 
 
 def decoder_layer(cfg, p, x, positions, *, kv_cache, cur_len, linear,
@@ -886,15 +908,18 @@ def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
 
 
 def _shared_block(cfg, params, x, emb0, positions, *, site: int, cache,
-                  cur_len, route: str):
+                  cur_len, route: Optional[str]):
     """The hybrid's shared transformer block at site ``site``: pre-norm
     attention and MLP over concat([x, emb0]) (2 d wide), the site's LoRA
     added to q, its K/V written into the site's slice of the shared cache
-    and attended along ``route``; projected back to d and added to x."""
+    and attended along ``route``; projected back to d and added to x.
+    With no ``cache`` (training) it attends within the sequence on the
+    plain forms."""
+    plain = cache is None
     p = params["shared"]
     h2 = torch.cat([x, emb0], dim=-1)
-    h = L.apply_norm(cfg, p["ln1"], h2)
-    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions)
+    h = L.apply_norm(cfg, p["ln1"], h2, plain=plain)
+    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, plain=plain)
     if "shared_lora" in params:
         b, s, _ = h.shape
         la = params["shared_lora"]["a"][site]
@@ -903,36 +928,59 @@ def _shared_block(cfg, params, x, emb0, positions, *, site: int, cache,
         if cfg.pos_emb == "rope":
             dq = L.rope(dq, positions, cfg.rope_theta)
         q = q + dq
-    k_buf, v_buf = cache["shared_k"][site], cache["shared_v"][site]
-    _update_kv(k_buf, k, cur_len, dim=2)
-    _update_kv(v_buf, v, cur_len, dim=2)
-    out = _dense_attend(cfg, q, k_buf, v_buf, positions,
-                        cur_len + k.shape[1], None, route, layout="bhtd")
+    if plain:
+        out = L.attention(q, k, v, q_positions=positions,
+                          kv_positions=positions, causal=True)
+    else:
+        k_buf, v_buf = cache["shared_k"][site], cache["shared_v"][site]
+        _update_kv(k_buf, k, cur_len, dim=2)
+        _update_kv(v_buf, v, cur_len, dim=2)
+        out = _dense_attend(cfg, q, k_buf, v_buf, positions,
+                            cur_len + k.shape[1], None, route,
+                            layout="bhtd")
     b, s, hq, hd = out.shape
     h2 = h2 + out.reshape(b, s, hq * hd) @ p["attn"]["wo"]
-    h2 = h2 + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h2))
+    h2 = h2 + L.mlp(cfg, p["mlp"],
+                    L.apply_norm(cfg, p["ln2"], h2, plain=plain),
+                    plain=plain)
     return x + h2 @ p["proj"]
 
 
+def _checkpointed(fn):
+    """``fn`` under activation checkpointing: its activations are
+    recomputed in the backward instead of kept, as the JAX package's
+    ``jax.checkpoint`` with ``nothing_saveable`` does."""
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
 def _mamba_trunk(cfg, params, x, *, cache, positions=None, cur_len=None,
-                 route: Optional[str] = None):
+                 route: Optional[str] = None, remat: bool = False):
     """The SSM / hybrid trunk as a loop over its groups and their layers
     (the JAX package scans it): pre-norm Mamba2 block + residual, each
     layer's recurrent and convolution states updated in the cache in
     place.  The hybrid runs its shared block (:func:`_shared_block`) at
     the start of every group, site g for group g, and once more before
     the tail layers where the tail starts at a site; it reads the
-    embeddings ``x`` enters with."""
+    embeddings ``x`` enters with.
+
+    With ``cache=None`` (training) every layer starts from zero states,
+    on the plain forms, and ``remat`` checkpoints each group."""
     n_groups, period = _ssm_groups(cfg)
     hybrid = cfg.family == "hybrid"
+    plain = cache is None
     emb0 = x
     shared = dict(params=params, emb0=emb0, positions=positions,
                   cache=cache, cur_len=cur_len, route=route)
 
     def mamba_one(x, p, sfx, idx):
+        h = L.apply_norm(cfg, p["ln"], x, plain=plain)
+        if plain:
+            return x + S.mamba_block(cfg, p, h, plain=True)[0]
         ssm, cx, cbc = (cache[k + sfx][idx] for k in ("ssm", "conv_x",
                                                       "conv_bc"))
-        h = L.apply_norm(cfg, p["ln"], x)
         y, s2, (cx2, cbc2) = S.mamba_block(cfg, p, h, ssm_state=ssm,
                                            conv_state=(cx, cbc))
         ssm.copy_(s2)
@@ -941,11 +989,18 @@ def _mamba_trunk(cfg, params, x, *, cache, positions=None, cur_len=None,
         return x + y
 
     blocks = params["blocks"]
-    for g in range(n_groups):
+
+    def group(x, g):
         if hybrid:
             x = _shared_block(cfg, x=x, site=g, **shared)
         for j in range(period):
             x = mamba_one(x, _pick(blocks, (g, j)), "", (g, j))
+        return x
+
+    if remat:
+        group = _checkpointed(group)
+    for g in range(n_groups):
+        x = group(x, g)
     tail = _ssm_tail(cfg)
     if tail:
         if hybrid and n_groups * period in cfg.shared_attn_sites():
@@ -989,3 +1044,82 @@ def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
                 cache: Dict) -> Tuple[Dict, torch.Tensor]:
     """One decode step: token (B,) -> (cache, logits (B, V))."""
     return prefill(cfg, params, {"tokens": token[:, None]}, cache)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+def _attn_layer_train(cfg, p, x, positions, kind: str):
+    """Pre-norm attention + residual within the sequence (no cache), on the
+    plain forms: causal GQA with Gemma-2's window on a local layer and its
+    softcap, or MLA over the latents of the sequence itself."""
+    h = L.apply_norm(cfg, p["ln1"], x, plain=True)
+    if cfg.attn_kind == "mla":
+        q_nope, q_rope = L.mla_project_q(cfg, p["attn"], h, positions,
+                                         plain=True)
+        latent, k_rope = L.mla_latent_kv(cfg, p["attn"], h, positions,
+                                         plain=True)
+        out = L.mla_attend(cfg, p["attn"], q_nope, q_rope, latent, k_rope,
+                           q_positions=positions, kv_positions=positions)
+    else:
+        q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, plain=True)
+        out = L.attention(q, k, v, q_positions=positions,
+                          kv_positions=positions, causal=True,
+                          window=cfg.window if kind == "local" else None,
+                          attn_softcap=cfg.attn_softcap)
+        out = L.attn_out(cfg, p["attn"], out)
+    if cfg.post_norm:
+        out = L.apply_norm(cfg, p["ln1_post"], out, plain=True)
+    return x + out
+
+
+def _transformer_trunk_train(cfg, params, x, positions):
+    """The decoder stack for training: super-block g's pattern positions
+    in order, each super-block checkpointed where ``cfg.remat`` asks.
+    Returns (x, aux), aux the sum of the MoE layers' load-balancing
+    losses (0 for a dense model)."""
+    kinds = cfg.layer_kinds()
+    period = _pattern_period(cfg)
+
+    def block(x, aux, p_blk):
+        for j in range(period):
+            p = p_blk[f"pos{j}"]
+            x = _attn_layer_train(cfg, p, x, positions, kinds[j])
+            x, aux = _apply_ffn(cfg, p, x, kinds[j], plain=True, aux=aux)
+        return x, aux
+
+    if cfg.remat:
+        block = _checkpointed(block)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_layers // period):
+        x, aux = block(x, aux, _pick(params["blocks"], g))
+    return x, aux
+
+
+def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
+                  return_aux: bool = False):
+    """Full causal forward over ``batch["tokens"]`` (B, S) -> logits
+    (B, S, V) fp32, and with ``return_aux`` the MoE load-balancing term
+    (a scalar, 0 without experts).
+
+    No cache is read or written and no kernel is reached: every operation
+    is a plain PyTorch one that autograd differentiates.  Dense and MoE
+    transformers (Gemma-2's local/global layers and softcaps, MLA), SSM
+    and hybrid trunks; encoder-decoder and VLM families raise."""
+    _check_whole_model(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    zero = torch.zeros((), dtype=torch.int32, device=x.device)
+    positions = _positions_from(zero, b, s)
+    x = _add_learned_pos(cfg, params, x, positions)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _mamba_trunk(cfg, params, x, cache=None, positions=positions,
+                         remat=cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = _transformer_trunk_train(cfg, params, x, positions)
+    x = L.apply_norm(cfg, params["final_norm"], x, plain=True)
+    logits = lm_logits(cfg, params, x)
+    return (logits, aux) if return_aux else logits

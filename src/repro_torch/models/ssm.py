@@ -19,6 +19,12 @@ is computed three ways, as in the JAX package:
 * :func:`ssd_decode_step` — the one-token state update (decode), plain
   tensor ops with no host sync.
 
+With ``plain=True`` (the training path) the chunked form takes the
+intra-chunk part from :func:`repro_torch.kernels.ref.ssd_chunk`, the plain
+version of the kernel, and the block's gated norm the plain RMSNorm: the
+kernels have no backward, and the JAX package's ``forward_train`` runs
+its plain ``ssd_chunked`` too.
+
 The block (in_proj -> conv1d -> SSD -> gated RMSNorm -> out_proj) follows
 the JAX package's layout; its gated norm runs the RMSNorm kernel on the
 card.  B and C are broadcast from their groups to the heads as stride-0
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as R
 
 
 def heads_of_groups(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -81,10 +88,11 @@ def _step(hs, xt, dtt, a, bt, ct):
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
-                chunk: int = 128, h0: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                chunk: int = 128, h0: Optional[torch.Tensor] = None,
+                plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD form, equal to :func:`ssd_recurrent` up to fp
-    association.  Same operands; L % chunk == 0."""
+    association.  Same operands; L % chunk == 0.  ``plain`` takes the
+    intra-chunk part from the kernel's plain version (differentiable)."""
     bs, ln, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if ln % chunk:
@@ -92,8 +100,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     nc = ln // chunk
     hs = torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device) \
         if h0 is None else h0
-    y_intra, state_c, cum = K.ssd_chunk(x, dt, a, heads_of_groups(b, h),
-                                        heads_of_groups(c, h), chunk=chunk)
+    intra = R.ssd_chunk if plain else K.ssd_chunk
+    y_intra, state_c, cum = intra(x, dt, a, heads_of_groups(b, h),
+                                  heads_of_groups(c, h), chunk=chunk)
     cum = cum.reshape(bs, nc, chunk, h)
     chunk_decay = torch.exp(cum[:, :, -1, :])              # (B,nc,H)
     # y_inter_i = C_i . h_prev * exp(cum_i), with C read per group
@@ -146,13 +155,15 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 def mamba_block(cfg, p: Dict, x: torch.Tensor, *,
                 ssm_state: Optional[torch.Tensor] = None,
-                conv_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                conv_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                plain: bool = False):
     """Full Mamba2 block over a sequence.  x (B,L,d_model).
 
     Returns (y, new_ssm_state, (new_conv_x, new_conv_bc)).  Decode (L == 1
     with a state) takes :func:`ssd_decode_step`; a prefill whose length is
     a multiple of ``cfg.ssm_chunk`` and above one chunk the chunked form;
-    any other the scan (counted on the card as ``plain_ssd_scan``)."""
+    any other the scan (counted on the card as ``plain_ssd_scan``, unless
+    ``plain``: the training path reaches no kernel and counts nothing)."""
     bs, ln, _ = x.shape
     h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     g = cfg.ssm_groups
@@ -178,11 +189,14 @@ def mamba_block(cfg, p: Dict, x: torch.Tensor, *,
         y, new_state = yt[:, None], hnew
     elif ln % cfg.ssm_chunk == 0 and ln > cfg.ssm_chunk:
         y, new_state = ssd_chunked(xs, dt, a, b, c, p["D"],
-                                   chunk=cfg.ssm_chunk, h0=ssm_state)
+                                   chunk=cfg.ssm_chunk, h0=ssm_state,
+                                   plain=plain)
     else:
-        K.count_plain("plain_ssd_scan", xs)
+        if not plain:
+            K.count_plain("plain_ssd_scan", xs)
         y, new_state = ssd_recurrent(xs, dt, a, b, c, p["D"], h0=ssm_state)
 
     y = y.reshape(bs, ln, cfg.d_inner)
-    y = K.rmsnorm(y * F.silu(z), p["gnorm"], eps=cfg.norm_eps)
+    rms = R.rmsnorm if plain else K.rmsnorm
+    y = rms(y * F.silu(z), p["gnorm"], eps=cfg.norm_eps)
     return y @ p["out_proj"], new_state, (new_conv_x, new_conv_bc)

@@ -43,7 +43,14 @@ MUST_SCAN = ("repro_torch.serving.speculative",
              "repro_torch.configs.minicpm3_4b",
              "repro_torch.configs.llama4_scout_17b_16e",
              "repro_torch.configs.llama4_maverick_400b_a17b",
-             "repro_torch.configs.zamba2_1_2b")
+             "repro_torch.configs.zamba2_1_2b",
+             "repro_torch.train.loop",
+             "repro_torch.train.optimizer",
+             "repro_torch.data.pipeline",
+             "repro_torch.checkpoint.manager",
+             "repro_torch.distributed.fault_tolerance",
+             "repro_torch.core.sim",
+             "repro_torch.launch.train")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -52,7 +59,7 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 47                       # every module was walked
+    assert len(names) >= 65                       # every module was walked
     assert set(MUST_SCAN) <= set(names)
 
 
@@ -83,7 +90,8 @@ def _import_tops(path):
     return tops
 
 
-@pytest.mark.parametrize("tool", ["ab_kernels.py", "matmul_variants.py"])
+@pytest.mark.parametrize("tool", ["ab_kernels.py", "matmul_variants.py",
+                                  "train_profile.py"])
 def test_card_tools_import_neither_jax_nor_repro(tool):
     """The card-side measurement tools run where only the port is
     installed: they import no ``jax`` and nothing of ``repro``."""
