@@ -142,13 +142,35 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``ScanResidentBackend``, with the same kernels launched and the same
    first tokens but at a near tie.  A reduced model of each family runs
    on the card and on the CPU first (:func:`check_small_reference`);
+3l. the last three assigned architectures at full width, bf16, random
+   weights made on the card from a seed, each after a reduced model of it
+   on the card and on the CPU (fp32 greedy tokens identical, bf16 logits
+   within ``BF16_MODEL_TOL``; fed embeddings through
+   :func:`check_small_embeds`): Whisper-small whole (12 + 12 layers, 1500
+   frames) through ``Generator.generate`` of ``WHISPER_BATCH`` rows of
+   random frame embeddings behind its start-of-transcript prefix,
+   ``WHISPER_NEW`` new tokens (:func:`encdec_launches`: non-causal flash
+   over the frames and for cross attention, two flash-decode launches a
+   decoder layer and step, the bias + GELU ``matmul``); LLaVA-NeXT-
+   Mistral-7B whole (32 layers) from ``LLAVA_BATCH`` x ``LLAVA_PATCHES``
+   anyres patch embeddings, ``LLAVA_NEW`` new tokens, then offloaded
+   through ``HeteGenBackend`` at ``LLAVA_OFFLOAD_LAYERS`` layers in fp32
+   (prefill logits against ``ResidentBackend`` within ``LOGIT_TOL``);
+   Nemotron-4-340B at ``NEMOTRON_LAYERS`` of 96 layers (head dim 192, a
+   GQA group of 12, squared ReLU, LayerNorm; its weights reckoned beside
+   the measured memory) one-shot through ``LLM``, then through
+   ``LLM(paged=True)`` over bf16 and int8 pages, a reduced Nemotron at
+   head dim 192 card against CPU first.  Each with the launches
+   predicted and first tokens equal to the prefill logits' argmax;
+   prefill s, decode tok/s and peak memory logged;
 3k. training, which reaches no kernel (the port's ``forward_train`` runs
    the plain forms, and every kernel wrapper refuses an input that
    requires grad under grad mode: shown on the card).  The kernel counters
    are zeroed before each step below and must read 0 after it.
    (a) every family the port trains at ``reduced()`` size in fp32 (``tiny``
    as it is; OPT, Gemma-2, Mistral-NeMo, MiniCPM3, Llama-4 Scout with its
-   Adafactor, Mamba2, Zamba2): one ``loss_and_grads`` and one
+   Adafactor, Mamba2, Zamba2, Whisper over frames, LLaVA over patch
+   embeddings): one ``loss_and_grads`` and one
    ``make_train_step`` step from the same state and batch on the card and
    on the CPU — loss within ``TRAIN_LOSS_TOL`` relative, every leaf's
    gradient present, finite and within ``TRAIN_GRAD_TOL`` of that leaf's
@@ -239,6 +261,17 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    held on the unshaped cache and, with a hot last key (its softmax
    share logged), against an off-by-one mask.  The softcapped entries'
    library call is ``flex_attention`` under ``torch.compile``;
+4l. every shape 3l's one-shot runs tallied (:data:`ARCH_KEYS`): flash
+   attention without a causal mask (Whisper's encoder over 1500 frames,
+   its cross attention from the prompt; the limit shown to reject the
+   last key tile dropped and a causal mask) and with it (LLaVA's 2880
+   patches, Nemotron at head dim 192), flash-decode (Whisper's self and
+   cross caches, LLaVA's, Nemotron's), bf16 ``matmul`` with bias + GELU
+   and with the squared ReLU (its library call ``torch.matmul`` and the
+   activation), LLaVA's ``gated_matmul`` and RMSNorm, and the two most
+   frequent paged prefill and decode shapes of Nemotron's bf16 and int8
+   page runs, with 4b's and 4d's checks; bf16 flash at head dim 96 (no
+   main path) logged only;
 5. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -294,6 +327,7 @@ from repro_torch.serving import sampling as smp  # noqa: E402
 from repro_torch.serving.api import LLM, AsyncLLM, GenRequest  # noqa: E402
 from repro_torch.serving.backends import (  # noqa: E402
     HeteGenBackend, ResidentBackend, ScanResidentBackend, enumerate_linears)
+from repro_torch.serving.engine import Generator  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 from repro_torch.serving.scheduler import PREFILLING  # noqa: E402
 from repro_torch.serving.speculative import (NgramDrafter,  # noqa: E402
@@ -353,9 +387,26 @@ GEMMA_PROMPT = 4608                # 3j: Gemma-2's, past its 4096 window
 FAMILY_NEW = 16                    # 3j: new tokens per row
 SCOUT_LAYERS = 8                   # 3j: Llama-4 Scout's layers (of 48)
 SOFTCAP_QSCALE = 4.0               # 4j: q widened so that a softcap bites
+FULL_QSCALE = 4.0                  # 4l: q widened over 1500 frames (below)
+LONG_DECODE = 1024                 # 4l: a hot last key from this many keys
+# 3l: Whisper's start-of-transcript prefix (<|startoftranscript|> <|en|>
+# <|transcribe|> <|notimestamps|> in its multilingual vocabulary)
+WHISPER_PREFIX = (50258, 50259, 50359, 50363)
+WHISPER_BATCH = 4                  # 3l: rows of 1500 random frames
+WHISPER_NEW = 32                   # 3l: new tokens per row
+LLAVA_BATCH = 2                    # 3l: images
+LLAVA_PATCHES = 2880               # 3l: anyres, a 576-patch base + 4 tiles
+LLAVA_NEW = 16                     # 3l: new tokens per image
+LLAVA_OFFLOAD_LAYERS = 8           # 3l: the offloaded run's layers (of 32)
+LLAVA_OFFLOAD_PATCHES = 592        # 3l: the offloaded run's prompt
+LLAVA_OFFLOAD_NEW = 8              # 3l: the offloaded run's new tokens
+NEMOTRON_LAYERS = 4                # 3l: Nemotron-4-340B's layers (of 96)
+NEMOTRON_PROMPT = 512              # 3l: prompt tokens per row
+NEMOTRON_NEW = 16                  # 3l: new tokens per row
 TRAIN_FAMILIES = ("tiny", "opt-125m", "gemma2-2b", "mistral-nemo-12b",
                   "minicpm3-4b", "llama4-scout-17b-16e", "mamba2-2.7b",
-                  "zamba2-1.2b")       # 3k(a): reduced, card against CPU
+                  "zamba2-1.2b", "whisper-small",
+                  "llava-next-mistral-7b")   # 3k(a): reduced, card vs CPU
 TRAIN_SMALL_SEQ = 48               # 3k(a): past the reduced window of 32
 TRAIN_LOSS_TOL = 1e-5              # 3k(a): relative
 TRAIN_GRAD_TOL = 1e-4              # 3k(a): of each leaf's largest |g|
@@ -1256,16 +1307,16 @@ def run_oneshot(run, llm_fn, prompts, new_tokens, cfg):
     return toks, launches, llm
 
 
-def check_small_reference(cfg, seed, prompt_len=24):
-    """A reduced model of the same family on the card (every attention,
-    norm and SSD chunk through a kernel) and on the CPU (the plain
-    versions).  In fp32 one-shot generation gives identical greedy
+def check_small_reference(cfg, seed, prompt_len=24, small=None):
+    """A reduced model of the same family (``small``, ``reduced(cfg)``
+    unless given) on the card (every attention, norm and SSD chunk
+    through a kernel) and on the CPU (the plain versions).  In fp32 one-shot generation gives identical greedy
     tokens.  In bf16 (for an attention model with a bf16 and an int8
     stacked cache) prefill logits at every position and one decode step's
     logits agree within ``BF16_MODEL_TOL`` (``SSM_BF16_MODEL_TOL`` for
     Mamba2) of the largest |logit|, with the same argmax wherever the
     CPU's top two logits stand more than twice that apart."""
-    small = reduced(cfg)                                   # fp32
+    small = small or reduced(cfg)                          # fp32
     params = M.init_params(small, seed, device="cpu")
     rng = np.random.default_rng(seed)
     prompts = [list(rng.integers(0, small.vocab_size, prompt_len))
@@ -2136,6 +2187,381 @@ def run_families(seed):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: Whisper-small, LLaVA-NeXT-Mistral-7B and Nemotron-4-340B
+# ---------------------------------------------------------------------------
+
+# 3l's shape keys, each a call's whole shape: flash (B, Hq, Hkv, Sq, Skv,
+# D, causal), decode (B, Hq, Hkv, T, D, int8 cache), matmul (rows, K, N,
+# activation, bias), gated_matmul and rmsnorm as in 3j, the paged kernels
+# by (B, S, each row's kv end)
+ARCH_KEYS = {
+    "flash_attention": lambda q, k, v, **kw: (
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+        q.shape[3], kw.get("causal", True)),
+    "decode_attention": lambda q, k, v, kv_len, **kw: (
+        q.shape[0], q.shape[1], k.shape[1], k.shape[2], q.shape[2],
+        k.dtype == torch.int8),
+    "matmul": lambda x, w, b=None, **kw: (
+        *rows_width(x), w.shape[1], kw.get("activation"), b is not None),
+    "gated_matmul": FAMILY_KEYS["gated_matmul"],
+    "rmsnorm": FAMILY_KEYS["rmsnorm"],
+    "paged_prefill_attention": paged_key,
+    "paged_decode_attention": paged_key,
+}
+
+
+def encdec_launches(cfg, new_tokens):
+    """What the route rule predicts for one ``Generator.generate`` of the
+    encoder-decoder: at the prefill a flash-attention launch per encoder
+    layer (non-causal over the frames) and two per decoder layer (causal
+    self-attention from position 0, non-causal cross attention over the
+    frames); at each decode step two flash-decode launches per decoder
+    layer (self-attention, and cross attention over all ``encoder_seq``
+    keys); one ``matmul`` (bias, GELU) per MLP and forward — the
+    encoder's and the decoder's at the prefill, the decoder's at each
+    step; LayerNorm everywhere, so no RMSNorm."""
+    steps = new_tokens - 1
+    e, n = cfg.encoder_layers, cfg.n_layers
+    return {"flash_attention": e + 2 * n, "decode_attention": 2 * n * steps,
+            "plain_dense_attention": 0, "rmsnorm": 0, "gated_matmul": 0,
+            "matmul": e + n * new_tokens}
+
+
+def embeds_batch(cfg, b, s, seed, device="cpu"):
+    """A seeded batch as ``configs.shapes.input_specs`` lays it out: the
+    VLM's patch embeddings in place of tokens, the encoder-decoder's
+    frames beside them; and (B,) tokens for a decode step."""
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if cfg.embeds_input:
+        batch["embeds"] = rng.standard_normal((b, s, cfg.d_model))
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (b, s))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model))
+    batch = {k: torch.from_numpy(v.astype(np.int32 if k == "tokens"
+                                          else np.float32)).to(device)
+             for k, v in batch.items()}
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)
+                             .astype(np.int32)).to(device)
+    return batch, first
+
+
+def _embeds_prefill_and_step(cfg, params, batch, first, device):
+    """Prefill logits at every position of an ``embeds_batch`` and one
+    decode step's after them (fed ``first``), both fp32 on the CPU."""
+    x = batch.get("embeds", batch.get("tokens"))
+    b, s = x.shape[:2]
+    cache, logits = M.prefill(cfg, params,
+                              {k: v.to(device) for k, v in batch.items()},
+                              M.init_cache(cfg, b, s + 1, device=device),
+                              all_logits=True)
+    _, step = M.decode_step(cfg, params, first.to(device), cache)
+    return logits.float().cpu(), step.float().cpu()
+
+
+def check_small_embeds(cfg, seed, prompt_len=24):
+    """The reduced VLM or encoder-decoder on the card and on the CPU, fed
+    embeddings (and frames): in fp32 ``Generator.generate`` gives
+    identical greedy tokens; in bf16 the prefill logits at every position
+    and one decode step's agree within ``BF16_MODEL_TOL`` of the largest
+    |logit| (:func:`check_small_bf16`; the VLM also over an int8 cache)."""
+    small = reduced(cfg)
+    params = M.init_params(small, seed, device="cpu")
+    batch, _ = embeds_batch(small, 3, prompt_len, seed)
+    want = Generator(small, params).generate(batch, 8).tokens
+    got = Generator(small, M.tree_to(params, "cuda")).generate(batch, 8) \
+        .tokens
+    log(f"small reference {small.name}: card tokens == CPU tokens: "
+        f"{got == want}")
+    check(got == want, f"{small.name}: card tokens differ from the CPU's")
+    batch, first = embeds_batch(small, 8, prompt_len, seed + 1)
+    for kv_dtype in ((None, "int8") if small.family == "vlm" else (None,)):
+        bf = dataclasses.replace(small, dtype="bfloat16", kv_dtype=kv_dtype)
+        check_small_bf16(f"small bf16 {small.family} kv={kv_dtype or 'bf16'}",
+                         bf, seed, lambda c, p, dev: _embeds_prefill_and_step(
+                             c, p, batch, first, dev), BF16_MODEL_TOL)
+
+
+def run_generate(run, cfg, gen, batch, new_tokens, want):
+    """One ``Generator.generate`` with the counters zeroed just before and
+    read just after, the calls tallied by :data:`ARCH_KEYS`; checks the
+    launches ``want`` predicts and logs prefill s, decode tok/s and the
+    peak memory.  Returns the result, the launches and the tally."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, tally = tally_rows(lambda: gen.generate(batch, new_tokens),
+                            tuple(ARCH_KEYS), ARCH_KEYS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    toks = res.tokens
+    check(all(len(t) == new_tokens for t in toks), f"{run}: short outputs")
+    check(all(0 <= x < cfg.vocab_size for t in toks for x in t),
+          f"{run}: token out of vocab")
+    log(f"{run}: batch {len(toks)}, {new_tokens} new each: wall "
+        f"{wall:.3f} s, prefill {res.prefill_s:.4f} s, decode "
+        f"{res.decode_s:.4f} s ({res.tokens_per_s:.3f} tok/s), "
+        f"peak_device_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB, launches={launches}")
+    log(f"{run}: calls by shape { {k: v for k, v in tally.items() if v} }")
+    check_launches(run, launches, want)
+    return res, launches, tally
+
+
+def _init_on_card(run, cfg, seed):
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"{run} init: {time.perf_counter() - t0:.1f} s, {n / 1e9:.3f} B "
+        f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+        f"card")
+    return params
+
+
+def _model_line(run, cfg, full):
+    log(f"{run} model: {full.name} at full width, {cfg.n_layers} of "
+        f"{full.n_layers} layers, d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.hd} ffn={cfg.d_ff} mlp={cfg.mlp_kind} "
+        f"norm={cfg.norm_kind} vocab={cfg.vocab_size} dtype={cfg.dtype}"
+        + (f" encoder {cfg.encoder_layers} layers over {cfg.encoder_seq} "
+           f"frames" if cfg.encoder_layers else ""))
+
+
+def run_whisper(seed):
+    """3l(b): Whisper-small whole (12 + 12 layers, bf16) through
+    ``Generator.generate``: ``WHISPER_BATCH`` rows of random frame
+    embeddings and Whisper's start-of-transcript prefix, ``WHISPER_NEW``
+    new tokens, with the launches :func:`encdec_launches` predicts and
+    first tokens equal to the prefill logits' argmax."""
+    cfg = get_config("whisper-small")
+    _model_line("3l", cfg, cfg)
+    check_small_embeds(cfg, seed)
+    params = _init_on_card("3l whisper-small", cfg, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    b = WHISPER_BATCH
+    batch = {"tokens": torch.tensor([WHISPER_PREFIX] * b, dtype=torch.int32,
+                                    device="cuda"),
+             "enc_embeds": torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                       generator=gen, device="cuda")
+             .to(torch.bfloat16)}
+    _, logits = M.prefill(cfg, params, batch, M.init_cache(
+        cfg, b, len(WHISPER_PREFIX) + WHISPER_NEW, device="cuda"))
+    check(bool(torch.isfinite(logits).all()), "3l whisper: non-finite logits")
+    res, launches, tally = run_generate(
+        "3l whisper-small", cfg, Generator(cfg, params), batch, WHISPER_NEW,
+        encdec_launches(cfg, WHISPER_NEW))
+    for k in ("flash_attention", "decode_attention", "matmul"):
+        check(launches[k] > 0, f"3l whisper: {k} never launched")
+    first_tokens_match("3l whisper-small", [t[0] for t in res.tokens],
+                       logits)
+    del params
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "tally": tally, "new": WHISPER_NEW,
+            "prefill_s": res.prefill_s, "tok_s": res.tokens_per_s}
+
+
+def run_llava(seed):
+    """3l(c): LLaVA-NeXT-Mistral-7B whole (32 layers, bf16) through
+    ``Generator.generate`` from anyres patch embeddings (``LLAVA_BATCH``
+    x ``LLAVA_PATCHES``), ``LLAVA_NEW`` new tokens, with the launches of a
+    Mistral one-shot run and first tokens equal to the argmax; then
+    offloaded: ``HeteGenBackend`` at ``LLAVA_OFFLOAD_LAYERS`` layers in
+    fp32 (the offloaded path's dtype), its prefill logits over
+    ``LLAVA_OFFLOAD_PATCHES`` patches held against ``ResidentBackend``'s
+    within ``LOGIT_TOL``, then ``LLAVA_OFFLOAD_NEW`` new tokens."""
+    cfg = get_config("llava-next-mistral-7b")
+    _model_line("3l", cfg, cfg)
+    check_small_embeds(cfg, seed)
+    params = _init_on_card("3l llava", cfg, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    b = LLAVA_BATCH
+    batch = {"embeds": torch.randn((b, LLAVA_PATCHES, cfg.d_model),
+                                   generator=gen, device="cuda")
+             .to(torch.bfloat16)}
+    _, logits = M.prefill(cfg, params, batch, M.init_cache(
+        cfg, b, LLAVA_PATCHES + LLAVA_NEW, device="cuda"))
+    check(bool(torch.isfinite(logits).all()), "3l llava: non-finite logits")
+    res, launches, tally = run_generate(
+        "3l llava", cfg, Generator(cfg, params), batch, LLAVA_NEW,
+        expected_oneshot_launches(cfg, LLAVA_NEW, resident=True))
+    first_tokens_match("3l llava", [t[0] for t in res.tokens], logits)
+    del params, logits
+    torch.cuda.empty_cache()
+
+    off = dataclasses.replace(cfg, n_layers=LLAVA_OFFLOAD_LAYERS,
+                              dtype="float32")
+    log(f"3l llava offloaded: {off.n_layers} of {cfg.n_layers} layers in "
+        f"float32 (cuts: depth, and the offloaded path serves fp32 host "
+        f"weights), {b} x {LLAVA_OFFLOAD_PATCHES} patches, "
+        f"{LLAVA_OFFLOAD_NEW} new tokens")
+    p_off = _init_on_card("3l llava offloaded", off, seed)
+    host = M.tree_to(p_off, "cpu")
+    emb = {"embeds": torch.randn((b, LLAVA_OFFLOAD_PATCHES, off.d_model),
+                                 generator=gen, device="cuda")}
+    rb = ResidentBackend(off, p_off, device="cuda")
+    _, want = rb.prefill(emb, rb.init_cache(b, LLAVA_OFFLOAD_PATCHES))
+    del rb, p_off
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hb = HeteGenBackend(off, host, batch=b, device="cuda")
+    log(f"3l llava offloaded load: {time.perf_counter() - t0:.3f} s")
+    try:
+        _, got = hb.prefill(emb, hb.init_cache(b, LLAVA_OFFLOAD_PATCHES))
+        check(bool(torch.isfinite(got).all()),
+              "3l llava offloaded: non-finite logits")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        log(f"3l llava offloaded prefill logits HeteGen(fp) vs Resident: "
+            f"max_abs_err={err:.3e} max|logit|={scale:.3e} "
+            f"tol={LOGIT_TOL:.0e} relative")
+        check(err <= LOGIT_TOL * max(scale, 1.0),
+              "3l llava offloaded: prefill logits disagree")
+        hb.reset_stats()
+        ores, olaunches, _ = run_generate(
+            "3l llava offloaded", off, Generator(off, backend=hb), emb,
+            LLAVA_OFFLOAD_NEW,
+            expected_oneshot_launches(off, LLAVA_OFFLOAD_NEW,
+                                      resident=False))
+        st = hb.finish_stats()
+        pols = {ph: (pol.alpha, sorted({p.mode for p in pol.plan}))
+                for ph, pol in hb.policies.items()}
+        log(f"3l llava offloaded: stream busy_s cpu={st.cpu:.3f} "
+            f"pin={st.pin:.3f} trans={st.trans:.3f} dev={st.dev:.3f} "
+            f"wall={st.wall:.3f}, plans (alpha, modes) {pols}")
+        check(any("hetegen" in m for _, m in pols.values()),
+              "3l llava offloaded: no weight split between host and card")
+        first_tokens_match("3l llava offloaded",
+                           [t[0] for t in ores.tokens], want)
+    finally:
+        hb.close()
+    del host
+    return {"cfg": cfg, "tally": tally, "new": LLAVA_NEW,
+            "prefill_s": res.prefill_s, "tok_s": res.tokens_per_s,
+            "offload_tok_s": ores.tokens_per_s,
+            "offload_prefill_s": ores.prefill_s}
+
+
+def nemotron_reckoning(cfg):
+    """Bytes of the bf16 weights: (embedding, head, one layer)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    layer = attn + 2 * d * f + 4 * d          # two LayerNorms' scale, bias
+    by = 2
+    return cfg.vocab_size * d * by, d * cfg.vocab_size * by, layer * by
+
+
+def run_nemotron(seed):
+    """3l(d): Nemotron-4-340B at full width and ``NEMOTRON_LAYERS`` of 96
+    layers, bf16: ``LLM(cfg, params).generate`` of four
+    ``NEMOTRON_PROMPT``-token prompts, ``NEMOTRON_NEW`` new each, one-shot
+    (flash and flash-decode at head dim 192, a GQA group of 12, the
+    squared-ReLU ``matmul``), then ``LLM(paged=True)`` over bf16 and over
+    int8 pages with ragged budgets, so that the batcher serves them (the
+    paged kernels at head dim 192); launches as predicted and first
+    tokens equal to the prefill logits' argmax.  A reduced
+    Nemotron, and the same at head dim 192, run card against CPU first."""
+    full = get_config("nemotron-4-340b")
+    cfg = dataclasses.replace(full, n_layers=NEMOTRON_LAYERS)
+    _model_line("3l", cfg, full)
+    emb_b, head_b, layer_b = nemotron_reckoning(cfg)
+    reckoned = emb_b + head_b + cfg.n_layers * layer_b
+    log(f"3l nemotron reckoning: {emb_b / 1e9:.2f} GB embedding + "
+        f"{head_b / 1e9:.2f} GB head + {cfg.n_layers} x "
+        f"{layer_b / 1e9:.2f} GB a layer = {reckoned / 1e9:.2f} GB")
+    check_small_reference(full, seed, prompt_len=48)
+    check_small_reference(full, seed, prompt_len=48, small=dataclasses.replace(
+        reduced(full), head_dim=192))
+    torch.cuda.reset_peak_memory_stats()
+    params = _init_on_card("3l nemotron", cfg, seed)
+    log(f"3l nemotron weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"on the card against {reckoned / 1e9:.2f} GB reckoned, init peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(seed + 9)
+    prompts = [list(rng.integers(0, cfg.vocab_size, NEMOTRON_PROMPT))
+               for _ in range(4)]
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    _, logits = M.prefill(cfg, params, {"tokens": toks}, M.init_cache(
+        cfg, len(prompts), NEMOTRON_PROMPT + NEMOTRON_NEW, device="cuda"))
+    check(bool(torch.isfinite(logits).all()), "3l nemotron: non-finite "
+          "logits")
+    want = {**expected_oneshot_launches(cfg, NEMOTRON_NEW, resident=True),
+            "rmsnorm": 0}
+    (out, launches, llm), tally = tally_rows(
+        lambda: run_oneshot("3l nemotron", lambda: LLM(cfg, params), prompts,
+                            NEMOTRON_NEW, cfg), tuple(ARCH_KEYS), ARCH_KEYS)
+    llm.close()
+    log(f"3l nemotron: calls by shape { {k: v for k, v in tally.items() if v} }")
+    check_launches("3l nemotron", launches, want)
+    first_tokens_match("3l nemotron", [t[0] for t in out], logits)
+    oneshot_peak = torch.cuda.max_memory_allocated()
+    paged = {}
+    budgets = [NEMOTRON_NEW, NEMOTRON_NEW - 4] * 2    # ragged: the batcher
+    for kv_dtype in (None, "int8"):
+        run = f"3l nemotron paged kv={kv_dtype or 'bf16'}"
+        llm = LLM(cfg, params, paged=True, kv_dtype=kv_dtype, max_slots=4,
+                  max_len=NEMOTRON_PROMPT + NEMOTRON_NEW,
+                  page_size=PAGE_SIZE)
+        calls = count_calls(llm.backend)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, ptally = tally_rows(
+            lambda: llm.generate([GenRequest(list(p), n)
+                                  for p, n in zip(prompts, budgets)]),
+            tuple(ARCH_KEYS), ARCH_KEYS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pl = ops.launch_counts()
+        check(llm.last_executor == "batcher",
+              f"{run}: executor {llm.last_executor}, want batcher")
+        ptoks = [o.tokens for o in outs]
+        log(f"{run}: wall {wall:.3f} s ({sum(map(len, ptoks)) / wall:.3f} "
+            f"tok/s), forwards {calls}, peak_device_mem="
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"launches={pl}, calls by shape "
+            f"{ {k: v for k, v in ptally.items() if v} }")
+        del llm.backend.prefill, llm.backend.decode
+        llm.close()
+        n_fwd = calls["prefill"] + calls["decode"]
+        check(calls["prefill"] > 0 and calls["decode"] > 0,
+              f"{run}: no prefill or no decode forward")
+        check_launches(run, pl, {
+            "paged_prefill_attention": cfg.n_layers * calls["prefill"],
+            "paged_decode_attention": cfg.n_layers * calls["decode"],
+            "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+            "plain_dense_attention": 0, **mlp_launches(cfg, n_fwd)})
+        check([len(t) for t in ptoks] == budgets, f"{run}: short outputs")
+        first_tokens_match(run, [t[0] for t in ptoks], logits)
+        paged[kv_dtype or "bf16"] = {"launches": pl, "tally": ptally}
+    del params, logits
+    torch.cuda.empty_cache()
+    log(f"3l nemotron: peak {oneshot_peak / 1e9:.2f} GB one-shot against "
+        f"{reckoned / 1e9:.2f} GB of weights reckoned")
+    return {"cfg": cfg, "tally": tally, "new": NEMOTRON_NEW,
+            "paged": paged, "launches": launches}
+
+
+def run_new_archs(seed):
+    """Phase 3l: Whisper-small, LLaVA-NeXT-Mistral-7B and Nemotron-4-340B
+    (:func:`run_whisper`, :func:`run_llava`, :func:`run_nemotron`)."""
+    runs = {}
+    for name, fn in (("whisper-small", run_whisper),
+                     ("llava-next-mistral-7b", run_llava),
+                     ("nemotron-4-340b", run_nemotron)):
+        t0 = time.perf_counter()
+        runs[name] = fn(seed)
+        log(f"phase 3l {name}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -2273,11 +2699,11 @@ def rejects(bad, want, limit, what):
     check(beyond > 0, f"the limit would pass {what}")
 
 
-def flash_scores_bf16(q, k, v, window=None, softcap=None):
-    """The plain causal flash attention with the fault a tensor-core
-    kernel invites: each score q . k rounded to bf16 before the scale (the
-    softcap and the window as the plain version applies them) and the
-    softmax."""
+def flash_scores_bf16(q, k, v, window=None, softcap=None, causal=True):
+    """The plain flash attention (causal unless ``causal`` is False) with
+    the fault a tensor-core kernel invites: each score q . k rounded to
+    bf16 before the scale (the softcap and the window as the plain version
+    applies them) and the softmax."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     qf = q.reshape(b, hkv, hq // hkv, sq, d).float()
@@ -2287,7 +2713,7 @@ def flash_scores_bf16(q, k, v, window=None, softcap=None):
         s = softcap * torch.tanh(s / softcap)
     kpos = torch.arange(skv, device=q.device)[None, :]
     qpos = torch.arange(sq, device=q.device)[:, None]
-    ok = kpos <= qpos
+    ok = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
     if window is not None:
         ok &= kpos > qpos - window
     p = torch.softmax(torch.where(ok, s, ref.NEG_INF), dim=-1)
@@ -2795,6 +3221,128 @@ def family_suffix(window, cap):
         + (f"_cap{cap:g}" if cap else "")
 
 
+def flash_full_entry(name, gen, cfg, dtype, sq, skv, launches, *, b=4):
+    """The flash-attention kernel with no causal mask: ``sq`` queries over
+    every one of ``skv`` keys held as the (B, S, Hkv, D) buffer a
+    projection writes, read through ``transpose(1, 2)`` — the encoder's
+    self-attention (sq = skv, the frames) or a prompt's cross attention
+    over them.  Within ``ref.flash_attention_limit(causal=False)``, the
+    limit shown to reject the last 32-key tile dropped, a causal mask
+    (where sq > 1) and scores rounded to bf16; timed beside the plain
+    version and ``F.scaled_dot_product_attention``.  q is widened
+    ``FULL_QSCALE`` times: at unit scores over 1500 keys no key carries
+    much weight, and scores rounded to bf16 move the output less than the
+    limit's allowance for p rounded to bf16 (a kernel with that fault
+    would pass); over sharper scores they do not."""
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k, v, _, _ = dense_cache(gen, b, hkv, skv, d, dtype, "bthd")
+    q = (torch.randn((b, sq, hq, d), generator=gen, device="cuda")
+         * FULL_QSCALE).to(dtype).transpose(1, 2)
+    kw = dict(causal=False)
+    got = k_flash.flash_attention(q, k, v, **kw)
+    check(torch.equal(k_flash.flash_attention(q, k, v, **kw), got),
+          f"{name}: two calls differ")
+    want = ref.flash_attention(q, k, v, **kw)
+    limit = ref.flash_attention_limit(q, k, v, want, **kw)
+    cut = skv - (skv % 32 or 32)
+    rejects(ref.flash_attention(q, k[:, :, :cut], v[:, :, :cut], **kw), want,
+            limit, f"{name}, the last key tile dropped")
+    if sq > 1:
+        rejects(ref.flash_attention(q, k, v, causal=True), want, limit,
+                f"{name}, a causal mask")
+    rejects(flash_scores_bf16(q, k, v, causal=False), want, limit,
+            f"{name}, scores rounded to bf16 before the softmax")
+    el = q.element_size()
+    return kernel_entry(
+        name, "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106", launches, got, want,
+        limit, lambda: k_flash.flash_attention(q, k, v, **kw),
+        lambda: ref.flash_attention(q, k, v, **kw), sdpa(q, k, v),
+        (2 * q.numel() + 2 * k.numel()) * el, 4 * b * hq * d * sq * skv,
+        BF16_FLOPS)
+
+
+ARCH_TAGS = {"whisper-small": "whisper", "llava-next-mistral-7b": "llava",
+             "nemotron-4-340b": "nemotron"}
+
+
+def check_arch_kernels(runs):
+    """Phase 4l: every shape 3l's one-shot runs tallied (:data:`ARCH_KEYS`)
+    — flash attention causal and not (Whisper's encoder over 1500 frames,
+    its cross attention from a 4-token prompt, LLaVA's 2880 patches,
+    Nemotron's head dim 192 at a GQA group of 12), flash-decode (Whisper's
+    self and cross caches, LLaVA's, Nemotron's), bf16 ``matmul`` with GELU
+    and bias (Whisper) and squared ReLU (Nemotron), LLaVA's
+    ``gated_matmul`` and RMSNorm — and the two most frequent paged prefill
+    and decode shapes of each of Nemotron's paged runs (bf16 and int8
+    pages, head dim 192), each against its plain version with 4b's and
+    4d's checks and times, with its launches in 3l.  One head dim off the
+    main paths (96) is checked and logged only."""
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    bf = torch.bfloat16
+    entries = []
+    for name, run in runs.items():
+        tag, cfg, tally = ARCH_TAGS[name], run["cfg"], run["tally"]
+        for (b, hq, hkv, sq, skv, d, causal), n in sorted(
+                tally["flash_attention"].items(), key=str):
+            heads = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                        head_dim=d)
+            base = f"flash_attention_{tag}_h{hq}x{hkv}_d{d}"
+            if causal:
+                entries.append(flash_entry(
+                    f"{base}_s{sq}", gen, heads, bf, "bhtd", sq,
+                    sq + run["new"], n, b=b))
+            else:
+                what = "enc" if sq == skv else "cross"
+                entries.append(flash_full_entry(
+                    f"{base}_{what}_q{sq}_kv{skv}", gen, heads, bf, sq, skv,
+                    n, b=b))
+        for (b, hq, hkv, t, d, q8), n in sorted(
+                tally["decode_attention"].items(), key=str):
+            heads = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                        head_dim=d)
+            cross = cfg.family == "encdec" and t == cfg.encoder_seq
+            # over more than LONG_DECODE keys of unit scores one key moves
+            # the output less than the limit allows, so the off-by-one
+            # control needs a hot last key (decode_entry's hot_last),
+            # scored 8: about half the weight, the rest still enough for
+            # the 64 values lost mid-sequence to show
+            entries.append(decode_entry(
+                f"decode_attention_{tag}_h{hq}x{hkv}_d{d}_t{t}"
+                + ("_cross" if cross else ""), gen, heads, bf,
+                torch.int8 if q8 else bf, "bthd" if cross else "bhtd", t,
+                [t if cross else t - 1] * b, n,
+                hot_last=8.0 if t > LONG_DECODE else None))
+        for (m, k, nn, act, bias), n in sorted(tally["matmul"].items(),
+                                               key=str):
+            entries.append(mm_entry(
+                f"matmul_{act}_{tag}_m{m}_{k}x{nn}", gen, bf, m, k, nn, n,
+                gated=False, act=act, bias=bias))
+        for (m, k, nn, act), n in sorted(tally["gated_matmul"].items(),
+                                         key=str):
+            entries.append(mm_entry(
+                f"gated_matmul_{act}_{tag}_m{m}_{k}x{nn}", gen, bf, m, k,
+                nn, n, gated=True, act=act))
+        for (m, d, plus_one), n in sorted(tally["rmsnorm"].items(), key=str):
+            entries.append(rms_entry(f"rmsnorm_{tag}_m{m}_d{d}", gen, cfg,
+                                     m, d, n, plus_one=plus_one))
+        for kv, prun in sorted(run.get("paged", {}).items()):
+            q8 = kv == "int8"
+            for kind in ("prefill", "decode"):
+                kname = f"paged_{kind}_attention"
+                for b, s, ends in top_shapes(prun["tally"][kname]):
+                    entries.append(paged_entry(
+                        f"{kname}_{tag}_{kv}_d{cfg.hd}_b{b}_s{s}"
+                        f"_kv{max(ends)}", kind,
+                        gen, cfg.n_heads, cfg.n_kv_heads, cfg.hd, b, s,
+                        ends, q8, bf, prun["tally"][kname][(b, s, ends)]))
+    off = "none (not a main-path shape)"
+    mis = get_config("mistral-nemo-12b")
+    flash_entry("flash_attention_bf16_d96_s512", gen, dataclasses.replace(
+        mis, head_dim=96), bf, "bhtd", 512, 528, off)
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phase 4d: the dense matmul kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -2805,21 +3353,30 @@ def tf32(t):
 
 
 def library_addmm(x, w, b, act, want, limit):
-    """``torch._addmm_activation``: act(b + x @ w) in one cuBLASLt call,
-    for ReLU or (``use_gelu``, its tanh form) GELU with a bias, as the
-    library yardstick; None for another function or where it lies beyond
-    the limit."""
-    if b is None or act not in ("relu", "gelu"):
+    """The library yardstick: ``torch._addmm_activation``, act(b + x @ w)
+    in one cuBLASLt call, for ReLU or (``use_gelu``, its tanh form) GELU
+    with a bias; for the squared ReLU without a bias (no single call
+    computes it) ``torch.matmul`` and the activation after it; None for
+    another function or where it lies beyond the limit."""
+    if act == "relu2" and b is None:
+        name = "matmul + relu2"
+
+        def call():
+            return torch.square(torch.relu(torch.matmul(x, w)))
+    elif b is not None and act in ("relu", "gelu"):
+        name, gelu = "addmm_activation", act == "gelu"
+
+        def call():
+            return torch._addmm_activation(b, x, w, use_gelu=gelu)
+    else:
         return None
-    gelu = act == "gelu"
-    err, ratio = excess(torch._addmm_activation(b, x, w, use_gelu=gelu),
-                        want, limit)
-    log(f"library addmm_activation: max_abs_err={err:.3e} worst "
+    err, ratio = excess(call(), want, limit)
+    log(f"library {name}: max_abs_err={err:.3e} worst "
         f"err/limit={ratio:.3f}")
     if ratio > 1.0:
-        log("library addmm_activation: disagrees; not used")
+        log(f"library {name}: disagrees; not used")
         return None
-    return lambda: torch._addmm_activation(b, x, w, use_gelu=gelu)
+    return call
 
 
 def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
@@ -2962,10 +3519,22 @@ def _perturbed(params, seed):
     return walk(params, ())
 
 
-def train_batch(vocab, b, s, seed):
-    t = np.random.default_rng(seed).integers(0, vocab, (b, s + 1)) \
-        .astype(np.int32)
-    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+def train_batch(cfg, b, s, seed):
+    """Next-token labels over seeded tokens; the VLM's patch embeddings in
+    place of the tokens and the encoder-decoder's frames beside them, as
+    ``configs.shapes.input_specs`` lays a train batch out."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    batch = {"labels": t[:, 1:]}
+    if cfg.embeds_input:
+        batch["embeds"] = rng.standard_normal((b, s, cfg.d_model)) \
+            .astype(np.float32)
+    else:
+        batch["tokens"] = t[:, :-1]
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def check_no_launches(run):
@@ -3011,7 +3580,7 @@ def run_train_families(seed):
         host = {"params": params, "opt": opt_init(params),
                 "step": torch.zeros((), dtype=torch.int32)}
         card = M.tree_to(host, "cuda")
-        batch = train_batch(cfg.vocab_size, 2, TRAIN_SMALL_SEQ, seed)
+        batch = train_batch(cfg, 2, TRAIN_SMALL_SEQ, seed)
         out = {}
         for dev, state in (("cpu", host), ("cuda", card)):
             tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -3028,9 +3597,15 @@ def run_train_families(seed):
                            ("step loss", s_h, s_d)):
             check(abs(d - h) <= TRAIN_LOSS_TOL * abs(h),
                   f"3k {name}: {what} card {d} cpu {h}")
-        top = max(float(g.abs().max()) for _, g in g_h)
+        top = max(float(g.abs().max()) for _, g in g_h if g is not None)
         worst = 0.0
         for (path, gh), (_, gd) in zip(g_h, g_d):
+            if path == ("embed",) and cfg.embeds_input:
+                # patch embeddings feed the trunk: the loss never reaches
+                # the token table, on either device
+                check(gh is None and gd is None,
+                      f"3k {name}: a gradient for the unused token table")
+                continue
             check(gh is not None and gd is not None,
                   f"3k {name}: no gradient for {path}")
             gd = gd.cpu()
@@ -3367,6 +3942,7 @@ def main() -> int:
     counts_3c = timed("3c", run_offload_oneshot, cfg, host_params, oprompts)
     counts_3d = timed("3d", run_mamba, SEED)
     runs_3j = timed("3j", run_families, SEED)
+    runs_3l = timed("3l", run_new_archs, SEED)
     timed("3k", run_training, SEED, smi)
     for kind in ("paged_decode_attention", "paged_prefill_attention"):
         launches[kind + "_3e"] = {kv: counts_3b["3e"][kv][kind]
@@ -3382,6 +3958,7 @@ def main() -> int:
     entries += timed("4c", check_ssd_kernel, counts_3d)
     entries += timed("4d", check_matmul_kernels, counts_3b, counts_3f)
     entries += timed("4j", check_family_kernels, runs_3j)
+    entries += timed("4l", check_arch_kernels, runs_3l)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,17 @@
 """Architecture registry of the port.
 
-Carries the configurations the port serves today: the paper's OPT family,
-Mistral-NeMo-12B (the Llama-style GQA decoder: RMSNorm, gated SiLU, RoPE,
-bf16), Gemma-2-2B (local/global layers, softcaps, sandwich norms),
-MiniCPM3-4B (MLA), Llama-4 Scout and Maverick (top-1 MoE with a shared
-expert), Mamba2-2.7B (the attention-free SSD family), Zamba2-1.2B (a
-Mamba2 trunk with one shared attention block) and the ``tiny`` test
-model.  ``get_config(name)`` returns the full-size
-config; ``reduced(cfg)`` returns a smoke-test-scale config of the same
-family/pattern (small widths, tiny vocab) used by the CPU tests.
+Every configuration the JAX package registers, field for field: the
+paper's OPT family, the ten assigned architectures (``ASSIGNED_ARCHS``) —
+Llama-4 Maverick and Scout (top-1 MoE with a shared expert),
+Nemotron-4-340B (GQA at head dim 192, squared ReLU, LayerNorm), Gemma-2-2B
+(local/global layers, softcaps, sandwich norms), Mistral-NeMo-12B (the
+Llama-style GQA decoder), MiniCPM3-4B (MLA), LLaVA-NeXT-Mistral-7B (a
+Mistral backbone fed patch embeddings), Whisper-small (encoder-decoder
+over frame embeddings), Zamba2-1.2B (a Mamba2 trunk with one shared
+attention block) and Mamba2-2.7B (the attention-free SSD family) — and
+the ``tiny`` / ``tiny-moe`` test models.  ``get_config(name)`` returns the
+full-size config; ``reduced(cfg)`` returns a smoke-test-scale config of
+the same family/pattern (small widths, tiny vocab) used by the CPU tests.
 """
 
 from __future__ import annotations
@@ -38,12 +41,27 @@ def list_archs() -> List[str]:
     return sorted(_REGISTRY)
 
 
+ASSIGNED_ARCHS = (
+    "llama4-maverick-400b-a17b",
+    "llama4-scout-17b-16e",
+    "nemotron-4-340b",
+    "gemma2-2b",
+    "mistral-nemo-12b",
+    "minicpm3-4b",
+    "llava-next-mistral-7b",
+    "whisper-small",
+    "zamba2-1.2b",
+    "mamba2-2.7b",
+)
+
+
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
         gemma2_2b, llama4_maverick_400b_a17b, llama4_scout_17b_16e,
-        mamba2_2_7b, minicpm3_4b, mistral_nemo_12b, opt, tiny, zamba2_1_2b)
+        llava_next_mistral_7b, mamba2_2_7b, minicpm3_4b, mistral_nemo_12b,
+        nemotron_4_340b, opt, tiny, whisper_small, zamba2_1_2b)
 
 
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:

@@ -21,7 +21,7 @@
 //   bf16(bf16(k) * bf16(scale)); rows at or past kv_len are never read, so
 //   a NaN there reaches no output; a row with no valid key writes 0.
 //
-// bf16 q over a bf16 or int8 cache (head dims 16/32/64/128/256, 16-byte
+// bf16 q over a bf16 or int8 cache (head dims in multiples of 16 up to 256, 16-byte
 //   aligned rows; the wrapper refuses any other bf16 shape): the split-KV
 //   kernel of csrc/split_decode.h, one thread-block cluster of 1-8 blocks
 //   per (batch, kv-head, group of up to 16 q-heads), each block a
@@ -232,7 +232,7 @@ int launch(const void* q, long long q_sb, long long q_sh, const void* k,
 bool split_shape(const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
                  long long kv_sb, long long kv_sh, long long kv_st, int kv_el, int b, int hq,
                  int hkv, int t_max, int d) {
-  if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256) return false;
+  if (d % 16 || d < 16 || d > 256) return false;
   auto al = [](long long x) { return x % 16 == 0; };
   if (!al((long long)(uintptr_t)q) || !al((long long)(uintptr_t)k) ||
       !al((long long)(uintptr_t)v))
@@ -270,11 +270,7 @@ static int decode_attention_impl(
     return kv_dtype == 2 ? launch_split<D, true>(SPLIT_ARGS)       \
                          : launch_split<D, false>(SPLIT_ARGS);
     switch (d) {
-      SPLIT(16)
-      SPLIT(32)
-      SPLIT(64)
-      SPLIT(128)
-      SPLIT(256)
+      BF16_ATTENTION_HEAD_DIMS(SPLIT)
     }
 #undef SPLIT
 #undef SPLIT_ARGS

@@ -15,6 +15,13 @@
 
 constexpr int kMaxDevices = 64;
 
+// The head dims the bf16 tensor-core attention kernels are instantiated at:
+// every multiple of 16 from 16 to 256 (their tiles are 16 columns wide).
+// X(D) is expanded once for each.
+#define BF16_ATTENTION_HEAD_DIMS(X)                                                      \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176) X(192) X(208) \
+      X(224) X(240) X(256)
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

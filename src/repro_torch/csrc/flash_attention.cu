@@ -30,7 +30,11 @@
 //   once with cp.async and each warp keeps its A fragments in registers (D
 //   <= 128).  K/V tiles of 32 keys go through a ring of cp.async stages in
 //   shared memory (one barrier a tile), rows padded by 16 bytes so that
-//   ldmatrix (K) and ldmatrix.trans (V) are free of bank conflicts.  On the
+//   ldmatrix (K) and ldmatrix.trans (V) are free of bank conflicts at every
+//   head dim it is built for, each multiple of 16 up to 256 (a padded row
+//   is D / 2 + 4 words, 4 past a multiple of 8, so the eight rows of an
+//   ldmatrix phase fall on distinct banks whether or not D is a power of
+//   two; above D = 128, Q's fragments are read from shared memory).  On the
 //   card (3b's shape), 32-key tiles with three blocks an SM at D = 128 ran
 //   6-10% faster than 64-key tiles with two; three or four stages were no
 //   faster than two; 32 query rows a warp (each K/V fragment feeding two
@@ -473,7 +477,7 @@ int launch_f32(const void* q, long long q_sb, long long q_sh, long long q_ss, co
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16 (q, k, v and out share one dtype).
-// bf16 takes D in {16, 32, 64, 128, 256}, fp32 any D up to 256.
+// bf16 takes D a multiple of 16 up to 256, fp32 any D up to 256.
 static int flash_attention_impl(
     const void* q, long long q_sb, long long q_sh, long long q_ss,
     const void* k, const void* v, long long kv_sb, long long kv_sh,
@@ -498,11 +502,7 @@ static int flash_attention_impl(
     return launch_tc<D>(q, q_sb, q_sh, q_ss, k, v, kv_sb, kv_sh, kv_ss, out, o_sb, o_sh, \
                         o_ss, b, hq, hkv, sq, skv, scale, softcap, causal, window, s);
   switch (d) {
-    FLASH_TC(16)
-    FLASH_TC(32)
-    FLASH_TC(64)
-    FLASH_TC(128)
-    FLASH_TC(256)
+    BF16_ATTENTION_HEAD_DIMS(FLASH_TC)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -33,7 +33,8 @@
 //     48 KB (six of 32 KB for one weight) with a full and an empty
 //     mbarrier each.  A consumer issues, per 16-deep k step, one
 //     m64n128k16 wgmma a weight, keeps one group in flight and releases a
-//     stage when its group retires.  Output tiles of 128 x 128 are walked
+//     stage when its group retires; with one weight it folds its
+//     accumulator into an fp32 total every 512 columns of K (kPromoteK).  Output tiles of 128 x 128 are walked
 //     with M fastest, so the blocks in flight share weight tiles through
 //     the 50 MB L2; a consumer's epilogue (bias or gate, activation, one
 //     cast, masked bf16x2 stores from registers) overlaps the producer's
@@ -47,8 +48,9 @@
 //     weight stages in flight through a cp.async ring (rows padded by 16
 //     bytes so ldmatrix is free of bank conflicts); each warp loads its A
 //     fragments with ldmatrix and its B fragments with ldmatrix.trans and
-//     keeps its accumulators, one set per weight, in registers, where the
-//     epilogue runs.
+//     keeps its accumulators, one set per weight, in registers, folded
+//     into fp32 totals every kPromoteK columns of K, where the epilogue
+//     runs.
 //   * fp32 (no TF32: the plain version's limits assume fp32 products): the
 //     CUDA cores.  M > 8 runs a pipelined SGEMM: a 128 x 256 output tile
 //     (128 x 128 a weight when gated), 8 x 16 a thread, 256 threads and
@@ -100,6 +102,17 @@ __device__ __forceinline__ float apply_act(float y, int act) {
       return y;
   }
 }
+
+// The tensor cores add each product into their fp32 accumulator with
+// truncation, not round-to-nearest, so its error grows with K faster than
+// an fp32 sum's: at Nemotron-4's K = 18432 a single accumulator lay up to
+// 5.5 units of ref._product_bound from the exact product, cuBLAS's too
+// (the limit allows 5).  The bf16 kernels below therefore run an
+// accumulator over kPromoteK columns of K at a time and add it into an
+// fp32 total with round-to-nearest (the one-weight wgmma kernel; the
+// mma.sync kernel for either); the total's error then grows like an fp32
+// sum's.
+constexpr int kPromoteK = 512;
 
 // ---------------------------------------------------------------------------
 // bf16, M <= 48: tensor-core tiles on mma.sync
@@ -166,7 +179,10 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
   const int wm = warp / C::WN, wn = warp % C::WN;
   const __nv_bfloat16* const w[2] = {w0, w1};
 
-  float acc[NW][C::MT][C::NT][4];
+  // acc: the mma accumulators of the current run of kPromoteK columns of
+  // K; tot: the sum of the finished runs, added in fp32 with
+  // round-to-nearest (the tensor cores' own accumulation truncates)
+  float acc[NW][C::MT][C::NT][4], tot[NW][C::MT][C::NT][4];
 #pragma unroll
   for (int g = 0; g < NW; ++g)
 #pragma unroll
@@ -174,7 +190,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
 #pragma unroll
       for (int j = 0; j < C::NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][i][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[g][i][j][e] = tot[g][i][j][e] = 0.f;
 
   const int ktiles = (k + C::BK - 1) / C::BK;
 #pragma unroll
@@ -221,6 +237,19 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
             mma_bf16(acc[g][i][2 * j + 1], af[i], bf[g][j][2], bf[g][j][3]);
           }
     }
+    if ((kt + 1) % (kPromoteK / C::BK) == 0 || kt + 1 == ktiles) {
+#pragma unroll
+      for (int g = 0; g < NW; ++g)
+#pragma unroll
+        for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+          for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tot[g][i][j][e] += acc[g][i][j][e];
+              acc[g][i][j][e] = 0.f;
+            }
+    }
   }
   cp_async_wait<0>();
 
@@ -244,11 +273,11 @@ tc_kernel(const __nv_bfloat16* __restrict__ x, long long lda,
         if (row >= m) continue;
         float v0, v1;
         if (GATED) {
-          v0 = apply_act(acc[0][i][j][2 * h], act) * acc[NW - 1][i][j][2 * h];
-          v1 = apply_act(acc[0][i][j][2 * h + 1], act) * acc[NW - 1][i][j][2 * h + 1];
+          v0 = apply_act(tot[0][i][j][2 * h], act) * tot[NW - 1][i][j][2 * h];
+          v1 = apply_act(tot[0][i][j][2 * h + 1], act) * tot[NW - 1][i][j][2 * h + 1];
         } else {
-          v0 = apply_act(acc[0][i][j][2 * h] + b0, act);
-          v1 = apply_act(acc[0][i][j][2 * h + 1] + b1, act);
+          v0 = apply_act(tot[0][i][j][2 * h] + b0, act);
+          v1 = apply_act(tot[0][i][j][2 * h + 1] + b1, act);
         }
         *reinterpret_cast<__nv_bfloat162*>(y + (long long)row * n + col) =
             __floats2bfloat162_rn(v0, v1);
@@ -354,6 +383,10 @@ wg_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
     setmaxnreg_inc<232>();
     const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
     float acc[NW][64];
+    // one weight: the total of the finished kPromoteK runs of K (two
+    // weights' totals would not fit the 232 registers beside the
+    // accumulators)
+    float tot[GATED ? 1 : 64];
     int stage = 0;
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -365,6 +398,10 @@ wg_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
           acc[g][i] = 0.f;
           reg_fence(acc[g][i]);
         }
+      if constexpr (!GATED) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+      }
       int prev = -1;
       for (int kt = 0; kt < ktiles; ++kt) {
         mbar_wait(&full[stage], phase);
@@ -387,6 +424,18 @@ wg_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
           stage = 0;
           phase ^= 1;
         }
+        if constexpr (!GATED) {
+          if ((kt + 1) % (kPromoteK / kWgBK) == 0 && kt + 1 < ktiles) {
+            wgmma_wait<0>();  // this run's products have retired: fold it in
+#pragma unroll
+            for (int i = 0; i < 64; ++i) {
+              reg_fence(acc[0][i]);
+              tot[i] += acc[0][i];
+              acc[0][i] = 0.f;
+              reg_fence(acc[0][i]);
+            }
+          }
+        }
       }
       wgmma_wait<0>();
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -394,6 +443,10 @@ wg_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
       for (int g = 0; g < NW; ++g)
 #pragma unroll
         for (int i = 0; i < 64; ++i) reg_fence(acc[g][i]);
+      if constexpr (!GATED) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[0][i] += tot[i];
+      }
 
       // epilogue in registers: bias or gate and the activation in fp32,
       // one cast (n is even, so a thread's two columns are both in range

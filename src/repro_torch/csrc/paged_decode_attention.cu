@@ -17,7 +17,7 @@
 //   l sums the unrounded p, as the Pallas kernel and the dense kernels do;
 //   int8 pages are dequantized in fp32; a row with no valid key writes 0.
 //
-// bf16 q (bf16 or int8 pages; head dims 16/32/64/128/256, 16-byte aligned
+// bf16 q (bf16 or int8 pages; head dims in multiples of 16 up to 256, 16-byte aligned
 //   rows, refused otherwise): the split-KV kernel of csrc/split_decode.h,
 //   the dense bf16 decode's design over the block tables.  One cluster of
 //   1-8 blocks per (batch, kv-head, group of up to 16 q-heads): the GQA
@@ -396,7 +396,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) % 16) == 
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (pages only, with scales).
 // q and out share q_dtype; fp32 and bf16 pages go with a q of their dtype.
-// A bf16 q takes D in {16, 32, 64, 128, 256} with q, the pages and out
+// A bf16 q takes D a multiple of 16 up to 256 with q, the pages and out
 // 16-byte aligned; an fp32 q D a multiple of 4 (of 16 over int8 pages) up
 // to 256 with q and the pages 16-byte aligned.  Anything else returns
 // cudaErrorInvalidValue.
@@ -420,11 +420,7 @@ static int paged_decode_attention_impl(
   case D:                                                                    \
     return q8 ? launch_split<D, true>(SPLIT_ARGS) : launch_split<D, false>(SPLIT_ARGS);
     switch (d) {
-      SPLIT(16)
-      SPLIT(32)
-      SPLIT(64)
-      SPLIT(128)
-      SPLIT(256)
+      BF16_ATTENTION_HEAD_DIMS(SPLIT)
     }
 #undef SPLIT
 #undef SPLIT_ARGS

@@ -47,7 +47,7 @@
 //   scale multiplies the score column in fp32, and V's is folded into p,
 //   whose product p * scale_v is split into two bf16 terms (hi, and the
 //   remainder lo) fed to two mma, so it keeps 16 significant bits.  Head
-//   dims 16-256 in powers of two; every row is 16-byte aligned.
+//   dims a multiple of 16 up to 256; every row is 16-byte aligned.
 //
 // fp32 q (fp32 or int8 pages): the CUDA cores, no TF32 (the plain
 //   version's limit allows fp32 reordering only).  A block of 128 threads
@@ -583,14 +583,14 @@ int launch_f32(const Args& a, int b, cudaStream_t stream) {
 
 template <bool Q8>
 int dispatch_tc(const Args& a, int b, cudaStream_t s) {
+#define PREFILL_TC(D) \
+  case D:               \
+    return launch_tc<D, Q8>(a, b, s);
   switch (a.d) {
-    case 16: return launch_tc<16, Q8>(a, b, s);
-    case 32: return launch_tc<32, Q8>(a, b, s);
-    case 64: return launch_tc<64, Q8>(a, b, s);
-    case 128: return launch_tc<128, Q8>(a, b, s);
-    case 256: return launch_tc<256, Q8>(a, b, s);
+    BF16_ATTENTION_HEAD_DIMS(PREFILL_TC)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PREFILL_TC
 }
 
 template <bool Q8>
@@ -607,7 +607,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) % 16) == 
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (pages only, with scales).
 // q and out share q_dtype; fp32 and bf16 pages go with a q of their dtype.
-// One kernel per q dtype: bf16 takes D in {16, 32, 64, 128, 256}, fp32 D a
+// One kernel per q dtype: bf16 takes D a multiple of 16 up to 256, fp32 D a
 // multiple of 4 up to 256 (of 16 over int8 pages); q, the pages and out
 // 16-byte aligned.  Anything else returns cudaErrorInvalidValue.
 static int paged_prefill_attention_impl(

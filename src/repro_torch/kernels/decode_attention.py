@@ -9,8 +9,9 @@ copied.  With ``k_scale`` / ``v_scale`` (B, Hkv, T) the cache is int8 and
 is dequantized inside the kernel in q's dtype, as the JAX package's
 stacked whole model dequantizes its int8 cache in the model dtype.  A bf16
 q over a bf16 or int8 cache runs a split-KV kernel with one thread-block
-cluster per (batch, kv-head), at the head dims ``BF16_HEAD_DIMS`` with
-16-byte aligned rows (any other bf16 shape is refused); an fp32 q a kernel
+cluster per (batch, kv-head), at every head dim
+:func:`bf16_head_dim_ok` takes (multiples of 16 up to 256) with 16-byte
+aligned rows (any other bf16 shape is refused); an fp32 q a kernel
 with one block per (batch, q-head).  Either is one launch.  The plain
 version is :func:`repro_torch.kernels.ref.decode_attention`.
 """
@@ -51,19 +52,23 @@ def check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must have a unit stride in its last dim")
 
 
-# head dims of the bf16 tensor-core kernels' instantiations (the split
-# decode kernel's and flash attention's)
-BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
+def bf16_head_dim_ok(d: int) -> bool:
+    """The head dims the bf16 tensor-core attention kernels (flash, the
+    split decode, paged prefill and decode) are instantiated at: every
+    multiple of 16 from 16 to 256, the width of their mma tiles."""
+    return d % 16 == 0 and 16 <= d <= 256
 
 
 def check_bf16_operands(q, k, v) -> None:
     """The bf16 tensor-core kernels move 16-byte chunks: their head dims
-    are ``BF16_HEAD_DIMS``, and every base pointer and stride but the last
-    of q, k and v is a multiple of 16 bytes (a stride of a dim of size 1
-    is never used)."""
+    pass :func:`bf16_head_dim_ok`, and every base pointer and stride but
+    the last of q, k and v is a multiple of 16 bytes (a stride of a dim of
+    size 1 is never used)."""
     d = q.shape[-1]
-    if d not in BF16_HEAD_DIMS:
-        raise ValueError(f"bf16 head dim {d} is not one of {BF16_HEAD_DIMS}")
+    if not bf16_head_dim_ok(d):
+        raise ValueError(f"bf16 head dim {d} is not a multiple of 16 from "
+                         f"16 to 256: no bf16 attention kernel is built "
+                         f"for it")
     for name, x in (("q", q), ("k", k), ("v", v)):
         el = x.element_size()
         if x.data_ptr() % 16 or any(
@@ -79,8 +84,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
                      softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, D) fp32 or bf16 (D in ``BF16_HEAD_DIMS``, 16-byte aligned
-    rows); k/v (B, Hkv, T, D) of q's dtype, or int8 with
+    """q (B, Hq, D) fp32 or bf16 (D a multiple of 16 up to 256, 16-byte
+    aligned rows); k/v (B, Hkv, T, D) of q's dtype, or int8 with
     ``k_scale``/``v_scale`` (B, Hkv, T) fp32 dequantized in q's dtype;
     kv_len (B,) int32
     -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current

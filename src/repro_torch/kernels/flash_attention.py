@@ -35,7 +35,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D); fp32 (D <= 256) or bf16 (D
-    in ``decode_attention.BF16_HEAD_DIMS``, 16-byte aligned rows), one
+    a multiple of 16 up to 256, 16-byte aligned rows), one
     dtype
     -> (B, Hq, Sq, D), a view whose ``transpose(1, 2)`` is contiguous.
     Launches the CUDA kernel on the current stream; every call counts in

@@ -7,8 +7,8 @@ One query token per (batch, q-head) attends over the pages named by
 or bf16, with a q of that dtype).  With ``k_scale`` / ``v_scale``
 (n_pages, Hkv, page_size) the pages are int8 and are dequantized in fp32
 inside the kernel, under a q of either dtype.  A bf16 q runs a split-KV
-kernel with one thread-block cluster per (batch, kv-head) at the head dims
-``BF16_HEAD_DIMS`` with 16-byte aligned rows (any other bf16 shape is
+kernel with one thread-block cluster per (batch, kv-head) at head dims in
+multiples of 16 up to 256 with 16-byte aligned rows (any other bf16 shape is
 refused, as in the dense decode); an fp32 q the same cluster layout on the
 CUDA cores, at head dims in multiples of 4 (16 over int8 pages) up to 256
 (:func:`check_operands`).  The plain version is
@@ -91,7 +91,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None,
                            softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, D) fp32 (D a multiple of 4, of 16 over int8 pages) or
-    bf16 (D in ``BF16_HEAD_DIMS``), 16-byte aligned; pages (P, Hkv, ps,
+    bf16 (D a multiple of 16 up to 256), 16-byte aligned; pages (P, Hkv, ps,
     D) of q's dtype, or int8 with fp32 scales; block_tables (B, nb)
     int32; kv_len (B,) int32 -> (B, Hq, D) in q's dtype.  Launches the
     CUDA kernel on the current stream; every call counts in

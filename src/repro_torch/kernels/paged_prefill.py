@@ -7,7 +7,7 @@ the pages named by ``block_tables[b]`` (optionally within a sliding
 written to the pages.  Pages are fp32 or bf16 under a q of their dtype;
 with ``k_scale`` / ``v_scale`` they are int8 and are dequantized in fp32
 inside the kernel.  Each q dtype has one kernel: a bf16 q runs on the
-tensor cores at the head dims ``decode_attention.BF16_HEAD_DIMS`` with
+tensor cores at every head dim that is a multiple of 16 up to 256, with
 16-byte aligned rows, an fp32 q on the CUDA cores at head dims that are a
 multiple of 4 (of 16 over int8 pages) up to 256; any other shape raises
 ``ValueError``.  The plain version is

@@ -1,10 +1,13 @@
-"""Model assembly for the decoder families, Mamba2 and the Zamba2 hybrid.
+"""Model assembly for every family of the JAX package.
 
 The PyTorch counterpart of the JAX package's ``models/model.py`` for the
 decoder-only transformer families (dense GQA, Gemma-2's local/global
-pattern, MLA, top-1 MoE), the attention-free SSM family (Mamba2) and the
-hybrid (a Mamba2 trunk with one shared attention block): parameter init,
-the embedding / head, and two executions of the layer math —
+pattern, MLA, top-1 MoE), the VLM (a dense GQA backbone fed patch
+embeddings in place of token embeddings), the encoder-decoder (Whisper:
+an encoder over frame embeddings, a decoder with self and cross
+attention), the attention-free SSM family (Mamba2) and the hybrid (a
+Mamba2 trunk with one shared attention block): parameter init, the
+embedding / head, and two executions of the layer math —
 
 * the resident whole model (:func:`prefill` / :func:`decode_step` over the
   stacked caches of :func:`init_cache`: (n_super, B, Hkv, T, hd) K/V, fp
@@ -15,14 +18,23 @@ the embedding / head, and two executions of the layer math —
   the per-layer KV cache, dense or paged), with every weight matmul
   routed through an injected ``linear(x, name)`` callable — the seam that
   lets :mod:`repro_torch.serving.backends` run it resident or
-  HeteGen-offloaded.  It takes dense GQA decoders only, as in the JAX
-  package (:func:`extract_backend_params`).
+  HeteGen-offloaded.  It takes dense GQA decoders and the VLM only, as in
+  the JAX package (:func:`extract_backend_params`).
 
 The SSM and hybrid families run only the resident whole model: the Mamba2
 blocks of :mod:`repro_torch.models.ssm` in a loop over the
 (n_groups, period, B, ...) state cache (:func:`_mamba_trunk`), the hybrid's
 shared block at the start of each group and before the tail layers.
-Encoder-decoder and VLM families are not ported.
+
+A batch holding ``"embeds"`` (B, S, d_model) feeds a model with
+``cfg.embeds_input`` (LLaVA) through :func:`prefill`,
+:func:`forward_train` and :func:`backend_prefill` in place of the token
+embeddings; its decode steps consume tokens.  The encoder-decoder runs
+:func:`_encode` over ``"enc_embeds"`` (B, encoder_seq, d_model) —
+non-causal self-attention, the learned ``enc_pos`` — and
+:func:`_encdec_decoder`: a prefill with frames computes every layer's
+cross K/V once into the cache's ``cross_k`` / ``cross_v``, a decode step
+attends over them, and training recomputes them.
 
 :func:`forward_train` is the training forward over a (B, S) batch with no
 cache: the same trunks on the JAX package's plain forms (``plain=True``
@@ -36,6 +48,9 @@ Dense-cache attention picks its route once per forward
 from position 0 the flash-attention kernel, and anything else the plain
 :func:`repro_torch.models.layers.attention` (counted on the card as
 ``plain_dense_attention``).  Paged caches always run the paged kernels.
+Non-causal attention — the encoder's, and cross attention at a prefill —
+runs the flash-attention kernel with ``causal=False``; cross attention
+at a decode step the flash-decode kernel over all ``encoder_seq`` keys.
 MLA attends in plain PyTorch on every route
 (:func:`repro_torch.models.layers.mla_attend`).
 
@@ -88,15 +103,18 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 def _check_whole_model(cfg: ModelConfig) -> None:
     """The families the resident whole model runs: decoder-only
-    transformers (GQA or MLA attention, dense or MoE), SSM and hybrid."""
+    transformers (GQA or MLA attention, dense or MoE), the VLM and the
+    encoder-decoder (GQA), SSM and hybrid."""
     if cfg.family in ("ssm", "hybrid"):
         return
-    if cfg.family not in ("dense", "moe") \
-            or cfg.attn_kind not in ("gqa", "mla"):
+    ok = (cfg.family in ("dense", "moe")
+          and cfg.attn_kind in ("gqa", "mla")) \
+        or (cfg.family in ("vlm", "encdec") and cfg.attn_kind == "gqa")
+    if not ok:
         raise NotImplementedError(
-            "the port's whole model runs decoder-only transformers, SSM "
-            f"and hybrid models (got family={cfg.family}, "
-            f"attn={cfg.attn_kind})")
+            "the port's whole model runs decoder-only transformers, VLM, "
+            "encoder-decoder, SSM and hybrid models (got "
+            f"family={cfg.family}, attn={cfg.attn_kind})")
 
 
 def _ssm_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -251,6 +269,13 @@ def init_params(cfg: ModelConfig,
                     "a": dense((n_sites, d2, r), scale=0.02),
                     "b": zeros(n_sites, r, hq * hd)}
         return params
+    if cfg.family == "encdec":
+        params["enc_blocks"] = _stack([block("dense")
+                                       for _ in range(cfg.encoder_layers)])
+        params["enc_pos"] = dense((cfg.encoder_seq, d), scale=0.02)
+        params["enc_final_norm"] = norm(d)
+        params["cross"] = _stack([{"attn": gqa(), "ln": norm(d)}
+                                  for _ in range(cfg.n_layers)])
     period = _pattern_period(cfg)
     kinds = cfg.layer_kinds()
     supers = [{f"pos{j}": block(kinds[g * period + j])
@@ -284,7 +309,9 @@ def params_from_numpy(tree, device=None):
     ``np.asarray``, bfloat16 leaves included) -> the same tree of tensors
     on ``device``.  Every family's tree crosses leaf by leaf: MLA's
     low-rank projections, MoE's fp32 router and (E, d, f) expert stacks,
-    the hybrid's ``tail`` layers, ``shared`` block and ``shared_lora``."""
+    the hybrid's ``tail`` layers, ``shared`` block and ``shared_lora``,
+    the encoder-decoder's ``enc_blocks``, ``enc_pos``, ``enc_final_norm``
+    and ``cross``."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
@@ -326,6 +353,16 @@ def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
         # sqrt(d) in the model dtype, as the JAX package rounds it
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
+
+
+def embed_inputs(cfg, params, batch: Dict) -> torch.Tensor:
+    """The trunk's input (B, S, d): ``batch["embeds"]`` cast to the model
+    dtype where the config takes embeddings (the VLM's patch embeddings)
+    and the batch holds them, else the token embeddings of
+    ``batch["tokens"]``."""
+    if cfg.embeds_input and "embeds" in batch:
+        return batch["embeds"].to(torch_dtype(cfg))
+    return embed_tokens(cfg, params, batch["tokens"])
 
 
 def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
@@ -702,16 +739,17 @@ def backend_prefill(cfg: ModelConfig, shared: Dict, batch: Dict, cache: Dict,
                     *, linear, ops: Optional[Dict] = None,
                     all_logits: bool = False) -> Tuple[Dict, torch.Tensor]:
     """Prompt/step processing with all linears routed through
-    ``linear(x, "blk{l}.{name}")``.  Returns (cache, logits): (B, V) for
-    the last position, or (B, S, V) with ``all_logits``.
+    ``linear(x, "blk{l}.{name}")``.  ``batch`` holds "tokens" (B, S), or
+    for the VLM "embeds" (B, S, d) (:func:`embed_inputs`).  Returns (cache,
+    logits): (B, V) for the last position, or (B, S, V) with
+    ``all_logits``.
 
     A cache holding "pages_k{l}"/"pages_v{l}" pools plus "block_tables"
     switches every layer to the paged plumbing; "pages_ks{l}" /
     "pages_vs{l}" scale pools additionally select int8 pages."""
     ops = ops or {}
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(cfg, shared, tokens)
+    x = embed_inputs(cfg, shared, batch)
+    b, s = x.shape[:2]
     cur_len = cache["len"]
     positions = _positions_from(cur_len, b, s)
     x = _add_learned_pos(cfg, shared, x, positions)
@@ -774,7 +812,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     (..., B, conv - 1, 2 G N) in the model dtype, the tail layers' under
     "ssm_tail" / "conv_x_tail" / "conv_bc_tail" (tail, B, ...).  The
     hybrid adds its shared block's K/V, one per site: "shared_k" /
-    "shared_v" (n_sites, B, Hkv, T, hd)."""
+    "shared_v" (n_sites, B, Hkv, T, hd).  The encoder-decoder adds every
+    decoder layer's cross K/V over the encoder's frames, "cross_k" /
+    "cross_v" (n_layers, B, encoder_seq, Hkv, hd), as the JAX package.
+
+    ``device="meta"`` gives the same tree without allocating (the port's
+    form of ``ShapeDtypeStruct`` stand-ins, :mod:`repro_torch.configs.
+    shapes`)."""
     _check_whole_model(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
@@ -818,6 +862,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         else:
             for nm in (f"k{j}", f"v{j}"):
                 cache[nm] = torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.hd)
+        cache["cross_k"] = mk(shape)
+        cache["cross_v"] = mk(shape)
     return cache
 
 
@@ -946,6 +995,106 @@ def _shared_block(cfg, params, x, emb0, positions, *, site: int, cache,
     return x + h2 @ p["proj"]
 
 
+def _attend_all(cfg, q, k, v, *, plain: bool = False, lens=None):
+    """Non-causal attention of q (B, Sq, Hq, D) over every row of k / v
+    (B, Skv, Hkv, D) -> (B, Sq, Hq, D): the encoder's self-attention and
+    the decoder's cross attention.  A decode step (``lens``, the (B,)
+    int32 key counts, all Skv) runs the flash-decode kernel, anything else
+    the flash-attention kernel with ``causal=False``; ``plain`` (training)
+    the plain form.  Both kernels read k / v through ``transpose(1, 2)``,
+    no copy."""
+    if plain:
+        b, sq = q.shape[:2]
+        qpos = torch.arange(sq, device=q.device)[None]
+        kvpos = torch.arange(k.shape[1], device=q.device)[None]
+        return L.attention(q, k, v, q_positions=qpos, kv_positions=kvpos,
+                           causal=False, attn_softcap=cfg.attn_softcap)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    if lens is not None:
+        out = K.decode_attention(q[:, 0], kh, vh, lens,
+                                 softcap=cfg.attn_softcap)
+        return out[:, None]
+    out = K.flash_attention(q.transpose(1, 2), kh, vh, causal=False,
+                            softcap=cfg.attn_softcap)
+    return out.transpose(1, 2)
+
+
+def _encode(cfg, params, enc_embeds, *, plain: bool = False):
+    """The encoder over frame embeddings (B, S_enc, d): the learned
+    ``enc_pos`` added, then per layer pre-norm non-causal self-attention
+    (:func:`_attend_all`) and the MLP, each with its residual, and the
+    final norm."""
+    x = enc_embeds.to(torch_dtype(cfg))
+    b, s = x.shape[:2]
+    x = x + params["enc_pos"][None, :s]
+    zero = torch.zeros((), dtype=torch.int32, device=x.device)
+    positions = _positions_from(zero, b, s)
+    for li in range(cfg.encoder_layers):
+        p = _pick(params["enc_blocks"], li)
+        h = L.apply_norm(cfg, p["ln1"], x, plain=plain)
+        q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, plain=plain)
+        x = x + L.attn_out(cfg, p["attn"],
+                           _attend_all(cfg, q, k, v, plain=plain))
+        x = _apply_ffn(cfg, p, x, "dense", plain=plain)
+    return L.apply_norm(cfg, params["enc_final_norm"], x, plain=plain)
+
+
+def _encdec_decoder(cfg, params, x, positions, enc, *, cache, cur_len,
+                    route: Optional[str] = None, remat: bool = False):
+    """The encoder-decoder's decoder: per layer, self-attention over the
+    stacked cache (its "k0"/"v0", int8 with scales where the config asks)
+    along ``route``, then cross attention (its own pre-norm "ln" and
+    projections) over the encoder's keys, then the MLP.
+
+    * prefill with frames (``enc`` and ``cache``): each layer's cross K/V
+      are projected from ``enc`` once and written into the cache's
+      ``cross_k`` / ``cross_v`` in place;
+    * a step without frames (``enc`` None): the cached cross K/V are read,
+      one query a row through the flash-decode kernel;
+    * training (``cache`` None): the cross K/V are recomputed from
+      ``enc`` and everything runs the plain forms, each layer under
+      activation checkpointing where ``remat``."""
+    plain = cache is None
+    b, s = x.shape[:2]
+    lens = None
+    if enc is None and s == 1:
+        lens = torch.full((b,), cache["cross_k"].shape[2],
+                          dtype=torch.int32, device=x.device)
+    if enc is not None:
+        zero = torch.zeros((), dtype=torch.int32, device=x.device)
+        encpos = _positions_from(zero, enc.shape[0], enc.shape[1])
+    keys = ("k0", "v0", "ks0", "vs0") if cfg.kv_dtype == "int8" \
+        else ("k0", "v0")
+
+    def layer(x, li, p, pc):
+        if plain:
+            x = _attn_layer_train(cfg, p, x, positions, "dense")
+        else:
+            x = _apply_attn_layer_stacked(
+                cfg, p, x, positions, kind="dense",
+                stacks=tuple(cache[k] for k in keys), li=li,
+                cur_len=cur_len, route=route)
+        hx = L.apply_norm(cfg, pc["ln"], x, plain=plain)
+        q, ck, cv = L.gqa_qkv(cfg, pc["attn"], hx, positions, plain=plain)
+        if enc is None:
+            ck, cv = cache["cross_k"][li], cache["cross_v"][li]
+        else:
+            _, ck, cv = L.gqa_qkv(cfg, pc["attn"], enc, encpos, plain=plain)
+            if not plain:
+                cache["cross_k"][li].copy_(ck)
+                cache["cross_v"][li].copy_(cv)
+        out = _attend_all(cfg, q, ck, cv, plain=plain, lens=lens)
+        x = x + L.attn_out(cfg, pc["attn"], out)
+        return _apply_ffn(cfg, p, x, "dense", plain=plain)
+
+    if remat:
+        layer = _checkpointed(layer)
+    for li in range(cfg.n_layers):
+        x = layer(x, li, _pick(params["blocks"], li)["pos0"],
+                  _pick(params["cross"], li))
+    return x
+
+
 def _checkpointed(fn):
     """``fn`` under activation checkpointing: its activations are
     recomputed in the backward instead of kept, as the JAX package's
@@ -1012,18 +1161,27 @@ def _mamba_trunk(cfg, params, x, *, cache, positions=None, cur_len=None,
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
             all_logits: bool = False) -> Tuple[Dict, torch.Tensor]:
-    """Process ``batch["tokens"]`` (B, S) at ``cache["len"]``, writing the
-    stacked cache (or the SSM / hybrid state) in place.  Returns (cache,
-    logits): (B, V) for the last position, or (B, S, V) with
-    ``all_logits``."""
+    """Process ``batch["tokens"]`` (B, S) — or the VLM's ``"embeds"``
+    (B, S, d) (:func:`embed_inputs`) — at ``cache["len"]``, writing the
+    stacked cache (or the SSM / hybrid state) in place.  An
+    encoder-decoder batch may carry ``"enc_embeds"`` (B, encoder_seq, d):
+    the frames are encoded and every layer's cross K/V cached; without
+    them the cached cross K/V are read.  Returns (cache, logits): (B, V)
+    for the last position, or (B, S, V) with ``all_logits``."""
     _check_whole_model(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
     cur_len = cache["len"]
     positions = _positions_from(cur_len, b, s)
     x = _add_learned_pos(cfg, params, x, positions)
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":
+        enc = None
+        if "enc_embeds" in batch:
+            enc = _encode(cfg, params, batch["enc_embeds"])
+        x = _encdec_decoder(cfg, params, x, positions, enc, cache=cache,
+                            cur_len=cur_len,
+                            route=attention_route(cur_len, s))
+    elif cfg.family == "ssm":
         x = _mamba_trunk(cfg, params, x, cache=cache)
     elif cfg.family == "hybrid":
         x = _mamba_trunk(cfg, params, x, cache=cache, positions=positions,
@@ -1099,22 +1257,29 @@ def _transformer_trunk_train(cfg, params, x, positions):
 
 def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
                   return_aux: bool = False):
-    """Full causal forward over ``batch["tokens"]`` (B, S) -> logits
-    (B, S, V) fp32, and with ``return_aux`` the MoE load-balancing term
-    (a scalar, 0 without experts).
+    """Full causal forward over ``batch["tokens"]`` (B, S) — the VLM's
+    ``"embeds"`` (B, S, d) in their place, the encoder-decoder's
+    ``"enc_embeds"`` (B, encoder_seq, d) beside them — -> logits (B, S,
+    V) fp32, and with ``return_aux`` the MoE load-balancing term (a
+    scalar, 0 without experts).
 
     No cache is read or written and no kernel is reached: every operation
     is a plain PyTorch one that autograd differentiates.  Dense and MoE
-    transformers (Gemma-2's local/global layers and softcaps, MLA), SSM
-    and hybrid trunks; encoder-decoder and VLM families raise."""
+    transformers (Gemma-2's local/global layers and softcaps, MLA), the
+    VLM, the encoder-decoder (cross K/V recomputed per layer), SSM and
+    hybrid trunks."""
     _check_whole_model(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
     positions = _positions_from(zero, b, s)
     x = _add_learned_pos(cfg, params, x, positions)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "encdec":
+        enc = _encode(cfg, params, batch["enc_embeds"], plain=True)
+        x = _encdec_decoder(cfg, params, x, positions, enc, cache=None,
+                            cur_len=None, remat=cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    elif cfg.family in ("ssm", "hybrid"):
         x = _mamba_trunk(cfg, params, x, cache=None, positions=positions,
                          remat=cfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -10,8 +10,9 @@ scan-stacked whole model behind the same surface:
     ScanResidentBackend  the stacked whole model (:func:`repro_torch.models.
                       model.prefill` / ``decode_step``) over the stacked
                       cache: every transformer family the whole model runs
-                      (Gemma-2's local/global layers, MLA, MoE, int8 KV),
-                      its linears not pluggable.  The batcher's default.
+                      (Gemma-2's local/global layers, MLA, MoE, int8 KV,
+                      the VLM, the encoder-decoder), its linears not
+                      pluggable.  The batcher's default.
 
     ResidentBackend   weights live in device memory; the forward runs
                       eagerly layer by layer, each MLP's first stage
@@ -156,7 +157,8 @@ class ScanResidentBackend:
     :func:`~repro_torch.models.model.decode_step` over the stacked params —
     the whole model the one-shot :class:`repro_torch.serving.engine.Generator`
     runs.  Unlike :class:`ResidentBackend` it serves every transformer
-    family (Gemma-2's local/global layers, MLA, MoE, int8 KV), but its
+    family (Gemma-2's local/global layers, MLA, MoE, int8 KV, the VLM's
+    patch embeddings, the encoder-decoder's frames and cross K/V), but its
     per-linear execution is not pluggable and its cache is not pageable;
     the batch axis of its cache leaves is 1 (stack-major).  The params are
     used as they are (moved to ``device`` only where they lie elsewhere).
@@ -459,8 +461,15 @@ class HeteGenBackend:
 
     def prefill(self, batch: Dict, cache: Dict
                 ) -> Tuple[Dict, torch.Tensor]:
+        """A prompt's forward under the "prefill" phase plan, tuned to its
+        (B, S): of ``batch["tokens"]``, or of the VLM's patch embeddings
+        ``batch["embeds"]`` (B, S, d), which then take the HeteGen split
+        like any prompt."""
         if self.phase_plans:
-            b, s = batch["tokens"].shape
+            if "tokens" in batch:
+                b, s = batch["tokens"].shape
+            else:
+                b, s = batch["embeds"].shape[:2]
             self._ensure_prefill_plan(b, s)
             self._phase = "prefill"
         try:

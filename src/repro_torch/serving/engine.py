@@ -90,7 +90,10 @@ class Generator:
                  request_keys: Optional[List[int]] = None
                  ) -> GenerateResult:
         """Generate ``max_new_tokens`` per row of ``batch["tokens"]``
-        (B, S).
+        (B, S), or of the VLM's ``batch["embeds"]`` (B, S, d) in their
+        place; an encoder-decoder's ``batch["enc_embeds"]`` (B,
+        encoder_seq, d) go beside the tokens to the prefill.  Every leaf
+        moves to the model's device (tokens as int32).
 
         ``sampling`` switches to request-level sampling: one
         :class:`SamplingParams` per row, drawn under per-request random
@@ -98,8 +101,10 @@ class Generator:
         when omitted).  Without it the constructor's whole-batch sampler
         runs, keyed by ``seed``."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        b, s = tokens.shape
+        if "tokens" in batch:
+            b, s = batch["tokens"].shape
+        else:
+            b, s = batch["embeds"].shape[:2]
         packed = None
         all_greedy = False
         if sampling is not None:
@@ -116,7 +121,10 @@ class Generator:
         total = max_len or (s + max_new_tokens)
         be = self.backend
         dev = self._device()
-        tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+        feed = {k: torch.as_tensor(v, device=dev,
+                                   dtype=torch.int32 if k == "tokens"
+                                   else None)
+                for k, v in batch.items()}
         if sampling is not None and not all_greedy:
             packed = pack_sampling(sampling, device=dev)
         key = seed_key(seed)
@@ -135,10 +143,9 @@ class Generator:
 
         t0 = time.perf_counter()
         if be is None:
-            cache, logits = M.prefill(cfg, self.params, {"tokens": tokens},
-                                      cache)
+            cache, logits = M.prefill(cfg, self.params, feed, cache)
         else:
-            cache, logits = be.prefill({"tokens": tokens}, cache)
+            cache, logits = be.prefill(feed, cache)
         tok = sample(logits, 0)
         wait_for(tok)
         t1 = time.perf_counter()

@@ -17,7 +17,10 @@ same seeded numpy inputs, at ``reduced()`` sizes:
   ``LLM(paged=False)`` against the JAX package's batcher, token for
   token, with chunked admissions and a priority preemption whose resume
   merges the slot along ``cache_batch_axis`` 1;
-* the families the port does not run still raise.
+* every configuration the JAX package registers has the same fields in
+  the port, and ``ASSIGNED_ARCHS`` is the same;
+* what the port refuses as the JAX package does: the dense batcher takes
+  no hybrid and no encoder-decoder, the scan-stacked cache no pages.
 
 The zero-initialised parameters that would hide a mechanism (Gemma's
 ``(1+w)`` norm scales, Zamba2's LoRA ``b``) are drawn at random first, on
@@ -32,13 +35,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config, reduced
+from repro.configs import ASSIGNED_ARCHS, get_config, list_archs, reduced
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.serving.api import LLM as JLLM
 from repro.serving.batcher import ContinuousBatcher as JCB
 from repro.serving.engine import Generator as JGen
+from repro_torch.configs import ASSIGNED_ARCHS as T_ASSIGNED_ARCHS
 from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import list_archs as t_list_archs
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as TL
@@ -118,12 +123,17 @@ def _close(got, want, rel):
                                atol=rel * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", list_archs())
 def test_port_configs_mirror_the_jax_package(name):
     assert dataclasses.asdict(t_get_config(name)) \
         == dataclasses.asdict(get_config(name))
     assert dataclasses.asdict(t_reduced(t_get_config(name))) \
         == dataclasses.asdict(reduced(get_config(name)))
+
+
+def test_port_registry_is_the_jax_packages():
+    assert t_list_archs() == list_archs()
+    assert T_ASSIGNED_ARCHS == ASSIGNED_ARCHS
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -351,12 +361,14 @@ def test_paged_batcher_takes_a_paged_backend():
 
 
 def test_unported_families_still_raise():
-    for name in ("whisper-small", "llava-next-mistral-7b"):
-        cfg = reduced(get_config(name))
-        with pytest.raises(NotImplementedError):
-            TM.init_params(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError):
-            TM.init_cache(cfg, 1, 8, device="cpu")
+    # the batcher takes no encoder-decoder (its cross K/V are per request),
+    # as the JAX package's refuses it
+    cfg = _cfg("whisper-small")
+    tp = TM.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ContinuousBatcher(cfg, tp, device="cpu")
+    with pytest.raises(NotImplementedError):
+        JCB(cfg, None)
     # the batcher takes transformer caches only; the hybrid serves one-shot
     cfg = _cfg("zamba2-1.2b")
     _, tp = _params(cfg)

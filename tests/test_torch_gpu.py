@@ -232,10 +232,11 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                           k.transpose(2, 3), lens)
     # a bf16 q runs only the split kernel: another head dim, or a row off
     # 16-byte alignment, raises instead of taking another kernel
-    kb = torch.zeros((2, 2, 8, 48), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        decode_attention.decode_attention(q[..., :48].bfloat16(), kb, kb,
-                                          lens)
+    kb = torch.zeros((2, 2, 8, 72), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                      # D 72: no kernel
+        decode_attention.decode_attention(
+            torch.zeros((2, 4, 72), dtype=torch.bfloat16, device=cuda), kb,
+            kb, lens)
     qb = torch.zeros((2, 4, 72), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         decode_attention.decode_attention(qb[..., 4:68], k.bfloat16(),
@@ -514,13 +515,15 @@ def test_flash_attention_bf16_tensor_cores(cuda, hq, hkv, d, s, window,
 
 
 def test_flash_attention_refuses_unsupported_operands(cuda):
-    """bf16 takes only the head dims it is built for and rows in 16-byte
-    steps; it raises on anything else and never falls back."""
+    """bf16 takes only the head dims it is built for (multiples of 16 up
+    to 256) and rows in 16-byte steps; it raises on anything else and
+    never falls back."""
     from repro_torch.kernels import flash_attention as fa
     bf = torch.bfloat16
-    q = torch.zeros((1, 4, 8, 96), device=cuda, dtype=bf)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, q[:, :2], q[:, :2])           # D 96
+    for d in (72, 320):
+        q = torch.zeros((1, 4, 8, d), device=cuda, dtype=bf)
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, q[:, :2], q[:, :2])       # D 72, 320
     buf = torch.zeros((1, 2, 8, 68), device=cuda, dtype=bf)
     k = buf[..., :64]                                       # row stride 68
     q = torch.zeros((1, 4, 8, 64), device=cuda, dtype=bf)
@@ -697,13 +700,14 @@ def test_paged_prefill_page_sizes(cuda, ps, dtype):
 
 def test_paged_prefill_refuses_unsupported_operands(cuda):
     """One kernel per q dtype and no fallback: a bf16 q at a head dim
-    outside ``BF16_HEAD_DIMS`` (48, 96), an fp32 q at a head dim that is
-    no multiple of 4, or of 16 over int8 pages, raises ``ValueError``."""
+    that is no multiple of 16 up to 256 (72, 320), an fp32 q at a head dim
+    that is no multiple of 4, or of 16 over int8 pages, raises
+    ``ValueError``."""
     from repro_torch.kernels import paged_prefill
     gen = torch.Generator(device=cuda).manual_seed(3)
     off = torch.zeros(1, dtype=torch.int32, device=cuda)
-    for d, dtype, q8 in ((48, torch.bfloat16, False),
-                         (96, torch.bfloat16, True),
+    for d, dtype, q8 in ((72, torch.bfloat16, False),
+                         (320, torch.bfloat16, True),
                          (6, torch.float32, False),
                          (20, torch.float32, True)):
         kp, vp, ks, vs, bt = _pool(gen, 1, 2, 2, 16, d, q8, cuda)
@@ -988,9 +992,9 @@ def test_paged_decode_bf16_split_kernel(cuda, group, ps, q8):
                        got)
 
 
-@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("d", [72, 320])
 def test_paged_decode_bf16_refuses_head_dims(cuda, d):
-    """A bf16 q at a head dim outside ``BF16_HEAD_DIMS`` raises
+    """A bf16 q at a head dim that is no multiple of 16 up to 256 raises
     ``ValueError`` before any launch, over bf16 and int8 pages alike."""
     from repro_torch.kernels import paged_attention
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -1499,3 +1503,186 @@ def test_moe_layer_on_card_equals_cpu(cuda, arch):
         got = L.moe(cfg, pc, xs.to(cuda)).cpu()
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# the bf16 attention kernels at every head dim in multiples of 16 (192:
+# Nemotron-4-340B's, at its GQA group of 12), and bf16 matmul with GELU and
+# squared ReLU (Whisper's and Nemotron's MLPs)
+# ---------------------------------------------------------------------------
+
+NEW_HEAD_DIMS = [48, 80, 96, 112, 144, 160, 176, 192, 208, 224, 240]
+
+
+def _heads(d):
+    """Nemotron's 96 / 8 heads cut to one kv-head's group of 12 at its
+    head dim; a group of 4 elsewhere."""
+    return (24, 2) if d == 192 else (8, 2)
+
+
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+def test_flash_attention_bf16_head_dims(cuda, d):
+    """bf16 flash attention, causal over a strided cache view and
+    non-causal with Sq != Skv (Whisper's cross attention: a 4-token
+    prompt over 1500 frames), within ``ref.flash_attention_limit``, one
+    launch each."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    hq, hkv = _heads(d)
+    for causal, sq, skv in ((True, 77, 77), (False, 4, 1500),
+                            (False, 130, 130)):
+        k, v, _, _ = _dense_cache(gen, 2, hkv, skv + 8, d, torch.bfloat16,
+                                  "bhtd", cuda)
+        k, v = k[:, :, :skv], v[:, :, :skv]
+        q = torch.randn((2, sq, hq, d), generator=gen, device=cuda) \
+            .to(torch.bfloat16).transpose(1, 2)
+        before = ops.launch_counts()["flash_attention"]
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert ops.launch_counts()["flash_attention"] == before + 1
+        want = ref.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _assert_within(got, want, ref.flash_attention_limit(
+            q, k, v, want, causal=causal))
+
+
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+def test_decode_attention_bf16_head_dims(cuda, d, kvdt):
+    """The split-KV decode over a bf16 or int8 cache in both layouts at
+    kv_len 0, 1, 65, 527 and T: within ``ref.decode_attention_limit``,
+    one launch, a row with no key writing 0."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(d + 1)
+    hq, hkv = _heads(d)
+    t = 528
+    lens = [0, 1, 65, t - 1, t]
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for layout in ("bhtd", "bthd"):
+        k, v, ks, vs = _dense_cache(gen, len(lens), hkv, t, d, kvdt, layout,
+                                    cuda)
+        q = torch.randn((len(lens), hq, d), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        kw = dict(k_scale=ks, v_scale=vs)
+        before = ops.launch_counts()["decode_attention"]
+        got = ops.decode_attention(q, k, v, kl, **kw)
+        assert ops.launch_counts()["decode_attention"] == before + 1
+        want = ref.decode_attention(q, k, v, kl, **kw)
+        torch.cuda.synchronize()
+        _assert_within(got, want,
+                       ref.decode_attention_limit(q, k, v, kl, want, **kw))
+        assert not bool(got[0].float().any())
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+def test_paged_kernels_bf16_head_dims(cuda, d, q8):
+    """bf16 paged prefill (a chunk at an offset and one from 0, a
+    window) and paged decode (kv_len 1, 37 and 3001) over bf16 or int8
+    pages, within their ``ref.*_limit``, one launch each."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(d + 2 * q8)
+    hq, hkv = _heads(d)
+    ps, s, offs = 16, 37, (0, 21)
+    nb = -(-3001 // ps) + 1
+    kp, vp, ks, vs, bt = _pool(gen, 3, hkv, nb, ps, d, q8, cuda)
+    if not q8:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    q = torch.randn((2, hq, s, d), generator=gen, device=cuda).bfloat16()
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    for window in (None, 9):
+        kw = dict(k_scale=ks, v_scale=vs, window=window)
+        before = ops.launch_counts()["paged_prefill_attention"]
+        got = ops.paged_prefill_attention(q, kp, vp, bt[:2], off, **kw)
+        assert ops.launch_counts()["paged_prefill_attention"] == before + 1
+        want = ref.paged_prefill_attention(q, kp, vp, bt[:2], off, **kw)
+        limit = ref.paged_prefill_attention_limit(q, kp, vp, bt[:2], off,
+                                                  want, **kw)
+        torch.cuda.synchronize()
+        _assert_within(got, want, limit)
+    qd = torch.randn((3, hq, d), generator=gen, device=cuda).bfloat16()
+    ln = torch.tensor([1, 37, 3001], dtype=torch.int32, device=cuda)
+    kw = dict(k_scale=ks, v_scale=vs)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(qd, kp, vp, bt, ln, **kw)
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    want = ref.paged_decode_attention(qd, kp, vp, bt, ln, **kw)
+    limit = ref.paged_decode_attention_limit(qd, kp, vp, bt, ln, want, **kw)
+    torch.cuda.synchronize()
+    _assert_within(got, want, limit)
+
+
+@pytest.mark.parametrize("d", [72, 320])
+def test_bf16_attention_refuses_head_dims(cuda, d):
+    """A bf16 head dim that is no multiple of 16, or above 256, raises
+    ``ValueError`` in every bf16 attention kernel, before any launch."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    bf = torch.bfloat16
+    before = ops.launch_counts()
+    q = torch.zeros((1, 4, 8, d), device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q[:, :2], q[:, :2])
+    k = torch.zeros((1, 2, 8, d), device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q[:, :, 0], k, k,
+                             torch.ones(1, dtype=torch.int32, device=cuda))
+    kp, vp, _, _, bt = _pool(gen, 1, 2, 2, 16, d, False, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.paged_prefill_attention(q, kp.bfloat16(), vp.bfloat16(), bt,
+                                    torch.zeros(1, dtype=torch.int32,
+                                                device=cuda))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.paged_decode_attention(q[:, :, 0].contiguous(), kp.bfloat16(),
+                                   vp.bfloat16(), bt,
+                                   torch.ones(1, dtype=torch.int32,
+                                              device=cuda))
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("act,bias", [("gelu", True), ("relu2", False)])
+@pytest.mark.parametrize("m", [4, 130])
+def test_matmul_bf16_model_activations(cuda, m, act, bias):
+    """bf16 ``matmul`` at Whisper's MLP (768 -> 3072, bias, GELU) and a
+    Nemotron-like squared ReLU without bias, at decode rows (4: the
+    M <= 48 route) and prefill rows (130: the wgmma kernel), within
+    ``ref.matmul_limit``, the same bits from a second call."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    k, n = (768, 3072) if act == "gelu" else (1536, 6144)
+    x, (w,) = _bf16_operands(gen, m, k, n, 0, cuda, weights=1)
+    b = torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16) \
+        if bias else None
+    before = ops.launch_counts()["matmul"]
+    got = ops.matmul(x, w, b, activation=act)
+    assert ops.launch_counts()["matmul"] == before + 1
+    want = ref.matmul(x, w, b, activation=act)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.matmul_limit(x, w, want, b, activation=act))
+    assert torch.equal(ops.matmul(x, w, b, activation=act), got)
+
+
+@pytest.mark.parametrize("m", [4, 130])
+def test_matmul_bf16_long_k_folds_accumulator(cuda, m):
+    """At Nemotron-4's K = 18432 the tensor cores' truncating accumulation
+    alone lies up to 5.5 units of ``ref._product_bound`` from the exact
+    product (cuBLAS's too); the kernels fold their accumulator into an
+    fp32 total every 512 columns of K, so the sum stays within one unit
+    where the output is small enough for bf16 to show it, and the squared
+    ReLU's output within ``ref.matmul_limit``."""
+    import math
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(18432 + m)
+    k, n = 18432, 2048
+    x, (w,) = _bf16_operands(gen, m, k, n, 0, cuda, weights=1)
+    y = ops.matmul(x, w).double()
+    xd, wd = x.double(), w.double()
+    z = xd @ wd
+    unit = 2.0 ** -24 * math.sqrt(k) * (((xd * xd) @ (wd * wd)).sqrt()
+                                       + z.abs())
+    small = z.abs() < 2e-4                   # bf16 resolves the fp32 sum
+    assert int(small.sum()) > 0
+    assert float(((y - z).abs() / unit)[small].max()) <= 1.0
+    got = ops.matmul(x, w, activation="relu2")
+    want = ref.matmul(x, w, activation="relu2")
+    _assert_within(got, want, ref.matmul_limit(x, w, want,
+                                               activation="relu2"))

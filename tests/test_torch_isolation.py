@@ -50,7 +50,11 @@ MUST_SCAN = ("repro_torch.serving.speculative",
              "repro_torch.checkpoint.manager",
              "repro_torch.distributed.fault_tolerance",
              "repro_torch.core.sim",
-             "repro_torch.launch.train")
+             "repro_torch.launch.train",
+             "repro_torch.configs.whisper_small",
+             "repro_torch.configs.llava_next_mistral_7b",
+             "repro_torch.configs.nemotron_4_340b",
+             "repro_torch.configs.shapes")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -91,7 +95,7 @@ def _import_tops(path):
 
 
 @pytest.mark.parametrize("tool", ["ab_kernels.py", "matmul_variants.py",
-                                  "train_profile.py"])
+                                  "train_profile.py", "matmul_sum_units.py"])
 def test_card_tools_import_neither_jax_nor_repro(tool):
     """The card-side measurement tools run where only the port is
     installed: they import no ``jax`` and nothing of ``repro``."""

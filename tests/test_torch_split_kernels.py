@@ -304,17 +304,21 @@ def _padded(shape, dtype, pad, offset=0):
 
 @pytest.mark.parametrize("case,ok", [
     ("bf16 d 128", True), ("int8 d 64", True), ("bthd layout", True),
-    ("d 48", False), ("d 8", False), ("q off 16 bytes", False),
+    ("d 48", True), ("d 192", True), ("int8 d 80", True),
+    ("d 8", False), ("d 72", False), ("d 320", False),
+    ("q off 16 bytes", False),
     ("bf16 token stride 68", False), ("int8 token stride 72", False),
     ("v off 16 bytes", False)])
 def test_decode_refuses_bf16_shapes_off_the_split_kernel(case, ok):
-    """A bf16 q has one kernel, the split one: head dims in
-    ``BF16_HEAD_DIMS`` with every base pointer and stride but the last a
-    multiple of 16 bytes.  Anything else is refused with ``ValueError``
-    (on the card before the launch) rather than run by another kernel."""
+    """A bf16 q has one kernel, the split one: head dims in multiples of
+    16 from 16 to 256 (192 is Nemotron-4's) with every base pointer and
+    stride but the last a multiple of 16 bytes.  Anything else is refused
+    with ``ValueError`` (on the card before the launch) rather than run by
+    another kernel."""
     from repro_torch.kernels.decode_attention import check_bf16_operands
     b, hq, hkv, t = 2, 8, 2, 40
-    d = {"d 48": 48, "d 8": 8, "int8 d 64": 64}.get(case, 128)
+    d = {"d 48": 48, "d 8": 8, "int8 d 64": 64, "d 192": 192,
+         "int8 d 80": 80, "d 72": 72, "d 320": 320}.get(case, 128)
     kv_dt = torch.int8 if case.startswith("int8") else torch.bfloat16
     q = torch.zeros((b, hq, d), dtype=torch.bfloat16)
     k = torch.zeros((b, hkv, t, d), dtype=kv_dt)
@@ -702,16 +706,17 @@ def test_paged_f32_emulation_matches_pallas(hq, hkv, ps, q8, softcap):
 
 @pytest.mark.parametrize("case,ok", [
     ("bf16 d 128", True), ("int8 d 64", True), ("bf16 d 16", True),
-    ("d 48", False), ("d 96", False), ("q off 16 bytes", False)])
+    ("d 48", True), ("d 96", True), ("int8 d 192", True),
+    ("d 72", False), ("d 320", False), ("q off 16 bytes", False)])
 def test_paged_decode_refuses_bf16_shapes_off_the_split_kernel(case, ok):
     """A bf16 q in ``paged_decode_attention`` has one kernel, the split
-    one, and applies the dense decode's rule: head dims in
-    ``BF16_HEAD_DIMS``, every base pointer and stride but the last a
-    multiple of 16 bytes; anything else is refused with ``ValueError``."""
+    one, and applies the dense decode's rule: head dims in multiples of 16
+    from 16 to 256, every base pointer and stride but the last a multiple
+    of 16 bytes; anything else is refused with ``ValueError``."""
     from repro_torch.kernels.decode_attention import check_bf16_operands
     b, hq, hkv, ps, n_pages = 2, 8, 2, 16, 5
-    d = {"d 48": 48, "d 96": 96, "int8 d 64": 64, "bf16 d 16": 16}.get(
-        case, 128)
+    d = {"d 48": 48, "d 96": 96, "int8 d 64": 64, "bf16 d 16": 16,
+         "int8 d 192": 192, "d 72": 72, "d 320": 320}.get(case, 128)
     kv_dt = torch.int8 if case.startswith("int8") else torch.bfloat16
     q = torch.zeros((b, hq, d), dtype=torch.bfloat16)
     if case == "q off 16 bytes":

@@ -12,6 +12,10 @@ and the same seeded numpy batch, for every family the port trains at
   1e-4 of each leaf's largest |g|, a leaf that is exactly zero in the
   reference (an expert no token reached) exactly zero here;
 * ``remat=True`` gradients equal to ``remat=False``'s within 1e-6;
+* reduced Whisper (frames beside the tokens) and LLaVA (patch embeddings
+  in place of tokens), the batches ``configs.shapes.input_specs`` lays
+  out: logits, loss and gradients against ``jax.grad``, and an
+  accumulating ``make_train_step`` over them;
 * the training path reaches no ``kernels/ops`` wrapper, and a wrapper on
   the CUDA route refuses an input that requires grad under grad mode.
 """
@@ -204,12 +208,95 @@ def test_remat_gradients_equal(name):
         assert float((a - b).abs().max()) <= 1e-6 * max(scale, 1e-30), path
 
 
+EMBEDS_FAMILIES = {"encdec": "whisper-small",
+                   "vlm": "llava-next-mistral-7b"}
+
+
+def embeds_batch(cfg, b=2, s=SEQ, seed=1):
+    """``input_specs``'s train batch with seeded values: the VLM's patch
+    embeddings in place of tokens, the encoder-decoder's frames beside
+    them, and next-token labels."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    batch = {"labels": t[:, 1:]}
+    if cfg.embeds_input:
+        batch["embeds"] = rng.standard_normal((b, s, cfg.d_model)) \
+            .astype(np.float32)
+    else:
+        batch["tokens"] = t[:, :-1]
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 @pytest.mark.parametrize("family_name", ["encdec", "vlm"])
 def test_unported_families_raise(family_name):
-    cfg = dataclasses.replace(get_config("tiny"), family=family_name)
-    _, tp = family_params(get_config("tiny"))
-    with pytest.raises(NotImplementedError):
-        TM.forward_train(cfg, tp, _tbatch(lm_batch(cfg.vocab_size)))
+    """The two families whose ``forward_train`` raised until the port ran
+    them (the name is kept), now trained like the JAX package: reduced
+    Whisper (frames beside the tokens, cross K/V recomputed per layer)
+    and LLaVA (patch embeddings in place of tokens) — logits within 1e-4
+    of the largest |logit|, loss within 1e-5 relative, every gradient
+    leaf within 1e-4 of its largest |g| (the VLM's token embedding, which
+    the loss does not reach, None here and exactly 0 in the reference),
+    and the same under ``remat``."""
+    cfg = family_cfg(EMBEDS_FAMILIES[family_name])
+    jp, tp = family_params(cfg)
+    batch = embeds_batch(cfg)
+    want = np.asarray(jax.jit(
+        lambda p, b: JM.forward_train(cfg, p, b))(jp, _jbatch(batch)))
+    got = TM.forward_train(cfg, tp, _tbatch(batch))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=LOGIT_TOL * np.abs(want).max())
+    loss_j, _, grads_j = _jax_grads(cfg, jp, batch)
+    want_paths = _paths(jtu.tree_map(np.asarray, grads_j))
+    for remat in (False, True):
+        loss, _, grads = TT.loss_and_grads(
+            dataclasses.replace(cfg, remat=remat), tp, _tbatch(batch))
+        _close_rel(float(loss), loss_j, LOSS_TOL)
+        got_paths = _paths(grads)
+        assert [p for p, _ in got_paths] == [p for p, _ in want_paths]
+        top = max(np.abs(w).max() for _, w in want_paths)
+        for (path, w), (_, g) in zip(want_paths, got_paths):
+            if g is None:
+                assert path == ("embed",) and cfg.embeds_input, path
+                assert not w.any(), path
+                continue
+            if path[-1] == "bk":
+                # self, cross and encoder attention alike: a key bias
+                # adds one constant to a row's scores, which the softmax
+                # cancels, so its exact gradient is 0 (rounding noise)
+                assert np.abs(g.numpy()).max() <= 1e-5 * top, path
+                assert np.abs(w).max() <= 1e-5 * top, path
+                continue
+            np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                       atol=GRAD_TOL * np.abs(w).max(),
+                                       err_msg=str(path))
+
+
+@pytest.mark.parametrize("family_name", ["encdec", "vlm"])
+def test_train_step_takes_embeds_batches(family_name):
+    """``make_train_step`` with accumulation over an ``embeds`` /
+    ``enc_embeds`` batch of numpy leaves: the loss equals the mean of
+    ``loss_and_grads``' over the two microbatches and every parameter
+    with a gradient moves."""
+    cfg = family_cfg(EMBEDS_FAMILIES[family_name])
+    batch = embeds_batch(cfg, b=4, s=16, seed=2)
+    tcfg = TT.TrainConfig(accum_steps=2, warmup=1, total_steps=4)
+    state = TT.init_state(cfg, tcfg, 0, device="cpu")
+    before = {k: v.clone() for k, v in _paths(state["params"])}
+    want = np.mean([float(TT.loss_and_grads(
+        cfg, state["params"],
+        _tbatch({k: v[i:i + 2] for k, v in batch.items()}))[0])
+        for i in (0, 2)])
+    step, _ = TT.make_train_step(cfg, tcfg)
+    state, metrics = step(state, batch)
+    assert int(state["step"]) == 1
+    _close_rel(float(metrics["loss"]), float(want), LOSS_TOL)
+    for path, p in _paths(state["params"]):
+        if path[-1] == "bk" or (path == ("embed",) and cfg.embeds_input):
+            continue          # an exact gradient of 0 (see above), unused
+        assert not torch.equal(p, before[path]), path
 
 
 KERNEL_WRAPPERS = ["paged_decode_attention", "paged_prefill_attention",

@@ -3,7 +3,9 @@ time per call, device time per call, and whole runs of ``chip_smoke.py``'s
 cells with each build in turn.  The kernels: ``decode_attention`` and
 ``q8_matmul`` at their decode shapes, ``q8_matmul`` at cell 3's prefill
 shapes (M 18 and 32), bf16 ``flash_attention`` at 3b's prefill,
-``gated_matmul`` at 3b's and 3e's prefill (2048, 500 and 512 rows),
+``gated_matmul`` at 3b's and 3e's prefill (2048, 500 and 512 rows) and
+at 3b's and 3l's decode (4 and 2 rows), bf16 ``matmul`` at 3l's Whisper
+and Nemotron shapes,
 ``paged_decode_attention`` under a bf16 q at 3e's decode (bf16 and int8
 pages) and under an fp32 q at cell 3's two most frequent decode shapes
 and the long-context shape (fp32 and int8 pages), fp32
@@ -263,6 +265,35 @@ def shapes(gen):
                                         torch.bfloat16)
     out.append(("ssd bf16 3d", lambda: k_ssd.ssd_chunk(
         x, dt, a, bm, cm, chunk=mamba.ssm_chunk)))
+    return out + arch_matmul_shapes(gen)
+
+
+def arch_matmul_shapes(gen):
+    """bf16 ``matmul`` at 3l's shapes (Whisper-small's MLP, 768 -> 3072
+    with bias and GELU over 6000, 16 and 4 rows; Nemotron-4-340B's, 18432
+    -> 73728 with the squared ReLU over 2048 and 4 rows) and the gated MLP
+    at the decode shapes of 3b (4 x 5120 -> 14336) and 3l's LLaVA (2 x
+    4096 -> 14336)."""
+    out = []
+    for k, n, act, bias, rows in ((768, 3072, "gelu", True, (6000, 16, 4)),
+                                  (18432, 73728, "relu2", False, (2048, 4))):
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / k ** 0.5).to(torch.bfloat16)
+        b = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16) \
+            if bias else None
+        x = torch.randn((max(rows), k), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for m in rows:
+            out.append((f"matmul bf16 {m}x{k}x{n} {act}",
+                        lambda x=x[:m], w=w, b=b, act=act:
+                        k_mm.matmul(x, w, b, activation=act)))
+    for m, k, n in ((4, 5120, 14336), (2, 4096, 14336)):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        wg, wu = ((torch.randn((k, n), generator=gen, device="cuda")
+                   / k ** 0.5).to(torch.bfloat16) for _ in range(2))
+        out.append((f"gated bf16 {m}x{k}x{n} decode",
+                    lambda x=x, wg=wg, wu=wu: k_mm.gated_matmul(
+                        x, wg, wu, activation="silu")))
     return out
 
 
