@@ -8,8 +8,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 2. build every hand-written kernel from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together), print the ``-Xptxas -v``
    register / shared-memory summary, and show with ``cuobjdump -sass``
-   that ``hete_matmul`` holds wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``), and ``ssd_chunk`` tensor-core products (``HMMA``);
+   that ``hete_matmul`` holds wgmma (``HGMMA``), TMA loads (``UTMALDG``)
+   and TMA stores (``UTMASTG``), and ``ssd_chunk`` tensor-core products
+   (``HMMA``);
 3. the first main path: OPT-6.7B at full width (d 4096, 32 heads, FFN 16384,
    vocab 50272, fp32; ``--layers`` of 32, random weights from a seed)
    served by ``LLM(paged=True, backend=HeteGenBackend(...))`` with
@@ -247,8 +248,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    (``product_ms``) and, for ``matmul``, the library call
    ``torch._addmm_activation`` (bias, product and ReLU or GELU in one
    cuBLASLt call; PyTorch has no single call for the gated function, so
-   its ``library_ms`` is null); one shape off the main path each, logged
-   only;
+   its ``library_ms`` is null); one shape off the main path each (and
+   the gated MLP at Nemotron-4's K 18432, its accumulators unfolded),
+   logged only.  Each bf16 entry's name and ``design`` key name the route of
+   ``csrc/hete_matmul.cu`` it took (:func:`matmul_design`);
 4j. every shape 3j's tally recorded for flash attention, flash-decode,
    ``gated_matmul`` and RMSNorm (Gemma-2's head dim 256 with window and
    softcap, Scout's GQA group of 5 and its qk-norms, Zamba2's shared
@@ -496,8 +499,9 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
 
 
 def check_sass():
-    """The built ``hete_matmul`` library holds wgmma (``HGMMA``) and TMA
-    loads (``UTMALDG``): the bf16 kernel above 48 rows is the Hopper one;
+    """The built ``hete_matmul`` library holds wgmma (``HGMMA``), TMA
+    loads (``UTMALDG``) and TMA stores (``UTMASTG``): the bf16 kernels
+    above 48 rows are the Hopper ones;
     the ``ssd_chunk`` library holds tensor-core products (``HMMA``): its
     bf16 route (``cuobjdump -sass`` of each library, instruction counts
     logged)."""
@@ -508,11 +512,12 @@ def check_sass():
                               capture_output=True, text=True,
                               check=True).stdout
         counts[lib] = {op: sass.count(op)
-                       for op in ("HGMMA", "UTMALDG", "HMMA")}
+                       for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
         log(f"sass {lib}: {counts[lib]}")
     check(counts["hete_matmul"]["HGMMA"] > 0
-          and counts["hete_matmul"]["UTMALDG"] > 0,
-          "hete_matmul was built without wgmma or TMA loads")
+          and counts["hete_matmul"]["UTMALDG"] > 0
+          and counts["hete_matmul"]["UTMASTG"] > 0,
+          "hete_matmul was built without wgmma, TMA loads or TMA stores")
     check(counts["ssd_chunk"]["HMMA"] > 0 or counts["ssd_chunk"]["HGMMA"] > 0,
           "ssd_chunk was built without tensor-core products")
 
@@ -3198,8 +3203,9 @@ def check_family_kernels(runs):
         for (m, k, nn, act), n in sorted(tally["gated_matmul"].items(),
                                          key=str):
             entries.append(mm_entry(
-                f"gated_matmul_{act}_{tag}_m{m}_{k}x{nn}", gen, bf, m, k,
-                nn, n, gated=True, act=act))
+                f"gated_matmul_{act}_{tag}_m{m}_{k}x{nn}_"
+                + matmul_design(bf, m, k, True), gen, bf, m, k, nn, n,
+                gated=True, act=act))
         for (m, d, plus_one), n in sorted(tally["rmsnorm"].items(),
                                           key=str):
             entries.append(rms_entry(
@@ -3316,13 +3322,15 @@ def check_arch_kernels(runs):
         for (m, k, nn, act, bias), n in sorted(tally["matmul"].items(),
                                                key=str):
             entries.append(mm_entry(
-                f"matmul_{act}_{tag}_m{m}_{k}x{nn}", gen, bf, m, k, nn, n,
+                f"matmul_{act}_{tag}_m{m}_{k}x{nn}_"
+                + matmul_design(bf, m, k, False), gen, bf, m, k, nn, n,
                 gated=False, act=act, bias=bias))
         for (m, k, nn, act), n in sorted(tally["gated_matmul"].items(),
                                          key=str):
             entries.append(mm_entry(
-                f"gated_matmul_{act}_{tag}_m{m}_{k}x{nn}", gen, bf, m, k,
-                nn, n, gated=True, act=act))
+                f"gated_matmul_{act}_{tag}_m{m}_{k}x{nn}_"
+                + matmul_design(bf, m, k, True), gen, bf, m, k, nn, n,
+                gated=True, act=act))
         for (m, d, plus_one), n in sorted(tally["rmsnorm"].items(), key=str):
             entries.append(rms_entry(f"rmsnorm_{tag}_m{m}_d{d}", gen, cfg,
                                      m, d, n, plus_one=plus_one))
@@ -3377,6 +3385,19 @@ def library_addmm(x, w, b, act, want, limit):
         log(f"library {name}: disagrees; not used")
         return None
     return call
+
+
+def matmul_design(dtype, m, k, gated):
+    """The route of ``csrc/hete_matmul.cu`` that a call takes (its
+    ``dispatch``): bf16 at 48 rows or fewer the split-K weight stream or,
+    gated, ``mma.sync`` tiles; above them the folded wgmma kernel or,
+    gated, the unfolded two-weight wgmma kernel; fp32 the CUDA-core SGEMM,
+    or at 8 rows or fewer the weight stream."""
+    if dtype == torch.float32:
+        return "simt_stream" if m <= 8 else "simt_tiled"
+    if m <= 48:
+        return "mma_sync" if gated else "splitk_stream"
+    return "wgmma" if gated else "wgmma_fold"
 
 
 def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
@@ -3451,8 +3472,10 @@ def mm_entry(name, gen, dtype, m, k, n, launches, *, gated, act,
         launches, got, want, limit, kernel, plain, library, nbytes, flops,
         BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
     entry["product_ms"] = time_ms(lambda: torch.matmul(x, wcat))
+    entry["design"] = matmul_design(dtype, m, k, gated)
     log(f"kernel {name}: product_ms={entry['product_ms']:.4f} "
-        f"(torch.matmul of the same product, no epilogue)")
+        f"(torch.matmul of the same product, no epilogue), design "
+        f"{entry['design']}")
     return entry
 
 
@@ -3479,12 +3502,16 @@ def check_matmul_kernels(counts_3b, counts_3f):
                     (PAGED_PROMPTS[0], gate_3e),
                     (PAGED_PROMPTS[-1], gate_3e)):
         entries.append(mm_entry(
-            f"gated_matmul_bf16_m{rows}", gen, bf, rows, mis.d_model,
+            f"gated_matmul_bf16_m{rows}_"
+            + matmul_design(bf, rows, mis.d_model, True), gen, bf, rows,
+            mis.d_model,
             mis.d_ff, n.get((rows, mis.d_model), 0), gated=True,
             act="silu"))
     off = "none (not a main-path shape)"
-    mm_entry("matmul_bf16_m37", gen, bf, 37, 1000, 3000, off, gated=False,
-             act="gelu", bias=True)
+    mm_entry("matmul_bf16_m37_splitk_stream", gen, bf, 37, 1000, 3000, off,
+             gated=False, act="gelu", bias=True)
+    mm_entry("gated_matmul_bf16_m130_18432x2048_wgmma", gen, bf, 130,
+             18432, 2048, off, gated=True, act="silu")
     mm_entry("gated_matmul_f32_m130", gen, f32, 130, 2000, 3000, off,
              gated=True, act="silu")
     return entries

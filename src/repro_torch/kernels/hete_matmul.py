@@ -5,7 +5,12 @@
 ``act(x @ w_gate) * (x @ w_up)`` in one pass over x, each summing in fp32
 and rounding once to x's dtype, as the Pallas kernels do.  fp32 runs on
 the CUDA cores (no TF32), bf16 on the tensor cores: above 48 rows a
-persistent wgmma kernel fed by TMA, at decode mma.sync.  Any M; K, N and
+persistent wgmma kernel fed by TMA in clusters of two that share the
+weight tiles, its accumulator folded into fp32 totals every 512 of K and
+its output stored by TMA (the gated MLP on an unfolded two-weight
+kernel); at 48 rows or fewer ``matmul`` streams the weight
+with K split across a thread-block cluster and reduced in a fixed order,
+and ``gated_matmul`` runs mma.sync tiles.  Any M; K, N and
 x's row stride in multiples of 16 bytes (8 bf16 or 4 fp32 elements), and
 16-byte aligned operands, as every model width is: the kernels load and
 store 16 bytes at a time (TMA needs the same), and the wrappers refuse

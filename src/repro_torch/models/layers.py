@@ -111,32 +111,54 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
     return torch.where(ok, zero, NEG_INF)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              q_positions: torch.Tensor, kv_positions: torch.Tensor,
-              causal: bool = True, window: Optional[int] = None,
-              attn_softcap: Optional[float] = None, kv_len=None,
-              kv_format: str = "bthd") -> torch.Tensor:
-    """Masked multi-head attention with GQA, windows and softcap.
-
-    q (B,Sq,Hq,D); k/v (B,Skv,Hkv,D) ["bthd"] or (B,Hkv,Skv,D) ["bhtd"]
-    -> (B,Sq,Hq,D).
-    """
+def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor, cap: Optional[float],
+                  kv_format: str) -> torch.Tensor:
+    """q (B,Sq,Hq,D); k/v as :func:`attention`; bias (B,Sq,Skv)
+    -> (B,Sq,Hq,D)."""
     b, sq, hq, d = q.shape
-    skv = k.shape[1] if kv_format == "bthd" else k.shape[2]
     hkv = k.shape[2] if kv_format == "bthd" else k.shape[1]
-    bias = _mask_bias(q_positions.expand(b, sq), kv_positions.expand(b, skv),
-                      causal=causal, window=window, kv_len=kv_len)
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, d).float()
     kspec = "btkd" if kv_format == "bthd" else "bktd"
     scores = torch.einsum(f"bskgd,{kspec}->bkgst", qg, k.float())
     scores = scores * (1.0 / math.sqrt(d))
-    scores = softcap(scores, attn_softcap)
+    scores = softcap(scores, cap)
     scores = scores + bias[:, None, None, :, :]
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum(f"bkgst,{kspec}->bskgd", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_positions: torch.Tensor, kv_positions: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              attn_softcap: Optional[float] = None, kv_len=None,
+              chunk_q: int = 1024, kv_format: str = "bthd") -> torch.Tensor:
+    """Masked multi-head attention with GQA, windows and softcap.
+
+    q (B,Sq,Hq,D); k/v (B,Skv,Hkv,D) ["bthd"] or (B,Hkv,Skv,D) ["bhtd"]
+    -> (B,Sq,Hq,D).  Memory-bounded as the reference's: once Sq*Skv is
+    above 4096*2048 the queries go in blocks of ``chunk_q`` rows, each
+    block's whole score rows at once (no online softmax), so the result
+    equals the unchunked one.
+    """
+    b, sq, hq, d = q.shape
+    skv = k.shape[1] if kv_format == "bthd" else k.shape[2]
+    qp = q_positions.expand(b, sq)
+    kvp = kv_positions.expand(b, skv)
+    if sq * skv <= 4096 * 2048 or sq == 1 or sq % chunk_q != 0:
+        bias = _mask_bias(qp, kvp, causal=causal, window=window,
+                          kv_len=kv_len)
+        return _attend_block(q, k, v, bias, attn_softcap, kv_format)
+    out = torch.empty_like(q)
+    for s0 in range(0, sq, chunk_q):
+        bias = _mask_bias(qp[:, s0:s0 + chunk_q], kvp, causal=causal,
+                          window=window, kv_len=kv_len)
+        out[:, s0:s0 + chunk_q] = _attend_block(
+            q[:, s0:s0 + chunk_q], k, v, bias, attn_softcap, kv_format)
+    return out
 
 
 # ---------------------------------------------------------------------------

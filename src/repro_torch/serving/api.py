@@ -189,7 +189,7 @@ class LLM:
             retune_hysteresis=retune_hysteresis, policy=policy,
             optimistic=optimistic, preempt_mode=preempt_mode,
             chunk_tokens=chunk_tokens, prefix_dedupe=prefix_dedupe,
-            selfcheck=selfcheck, sampling=sampling, seed=seed, spec=spec,
+            selfcheck=selfcheck, seed=seed, spec=spec,
             tracer=self.tracer, metrics=self._metrics)
         self._ids = itertools.count()
         self._batcher: Optional[ContinuousBatcher] = None

@@ -57,8 +57,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_cache import slot_view
-from repro_torch.serving.sampling import (SamplingParams, greedy,
-                                          pack_sampling, request_key,
+from repro_torch.serving.sampling import (SamplerConfig, SamplingParams,
+                                          greedy, pack_sampling, request_key,
                                           sample_rows, seed_key, step_key)
 from repro_torch.serving.scheduler import (PREFILLING, RequestState, RUNNING,
                                            Scheduler, SchedulerPolicy)
@@ -72,8 +72,7 @@ from repro_torch.telemetry.tracer import NULL_TRACER, Tracer
 class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
                  max_slots: int = 4, max_len: int = 512,
-                 backend=None,
-                 sampling: SamplingParams = SamplingParams(),
+                 backend=None, sampler: SamplerConfig = SamplerConfig(),
                  seed: int = 0, paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
@@ -115,7 +114,7 @@ class ContinuousBatcher:
             self.backend.retune(max_slots)
         self.max_slots = max_slots
         self.max_len = max_len
-        self.default_sampling = sampling
+        self.default_sampling = SamplingParams.from_config(sampler)
         # the one base key request_key folds request ids into; every
         # sampling draw derives from it per request
         self._base_key = seed_key(seed)

@@ -20,7 +20,11 @@ flash limit), and the RMSNorm bit check
 The bf16 gated MLP above 48 rows runs on wgmma: an emulation of its
 order of sums (16-deep k steps into fp32 accumulators, one cast) lies
 within ``ref.gated_matmul_limit`` of the plain version and of the Pallas
-kernel.
+kernel, at K 18432 folded every 512 of K or not (the two-weight kernel's
+unfolded order; both distances are printed).  The bf16 ``matmul`` routes (the folded
+wgmma kernel, the split-K decode stream with its fixed-order reduction
+over a cluster's ranks) are emulated the same way and held within
+``ref.matmul_limit`` at K 768 and 18432 and against the Pallas kernel.
 """
 import math
 
@@ -490,21 +494,75 @@ def _rz32_t(v):
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def _gated_wgmma_emulation(x, wg, wu, activation):
-    """act(x @ wg) * (x @ wu) as the M > 48 kernel of
-    ``csrc/hete_matmul.cu`` sums it: each weight's fp32 accumulator takes
-    the exact products of one 16-deep k step at a time, in order through
-    the 64-deep stages (a K tail is zeros), each addition rounded toward
-    zero (a pessimistic model of wgmma's fp32 accumulate); the activation
-    and the gate in fp32; one cast to x's dtype."""
-    xd, gd, ud = x.double(), wg.double(), wu.double()
-    g = torch.zeros((x.shape[0], wg.shape[1]))
-    u = torch.zeros_like(g)
-    for k0 in range(0, x.shape[1], 16):
-        s = slice(k0, k0 + 16)
-        g = _rz32_t(g.double() + xd[:, s] @ gd[s])
-        u = _rz32_t(u.double() + xd[:, s] @ ud[s])
+PROMOTE_K = 512    # csrc/hete_matmul.cu's kPromoteK
+
+
+def _tc_sums(x, w, runs, fold=PROMOTE_K):
+    """fp32 totals of x @ w as the bf16 tensor-core kernels of
+    ``csrc/hete_matmul.cu`` sum them: over each run (k0, k1) of K, an
+    accumulator takes the exact products of one 16-deep k step at a time,
+    each addition rounded toward zero (a pessimistic model of the tensor
+    cores' fp32 accumulate); every ``fold`` columns from the run's start
+    and at its end the accumulator is added into the run's fp32 total with
+    round-to-nearest (``fold=None``: never before the end, the two-weight
+    wgmma kernel's order); the runs' totals are summed in
+    order with round-to-nearest (the split-K decode route's fixed-order
+    reduction over a cluster's ranks; one run everywhere else)."""
+    xd, wd = x.double(), w.double()
+    out = torch.zeros((x.shape[0], w.shape[1]))
+    for k0, k1 in runs:
+        acc = torch.zeros_like(out)
+        tot = torch.zeros_like(out)
+        for s0 in range(k0, k1, 16):
+            s = slice(s0, min(s0 + 16, k1))
+            acc = _rz32_t(acc.double() + xd[:, s] @ wd[s])
+            if fold and (s0 + 16 - k0) % fold == 0:
+                tot, acc = tot + acc, torch.zeros_like(acc)
+        out = out + (tot + acc)
+    return out
+
+
+def _split_runs(k, n, ranks=None, sms=132):
+    """The K runs of the decode route's cluster ranks: ``ranks`` of them,
+    or as many as its launch picks (a power of two up to 8, each with
+    two 64-deep k-tiles at least, until 256-column blocks x ranks reach
+    8 blocks an SM)."""
+    kt, nb = -(-k // 64), -(-n // 256)
+    if ranks is None:
+        ranks = 1
+        while ranks < 8 and 2 * ranks <= kt and nb * ranks < 8 * sms:
+            ranks *= 2
+    return [(r * kt // ranks * 64, min((r + 1) * kt // ranks * 64, k))
+            for r in range(ranks)]
+
+
+def _matmul_tc_emulation(x, w, bias, activation, runs, fold=PROMOTE_K):
+    """act(x @ w + bias) as the bf16 ``matmul`` kernels compute it: the
+    sums of :func:`_tc_sums`, the bias added and the activation taken in
+    fp32, one cast to x's dtype."""
+    z = _tc_sums(x, w, runs, fold)
+    if bias is not None:
+        z = z + bias.float()
+    return R._act(z, activation).to(x.dtype)
+
+
+def _gated_wgmma_emulation(x, wg, wu, activation, fold=None):
+    """act(x @ wg) * (x @ wu) as the M > 48 kernels of
+    ``csrc/hete_matmul.cu`` sum it: each weight's sums by
+    :func:`_tc_sums` over all of K, unfolded (the two-weight kernel's
+    order) or folded every ``fold``; the activation and the gate in fp32;
+    one cast to x's dtype."""
+    runs = [(0, x.shape[1])]
+    g = _tc_sums(x, wg, runs, fold)
+    u = _tc_sums(x, wu, runs, fold)
     return (R._act(g, activation) * u).to(x.dtype)
+
+
+def _bf16_case(rng, m, k, n, weights=1):
+    x = _t(rng.standard_normal((m, k)).astype(np.float32), torch.bfloat16)
+    ws = [_t((rng.standard_normal((k, n)) / math.sqrt(k)).astype(np.float32),
+             torch.bfloat16) for _ in range(weights)]
+    return x, ws
 
 
 @pytest.mark.parametrize("act", _ACTS)
@@ -522,6 +580,73 @@ def test_gated_wgmma_emulation_within_limit(m, k, n, act):
     want = R.gated_matmul(x, wg, wu, activation=act)
     limit = R.gated_matmul_limit(x, wg, wu, want, activation=act)
     err = (got.float() - want.float()).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def test_gated_wgmma_emulation_folds_at_long_k():
+    """K 18432 (Nemotron-4's width): the order of sums folded every 512 of
+    K lies within ``ref.gated_matmul_limit``, and so does the unfolded
+    order of the two-weight kernel, whose distance is printed as a ratio
+    to the limit beside the folded one's."""
+    rng = np.random.default_rng(18432)
+    x, (wg, wu) = _bf16_case(rng, 8, 18432, 64, weights=2)
+    want = R.gated_matmul(x, wg, wu, activation="silu")
+    limit = R.gated_matmul_limit(x, wg, wu, want, activation="silu")
+    ratios = {}
+    for fold in (PROMOTE_K, None):
+        got = _gated_wgmma_emulation(x, wg, wu, "silu", fold=fold)
+        ratios[fold] = float(((got.float() - want.float()).abs()
+                              / limit).max())
+    print(f"gated K 18432: worst error / limit folded every {PROMOTE_K} "
+          f"{ratios[PROMOTE_K]:.3f}, unfolded {ratios[None]:.3f}")
+    assert ratios[PROMOTE_K] <= 1.0 and ratios[None] <= 1.0
+
+
+@pytest.mark.parametrize("act", _ACTS)
+@pytest.mark.parametrize("k,bias", [(768, True), (18432, False)])
+@pytest.mark.parametrize("route", ["wgmma", "split", "split2"])
+def test_matmul_tc_emulation_within_limit(route, k, bias, act):
+    """bf16 operands at the model's scale, K 768 (Whisper-small's MLP, with
+    bias) and K 18432 (Nemotron-4's, without): the emulated sums of the
+    redesigned bf16 ``matmul`` routes (the wgmma kernel's one run of K,
+    folded every 512; the split-K decode route's runs over the ranks its
+    launch picks, 8 at narrow N, or 2, each folded from its own start and
+    summed in rank order) and their one cast lie within
+    ``ref.matmul_limit`` of the plain version."""
+    rng = np.random.default_rng(k + len(route))
+    m, n = 8, 64
+    x, (w,) = _bf16_case(rng, m, k, n)
+    b = _t(rng.standard_normal(n).astype(np.float32), torch.bfloat16) \
+        if bias else None
+    runs = {"wgmma": [(0, k)], "split": _split_runs(k, n),
+            "split2": _split_runs(k, n, ranks=2)}[route]
+    assert runs[0][0] == 0 and runs[-1][1] == k
+    got = _matmul_tc_emulation(x, w, b, act, runs)
+    want = R.matmul(x, w, b, activation=act)
+    limit = R.matmul_limit(x, w, want, b, activation=act)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+@pytest.mark.parametrize("act", _ACTS)
+@pytest.mark.parametrize("route", ["wgmma", "split"])
+def test_matmul_tc_emulation_matches_pallas(route, act):
+    """fp32 operands (this CPU's XLA has no bf16 x bf16 -> fp32 dot): the
+    emulated sums of both bf16 ``matmul`` routes, with bias, lie within
+    ``ref.matmul_limit`` of the JAX package's Pallas ``matmul`` in
+    interpret mode."""
+    rng = np.random.default_rng(6)
+    m, k, n = 128, 1024, 256
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / math.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    want = torch.from_numpy(np.array(jhm.matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), activation=act,
+        interpret=True)))
+    runs = [(0, k)] if route == "wgmma" else _split_runs(k, n)
+    got = _matmul_tc_emulation(_t(x), _t(w), _t(b), act, runs)
+    limit = R.matmul_limit(_t(x), _t(w), want, _t(b), activation=act)
+    err = (got - want).abs()
     assert bool((err <= limit).all()), float((err / limit).max())
 
 

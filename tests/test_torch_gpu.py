@@ -944,6 +944,85 @@ def test_matmul_bf16_wgmma_kernel(cuda, act, bias):
 
 
 # ---------------------------------------------------------------------------
+# bf16 matmul: the folded wgmma kernel (M > 48) and the split-K weight stream
+# (M <= 48)
+# ---------------------------------------------------------------------------
+
+def _launch_once(fn, name):
+    """fn()'s result, checked to have launched kernel ``name`` once."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()[name]
+    out = fn()
+    assert ops.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,act,bias", [
+    (6000, 768, 3072, "gelu", True), (16, 768, 3072, "gelu", True),
+    (4, 768, 3072, "gelu", True), (2048, 18432, 73728, "relu2", False),
+    (4, 18432, 73728, "relu2", False)])
+def test_matmul_bf16_path_shapes(cuda, m, k, n, act, bias):
+    """bf16 ``matmul`` at every shape 3l gives it (Whisper-small's MLP with
+    bias and GELU over 6000, 16 and 4 rows; Nemotron-4-340B's with the
+    squared ReLU over 2048 and 4 rows): within ``ref.matmul_limit``, one
+    launch, the same bits from a second call."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x, (w,) = _bf16_operands(gen, m, k, n, 0, cuda, weights=1)
+    b = torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16) \
+        if bias else None
+    got = _launch_once(lambda: ops.matmul(x, w, b, activation=act), "matmul")
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    want = ref.matmul(x, w, b, activation=act)
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.matmul_limit(x, w, want, b, activation=act))
+    del want
+    assert torch.equal(ops.matmul(x, w, b, activation=act), got)
+
+
+@pytest.mark.parametrize("act", MM_ACTS)
+@pytest.mark.parametrize("m", [1, 47, 48, 49, 130, 6000])
+def test_matmul_bf16_rows_and_edges(cuda, m, act):
+    """bf16 ``matmul`` on both sides of the route boundary (48 rows and
+    below: the split-K stream; 49 and up: the folded wgmma kernel), every
+    activation, without bias, with it and with a bias 2 bytes off 4-byte
+    alignment (read one element at a time): K 1000 (a tail past the
+    64-deep k-tiles), N 3000 (no multiple of the 192- or 256-column tiles)
+    and a strided x; within ``ref.matmul_limit`` and the same bits
+    twice."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(1000 + m)
+    x, (w,) = _bf16_operands(gen, m, 1000, 3000, 24, cuda, weights=1)
+    b = torch.randn(3001, generator=gen, device=cuda).to(torch.bfloat16)
+    for bias in (None, b[:3000], b[1:]):
+        got = _launch_once(lambda: ops.matmul(x, w, bias, activation=act),
+                           "matmul")
+        want = ref.matmul(x, w, bias, activation=act)
+        torch.cuda.synchronize()
+        _assert_within(got, want, ref.matmul_limit(x, w, want, bias,
+                                                   activation=act))
+        assert torch.equal(ops.matmul(x, w, bias, activation=act), got)
+
+
+@pytest.mark.parametrize("m", [130, 2048])
+def test_gated_matmul_long_k_within_limit(cuda, m):
+    """bf16 ``gated_matmul`` above 48 rows at K 18432 (Nemotron-4's width;
+    the two-weight wgmma kernel, whose accumulators are not folded), N
+    2048, SiLU: within ``ref.gated_matmul_limit``, one launch, the same
+    bits from a second call."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(18432 + m)
+    x, (wg, wu) = _bf16_operands(gen, m, 18432, 2048, 0, cuda)
+    got = _launch_once(lambda: ops.gated_matmul(x, wg, wu, activation="silu"),
+                       "gated_matmul")
+    want = ref.gated_matmul(x, wg, wu, activation="silu")
+    torch.cuda.synchronize()
+    _assert_within(got, want, ref.gated_matmul_limit(x, wg, wu, want,
+                                                     activation="silu"))
+    assert torch.equal(ops.gated_matmul(x, wg, wu, activation="silu"), got)
+
+
+# ---------------------------------------------------------------------------
 # bf16-q paged decode: the split-KV cluster kernel over block tables
 # ---------------------------------------------------------------------------
 

@@ -107,3 +107,31 @@ def test_mlp_kinds(kind):
         pj[k], pt[k] = _pair(rng, *shp, scale=0.2)
     jx, tx = _pair(rng, 2, 3, d)
     _close(TL.mlp(cfg, pt, tx), JL.mlp(cfg, pj, jx))
+
+
+@pytest.mark.parametrize("kv_format", ["bthd", "bhtd"])
+def test_attention_chunks_queries_as_reference(kv_format):
+    """Sq 4096 over Skv 2304 is past 4096 * 2048, so the reference scans
+    four query chunks of 1024; the port loops over them.  Causal with a
+    window of 512 and a softcap, fp32: within 1e-5 of the reference, and
+    within 1e-6 of the port's own unchunked path (a chunk_q that does not
+    divide Sq), the same arithmetic row by row."""
+    rng = np.random.default_rng(7)
+    b, sq, skv, h, d = 1, 4096, 2304, 2, 16
+    jq, tq = _pair(rng, b, sq, h, d)
+    kv_shape = (b, skv, h, d) if kv_format == "bthd" else (b, h, skv, d)
+    jk, tk = _pair(rng, *kv_shape)
+    jv, tv = _pair(rng, *kv_shape)
+    qpos = (np.arange(sq) * 9 // 16)[None]          # 0 .. 2303
+    kvpos = np.arange(skv)[None]
+    kw = dict(causal=True, window=512, attn_softcap=20.0,
+              kv_format=kv_format)
+    want = JL.attention(jq, jk, jv, q_positions=jnp.asarray(qpos),
+                        kv_positions=jnp.asarray(kvpos), **kw)
+    args = dict(q_positions=torch.from_numpy(qpos),
+                kv_positions=torch.from_numpy(kvpos), **kw)
+    chunked = TL.attention(tq, tk, tv, **args)
+    whole = TL.attention(tq, tk, tv, chunk_q=3000, **args)
+    _close(chunked, want)
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=0,
+                               atol=1e-6)

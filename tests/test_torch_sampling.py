@@ -292,6 +292,28 @@ def _batcher(cfg, tp, reqs, **kw):
     return [out[r] for r in rids]
 
 
+@pytest.mark.parametrize("conf", [dict(), dict(kind="topk", top_k=1)])
+def test_batcher_takes_reference_sampler(tiny, conf):
+    """``ContinuousBatcher(cfg, params, sampler=SamplerConfig(...))``, the
+    reference's call, lifts the config through ``from_config`` and gives
+    the reference's greedy tokens (top-k of 1 keeps only the argmax)."""
+    from repro.serving.batcher import ContinuousBatcher as JBatcher
+    cfg, jp, tp = tiny
+    prompts = _prompts(cfg, (5, 9, 3))
+    tb = ContinuousBatcher(cfg, tp, max_slots=2, max_len=48, device="cpu",
+                           sampler=tsam.SamplerConfig(**conf))
+    assert tb.default_sampling == SP.from_config(tsam.SamplerConfig(**conf))
+    jb = JBatcher(cfg, jp, max_slots=2, max_len=48,
+                  sampler=jsam.SamplerConfig(**conf))
+    got, want = [], []
+    for b, out in ((tb, got), (jb, want)):
+        rids = [b.submit(p, 6) for p in prompts]
+        res = b.run_until_done()
+        b.close()
+        out.extend(list(map(int, res[r])) for r in rids)
+    assert got == want
+
+
 def test_tokens_independent_of_row_neighbours_and_paging(tiny):
     cfg, _, tp = tiny
     prompts = _prompts(cfg, (5, 9, 3, 7))

@@ -4,8 +4,8 @@ cells with each build in turn.  The kernels: ``decode_attention`` and
 ``q8_matmul`` at their decode shapes, ``q8_matmul`` at cell 3's prefill
 shapes (M 18 and 32), bf16 ``flash_attention`` at 3b's prefill,
 ``gated_matmul`` at 3b's and 3e's prefill (2048, 500 and 512 rows) and
-at 3b's and 3l's decode (4 and 2 rows), bf16 ``matmul`` at 3l's Whisper
-and Nemotron shapes,
+at 3b's, 3j's and 3l's decode (4 and 2 rows) and at K 18432 (2048 and
+130 rows, N 2048), bf16 ``matmul`` at 3l's Whisper and Nemotron shapes,
 ``paged_decode_attention`` under a bf16 q at 3e's decode (bf16 and int8
 pages) and under an fp32 q at cell 3's two most frequent decode shapes
 and the long-context shape (fp32 and int8 pages), fp32
@@ -272,8 +272,10 @@ def arch_matmul_shapes(gen):
     """bf16 ``matmul`` at 3l's shapes (Whisper-small's MLP, 768 -> 3072
     with bias and GELU over 6000, 16 and 4 rows; Nemotron-4-340B's, 18432
     -> 73728 with the squared ReLU over 2048 and 4 rows) and the gated MLP
-    at the decode shapes of 3b (4 x 5120 -> 14336) and 3l's LLaVA (2 x
-    4096 -> 14336)."""
+    at the decode shapes of 3b (4 x 5120 -> 14336), 3l's LLaVA (2 x
+    4096 -> 14336) and 3j's Gemma-2 (GELU), MiniCPM3, Scout and Zamba2,
+    and at K 18432 (2048 and 130 rows -> 2048; no main path: the
+    two-weight kernel's unfolded sums at Nemotron-4's width)."""
     out = []
     for k, n, act, bias, rows in ((768, 3072, "gelu", True, (6000, 16, 4)),
                                   (18432, 73728, "relu2", False, (2048, 4))):
@@ -287,12 +289,22 @@ def arch_matmul_shapes(gen):
             out.append((f"matmul bf16 {m}x{k}x{n} {act}",
                         lambda x=x[:m], w=w, b=b, act=act:
                         k_mm.matmul(x, w, b, activation=act)))
-    for m, k, n in ((4, 5120, 14336), (2, 4096, 14336)):
+    for m, k, n, act in ((4, 5120, 14336, "silu"), (2, 4096, 14336, "silu"),
+                         (4, 2304, 9216, "gelu"), (4, 2560, 6400, "silu"),
+                         (4, 5120, 8192, "silu"), (4, 4096, 8192, "silu")):
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         wg, wu = ((torch.randn((k, n), generator=gen, device="cuda")
                    / k ** 0.5).to(torch.bfloat16) for _ in range(2))
         out.append((f"gated bf16 {m}x{k}x{n} decode",
-                    lambda x=x, wg=wg, wu=wu: k_mm.gated_matmul(
+                    lambda x=x, wg=wg, wu=wu, act=act: k_mm.gated_matmul(
+                        x, wg, wu, activation=act)))
+    k, n = 18432, 2048
+    x = torch.randn((2048, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wg, wu = ((torch.randn((k, n), generator=gen, device="cuda")
+               / k ** 0.5).to(torch.bfloat16) for _ in range(2))
+    for m in (2048, 130):
+        out.append((f"gated bf16 {m}x{k}x{n} long K",
+                    lambda x=x[:m], wg=wg, wu=wu: k_mm.gated_matmul(
                         x, wg, wu, activation="silu")))
     return out
 
