@@ -193,6 +193,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    After phase 3 a line ``cell 3 sim`` gives ``core.sim``'s decode
    prediction for OPT-6.7B (32 layers, fp32 wire, batch 4) over the fitted
    ``H100_HOST`` beside the measured tok/s (a log line, not a check);
+3m. the sharded path (``repro_torch.distributed``), each part in a process
+   of its own (``--part``): (a) an NCCL world of one rank on a (1, 1)
+   ("data", "model") mesh: Mistral-NeMo-12B at full width and depth, its
+   weights placed by ``param_specs``, through ``make_prefill_step`` (4 x
+   512) and ``SHARD_NEW`` ``make_serve_step``s under
+   ``ShardingRules.for_mesh``, then with ``NO_RULES`` on the same weights:
+   every step's logits the same bits, greedy tokens equal, the kernels
+   launched through ``local_map`` exactly as often as unsharded;
+   ``compressed_psum_mean`` over NCCL equal to dequantize(quantize(x));
+   the decode kernel's log-sum-exp within ``LSE_TOL`` of its plain
+   version's, -inf on the same rows; (b) ``launch/dryrun.run_cell`` with
+   ``device="cuda"`` on rank 0 of a fake 256-rank world (collectives move
+   no data) for ``SHARD_CELLS`` at ``decode_32k``: argument bytes equal to
+   the analytic params plus cache, the measured peak beside the analytic
+   total, FLOPs, bytes and collective wire bytes a device, the step's time;
 4. every kernel against its plain PyTorch version on the same card
    inputs at the main path's shapes (these launches come after the
    counters were read, so they do not count), with CUDA-event times of kernel,
@@ -3865,15 +3880,227 @@ def log_sim_prediction(full, fit, stats, layers, prompts):
         f"phase alpha {stats['phase_alpha']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 3m: the sharded path
+# ---------------------------------------------------------------------------
+
+SHARD_PROMPT = 512                 # 3m(a): prompt tokens per row
+SHARD_NEW = 16                     # 3m(a): serve steps
+SHARD_CELLS = ("mistral-nemo-12b", "nemotron-4-340b")   # 3m(b), decode_32k
+LSE_TOL = 1e-3                     # 3m(a): |kernel - plain| log-sum-exp
+
+
+def _shard_part(part: str, timeout: int = 600) -> dict:
+    """Run ``chip_smoke.py --part <part>`` in a process of its own (a
+    process has one default group) and return the JSON it prints last; a
+    failing part fails the script."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--part", part], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=timeout)
+    for line in out.stdout.splitlines()[:-1]:
+        log(f"{part}: {line}")
+    check(out.returncode == 0,
+          f"{part} exited {out.returncode}: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def part_world1() -> dict:
+    """3m(a), in its own process: an NCCL world of one rank on a (1, 1)
+    ("data", "model") mesh.  Mistral-NeMo-12B at full width and depth,
+    its weights placed by ``param_specs`` (on one rank each local shard is
+    the whole tensor: no copy), through ``make_prefill_step`` over 4 x 512
+    tokens and ``SHARD_NEW`` ``make_serve_step``s under
+    ``ShardingRules.for_mesh``, then the same steps with ``NO_RULES`` on
+    the same weights: logits the same bits, greedy tokens equal, the
+    kernels launched through ``local_map`` as many times as unsharded.
+    Also ``compressed_psum_mean`` over NCCL against dequantize(quantize(x))
+    and the decode kernel's log-sum-exp against its plain version."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compression as DC
+    from repro_torch.distributed import specs as DS
+    from repro_torch.distributed.shardings import NO_RULES, ShardingRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import engine as E
+
+    torch.cuda.set_device(0)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "smoke_out")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, f"pg_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        rules = ShardingRules.for_mesh(mesh)
+        cfg = get_config("mistral-nemo-12b")
+        params = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(SEED), device="cuda")
+        whole = lambda path, leaf, shape: leaf        # noqa: E731
+        dparams = DS.distribute(params, mesh, DS.param_specs(
+            cfg, rules, serve=True), local_fn=whole)
+        rng = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, SHARD_PROMPT)).astype(np.int32)).cuda()
+        seen = []
+        greedy = E._greedy
+
+        def record(logits, r):
+            seen.append(logits.full_tensor() if hasattr(logits,
+                                                        "full_tensor")
+                        else logits)
+            return greedy(logits, r)
+
+        E._greedy = record
+        runs = {}
+        for name, r in (("rules", rules), ("none", NO_RULES)):
+            cache = M.init_cache(cfg, 4, SHARD_PROMPT + SHARD_NEW,
+                                 device="cuda")
+            p, batch = params, {"tokens": toks}
+            if r is rules:
+                cache = DS.distribute(cache, mesh, DS.cache_specs(
+                    cfg, rules, cache), local_fn=whole)
+                p = dparams
+                batch = DS.distribute(batch, mesh, DS.batch_specs(
+                    cfg, rules, batch), local_fn=whole)
+            pre, serve = E.make_prefill_step(cfg, r), E.make_serve_step(cfg, r)
+            seen.clear()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            cache, tok = pre(p, batch, cache)
+            out = [tok]
+            for _ in range(SHARD_NEW):
+                cache, tok = serve(p, tok, cache)
+                out.append(tok)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            runs[name] = dict(
+                s=time.perf_counter() - t0, launches=launches,
+                logits=list(seen),
+                tokens=[(t.full_tensor() if hasattr(t, "full_tensor")
+                         else t).tolist() for t in out])
+        E._greedy = greedy
+        a, b = runs["rules"], runs["none"]
+        check(len(a["logits"]) == len(b["logits"]) == SHARD_NEW + 1,
+              "3m(a): not every step's logits were seen")
+        same = [torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])]
+        worst = max(float((x.float() - y.float()).abs().max())
+                    for x, y in zip(a["logits"], b["logits"]))
+        check(all(same), f"3m(a): logits differ with rules (max |diff| "
+              f"{worst}, steps equal {same})")
+        check(a["tokens"] == b["tokens"], "3m(a): greedy tokens differ")
+        check(a["launches"] == b["launches"],
+              f"3m(a): launches {a['launches']} with rules, "
+              f"{b['launches']} without")
+        for k in ("gated_matmul", "rmsnorm", "flash_attention",
+                  "decode_attention"):
+            check(a["launches"].get(k, 0) > 0, f"3m(a): {k} never launched")
+
+        x = torch.randn(3, 1 << 20, device="cuda")
+        got = DC.compressed_psum_mean(x, mesh.get_group("data"))
+        q, sc, shp = DC.quantize_int8(x)
+        check(torch.equal(got, DC.dequantize_int8(q, sc, shp)),
+              "3m(a): compressed_psum_mean over NCCL != dequantize(quantize)")
+
+        lse_err = {}
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(7)
+            qd = torch.randn(8, cfg.n_heads, cfg.hd, generator=g,
+                             device="cuda").to(dt)
+            kd = torch.randn(8, cfg.n_kv_heads, 2048, cfg.hd, generator=g,
+                             device="cuda").to(dt)
+            vd = torch.randn(8, cfg.n_kv_heads, 2048, cfg.hd, generator=g,
+                             device="cuda").to(dt)
+            lens = torch.tensor([2048, 2047, 1500, 1024, 511, 64, 1, 0],
+                                dtype=torch.int32, device="cuda")
+            _, lk = ops.decode_attention(qd, kd, vd, lens, return_lse=True)
+            _, lp = ref.decode_attention(qd, kd, vd, lens, return_lse=True)
+            fin = torch.isfinite(lp)
+            check(torch.equal(fin, torch.isfinite(lk)),
+                  f"3m(a): {dt} lse is -inf on other rows than the plain's")
+            lse_err[str(dt)] = float((lk[fin] - lp[fin]).abs().max())
+            check(lse_err[str(dt)] <= LSE_TOL,
+                  f"3m(a): {dt} decode lse off by {lse_err[str(dt)]}")
+        return {"launches": a["launches"], "rules_s": a["s"],
+                "none_s": b["s"], "lse_err": lse_err,
+                "tokens_row0": a["tokens"][1][0]}
+    finally:
+        dist.destroy_process_group()
+
+
+def part_dryrun() -> dict:
+    """3m(b), in its own process: ``run_cell`` with ``device="cuda"`` on
+    rank 0 of a fake 256-rank world (collectives move no data), for each
+    of ``SHARD_CELLS`` x decode_32k x single."""
+    from repro_torch.launch import dryrun as DR
+    out = {}
+    for arch in SHARD_CELLS:
+        rec = DR.run_cell(arch, "decode_32k", "single", device="cuda",
+                          verbose=False)
+        check(rec["status"] == "ok",
+              f"3m(b) {arch}: {rec.get('error')} {rec.get('traceback')}")
+        out[arch] = {k: rec[k] for k in ("memory", "hlo", "roofline",
+                                         "step_ms", "trace_s", "launches",
+                                         "kernel_calls")}
+    return out
+
+
+def run_sharded(smi):
+    """Phase 3m: the sharded path (:func:`part_world1`,
+    :func:`part_dryrun`)."""
+    a = timed("3m(a)", _shard_part, "3m_world1")
+    log(f"3m(a) mistral-nemo-12b (1, 1) mesh: launches {a['launches']}, "
+        f"prefill {SHARD_PROMPT} + {SHARD_NEW} steps in {a['rules_s']:.2f} s "
+        f"with rules, {a['none_s']:.2f} s without; logits the same bits; "
+        f"decode lse max |kernel - plain| {a['lse_err']}")
+    b = timed("3m(b)", _shard_part, "3m_dryrun")
+    gib = 2 ** 30
+    for arch, rec in b.items():
+        mem, hlo = rec["memory"], rec["hlo"]
+        an = mem["analytic"]
+        check(mem["argument_bytes"] == an["params"] + an["cache"],
+              f"3m(b) {arch}: argument bytes {mem['argument_bytes']} != "
+              f"analytic params + cache {an['params'] + an['cache']}")
+        log(f"3m(b) {arch} decode_32k rank 0 of (16, 16) on {smi}: "
+            f"argument_bytes {mem['argument_bytes']} "
+            f"({mem['argument_bytes'] / gib:.3f} GiB) = analytic params "
+            f"{an['params']:.0f} + cache {an['cache']:.0f}; measured peak "
+            f"{mem['measured_peak_bytes']} ({mem['measured_peak_bytes'] / gib:.3f}"
+            f" GiB) against analytic total {an['total']:.0f} "
+            f"({an['total'] / gib:.3f} GiB), ratio "
+            f"{mem['measured_peak_bytes'] / an['total']:.4f}; card memory "
+            f"{mem['device_total_bytes']}")
+        log(f"3m(b) {arch}: flops/device {hlo['flops_per_device']:.6e} "
+            f"bytes/device {hlo['bytes_per_device']:.6e} collective wire "
+            f"bytes {hlo['collective_bytes']} ({hlo['collective_count']} "
+            f"collectives); roofline {rec['roofline']}; step "
+            f"{rec['step_ms']:.3f} ms (traced once in {rec['trace_s']} s); "
+            f"launches {rec['launches']}")
+    return a, b
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder layers of OPT-6.7B to run (of 32), "
                          "phases 3 and 3c")
+    ap.add_argument("--part", choices=("3m_world1", "3m_dryrun"),
+                    default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if args.part:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = {"3m_world1": part_world1, "3m_dryrun": part_dryrun}[
+            args.part]()
+        print(json.dumps(out), flush=True)
+        return 0
     # fp32 everywhere: no TF32 in matmuls, so the plain versions and the
     # ResidentBackend reference are full-precision
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3971,6 +4198,7 @@ def main() -> int:
     runs_3j = timed("3j", run_families, SEED)
     runs_3l = timed("3l", run_new_archs, SEED)
     timed("3k", run_training, SEED, smi)
+    timed("3m", run_sharded, smi)
     for kind in ("paged_decode_attention", "paged_prefill_attention"):
         launches[kind + "_3e"] = {kv: counts_3b["3e"][kv][kind]
                                   for kv in ("bf16", "int8")}

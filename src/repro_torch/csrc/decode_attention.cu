@@ -76,8 +76,8 @@ decode_split_kernel(const bf16* __restrict__ q, long long q_sb, long long q_sh,
                     long long kv_sh, long long kv_st, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, long long s_sb, long long s_sh,
                     long long s_st, const int32_t* __restrict__ kv_len, bf16* __restrict__ out,
-                    long long o_sb, long long o_sh, int hq, int hkv, int t_max, float scale,
-                    float softcap) {
+                    long long o_sb, long long o_sh, float* __restrict__ lse, int hq, int hkv,
+                    int t_max, float scale, float softcap) {
   typedef typename std::conditional<RULE == split_decode::kBf16, bf16, int8_t>::type TKV;
   const split_decode::Block blk = split_decode::block_of(hq, hkv);
   const long long kvo = blk.b * kv_sb + blk.kvh * kv_sh, so = blk.b * s_sb + blk.kvh * s_sh;
@@ -85,23 +85,24 @@ decode_split_kernel(const bf16* __restrict__ q, long long q_sb, long long q_sh,
                               k_scale + so, v_scale + so, kv_st, s_st};
   split_decode::run<D, RULE>(q + blk.b * q_sb + blk.h0 * q_sh, q_sh,
                              out + blk.b * o_sb + blk.h0 * o_sh, o_sh, blk.gn,
-                             max(0, min(kv_len[blk.b], t_max)), rows, scale, softcap);
+                             max(0, min(kv_len[blk.b], t_max)), rows, scale, softcap,
+                             lse == nullptr ? nullptr : lse + (long long)blk.b * hq + blk.h0);
 }
 
 template <int D, bool Q8>
 int launch_split(const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
                  long long kv_sb, long long kv_sh, long long kv_st, const void* k_scale,
                  const void* v_scale, long long s_sb, long long s_sh, long long s_st,
-                 const void* kv_len, void* out, long long o_sb, long long o_sh, int b, int hq,
-                 int hkv, int t_max, float scale, float softcap, cudaStream_t stream) {
+                 const void* kv_len, void* out, long long o_sb, long long o_sh, void* lse, int b,
+                 int hq, int hkv, int t_max, float scale, float softcap, cudaStream_t stream) {
   constexpr int RULE = Q8 ? split_decode::kInt8Bf16 : split_decode::kBf16;
   static std::atomic<int> sms[kMaxDevices];
   return split_decode::launch<D, RULE>(
       decode_split_kernel<D, RULE>, sms, b, hq, hkv, t_max, stream,
       static_cast<const bf16*>(q), q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), s_sb, s_sh, s_st,
-      static_cast<const int32_t*>(kv_len), static_cast<bf16*>(out), o_sb, o_sh, hq, hkv, t_max,
-      scale, softcap);
+      static_cast<const int32_t*>(kv_len), static_cast<bf16*>(out), o_sb, o_sh,
+      static_cast<float*>(lse), hq, hkv, t_max, scale, softcap);
 }
 
 // ---------------------------------------------------------------------------
@@ -126,8 +127,8 @@ decode_kernel(const float* __restrict__ q, long long q_sb, long long q_sh,
               const float* __restrict__ v_scale,
               long long s_sb, long long s_sh, long long s_st,
               const int32_t* __restrict__ kv_len, float* __restrict__ out,
-              long long o_sb, long long o_sh, int hq, int hkv, int t_max,
-              int d, float scale, float softcap) {
+              long long o_sb, long long o_sh, float* __restrict__ lse, int hq,
+              int hkv, int t_max, int d, float scale, float softcap) {
   __shared__ float m_s[kWarps];
   __shared__ float l_s[kWarps];
   __shared__ float acc_s[kWarps][kMaxD];
@@ -207,6 +208,8 @@ decode_kernel(const float* __restrict__ q, long long q_sb, long long q_sh,
       at += acc_s[w][c] * f;
     }
     out[b * o_sb + h * o_sh + c] = at / (lt == 0.f ? 1.f : lt);
+    if (lse != nullptr && c == 0)
+      lse[(long long)b * hq + h] = lt == 0.f ? __int_as_float(0xff800000) : mx + logf(lt);
   }
 }
 
@@ -215,14 +218,15 @@ int launch(const void* q, long long q_sb, long long q_sh, const void* k,
            const void* v, long long kv_sb, long long kv_sh, long long kv_st,
            const void* k_scale, const void* v_scale, long long s_sb,
            long long s_sh, long long s_st, const void* kv_len, void* out,
-           long long o_sb, long long o_sh, int b, int hq, int hkv, int t_max,
-           int d, float scale, float softcap, cudaStream_t stream) {
+           long long o_sb, long long o_sh, void* lse, int b, int hq, int hkv,
+           int t_max, int d, float scale, float softcap, cudaStream_t stream) {
   decode_kernel<TKV, Q8><<<b * hq, kThreads, 0, stream>>>(
       static_cast<const float*>(q), q_sb, q_sh, static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), kv_sb, kv_sh, kv_st,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       s_sb, s_sh, s_st, static_cast<const int32_t*>(kv_len),
-      static_cast<float*>(out), o_sb, o_sh, hq, hkv, t_max, d, scale, softcap);
+      static_cast<float*>(out), o_sb, o_sh, static_cast<float*>(lse), hq, hkv,
+      t_max, d, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -254,8 +258,8 @@ static int decode_attention_impl(
     const void* k, const void* v, long long kv_sb, long long kv_sh,
     long long kv_st, int kv_dtype, const void* k_scale, const void* v_scale,
     long long s_sb, long long s_sh, long long s_st, const void* kv_len,
-    void* out, long long o_sb, long long o_sh, int b, int hq, int hkv,
-    int t_max, int d, float scale, float softcap, void* stream) {
+    void* out, long long o_sb, long long o_sh, void* lse, int b, int hq,
+    int hkv, int t_max, int d, float scale, float softcap, void* stream) {
   if (d > kMaxD || hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 1) {
@@ -264,7 +268,7 @@ static int decode_attention_impl(
                      hkv, t_max, d))
       return (int)cudaErrorInvalidValue;
 #define SPLIT_ARGS q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, k_scale, v_scale, s_sb, s_sh, \
-    s_st, kv_len, out, o_sb, o_sh, b, hq, hkv, t_max, scale, softcap, s
+    s_st, kv_len, out, o_sb, o_sh, lse, b, hq, hkv, t_max, scale, softcap, s
 #define SPLIT(D)                                                   \
   case D:                                                          \
     return kv_dtype == 2 ? launch_split<D, true>(SPLIT_ARGS)       \
@@ -277,7 +281,7 @@ static int decode_attention_impl(
     return (int)cudaErrorInvalidValue;
   }
 #define DECODE_ARGS q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_st, k_scale, v_scale, \
-    s_sb, s_sh, s_st, kv_len, out, o_sb, o_sh, b, hq, hkv, t_max, d, scale,     \
+    s_sb, s_sh, s_st, kv_len, out, o_sb, o_sh, lse, b, hq, hkv, t_max, d, scale, \
     softcap, s
   if (q_dtype == 0 && kv_dtype == 0) return launch<float, false>(DECODE_ARGS);
   if (q_dtype == 0 && kv_dtype == 2) return launch<int8_t, true>(DECODE_ARGS);

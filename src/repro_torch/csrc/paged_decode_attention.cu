@@ -358,7 +358,7 @@ paged_f32_kernel(const float* __restrict__ q, const void* __restrict__ k_pages,
   float* po = pl + GR;                // [GR][d]
   split_decode::merge_warps(wm, wl, wo, GR, DP, d, blk.gn, pm, pl, po);
   float* og = out + ((long long)blk.b * hq + blk.h0) * d;
-  split_decode::merge_ranks(pm, pl, po, d, blk.gn,
+  split_decode::merge_ranks(pm, pl, po, d, blk.gn, nullptr,
                             [&](int row, int c, float v) { og[row * d + c] = v; });
 }
 

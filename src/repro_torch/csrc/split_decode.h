@@ -160,10 +160,12 @@ __device__ __forceinline__ void merge_warps(const float* wm, const float* wl, co
 
 // The cluster's blocks merge their (pm, pl, po) in rank order through
 // distributed shared memory, each finishing every cs-th group of the
-// outputs: store(row, c, o / l), 0 for a row with no valid key.
+// outputs: store(row, c, o / l), 0 for a row with no valid key.  A
+// non-null lse[row] gets the row's natural log-sum-exp of its scores
+// (m in base 2: ln 2 * (m + log2 l)), -inf for a row with no valid key.
 template <class Store>
 __device__ __forceinline__ void merge_ranks(float* pm, float* pl, float* po, int d, int gn,
-                                            Store store) {
+                                            float* lse, Store store) {
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -194,19 +196,23 @@ __device__ __forceinline__ void merge_ranks(float* pm, float* pl, float* po, int
       }
     }
     store(row, c, ll == 0.f ? 0.f : oo / ll);
+    if (lse != nullptr && c == 0)
+      lse[row] = ll == 0.f ? __int_as_float(0xff800000) : (mm + log2f(ll)) * 0.69314718055994531f;
   }
   cluster.sync();  // no block leaves while another reads its state
 }
 
 // One block's share of the decode: q rows qg + r * q_sh and output rows
-// og + r * o_sh (r < gn, D contiguous elements each), `len` valid tokens
+// og + r * o_sh (r < gn, D contiguous elements each; a non-null lse[r]
+// gets each row's log-sum-exp, merge_ranks), `len` valid tokens
 // of `rows` (a Rows type over TKV values: bf16, or int8 with per-token
 // fp32 scales).  Launched with kThreads threads, Cfg::SMEM bytes of
 // dynamic shared memory and a cluster dimension (split_decode::launch).
 template <int D, int RULE, class Rows>
 __device__ __forceinline__ void run(const bf16* __restrict__ qg, long long q_sh,
                                     bf16* __restrict__ og, long long o_sh, int gn, int len,
-                                    const Rows& rows, float scale, float softcap) {
+                                    const Rows& rows, float scale, float softcap,
+                                    float* lse = nullptr) {
   using C = Cfg<D, RULE>;
   constexpr bool Q8 = C::Q8;
   constexpr int RS = C::RS, CPR = D / 8;  // 16-byte chunks a bf16 row
@@ -464,7 +470,7 @@ __device__ __forceinline__ void run(const bf16* __restrict__ qg, long long q_sh,
   float* pls = part + kRows;       // [16]
   float* po = part + 2 * kRows;    // [16][D]
   merge_warps(wm, wl, wo, kRows, C::OS, D, gn, pm, pls, po);
-  merge_ranks(pm, pls, po, D, gn,
+  merge_ranks(pm, pls, po, D, gn, lse,
               [&](int row, int c, float v) { og[row * o_sh + c] = __float2bfloat16(v); });
 }
 

@@ -1,21 +1,22 @@
-"""Fault tolerance for long runs: the part the ``Trainer`` needs, ported
-from the JAX package's ``distributed/fault_tolerance.py``.
+"""Fault tolerance for long runs, ported from the JAX package's
+``distributed/fault_tolerance.py``.
 
 * :class:`StragglerDetector` — per-host EWMA of step times; a host whose
   smoothed step time exceeds ``factor`` x the fleet median is flagged.
 * :func:`retry` — step-level retry with bounded attempts for transient
   failures.
 * :class:`PreemptionHandler` — SIGTERM -> checkpoint-now flag.
-
-``ElasticTopology`` and ``reshard_state`` wait for the port of
-``distributed/`` onto ``torch.distributed``.
+* :class:`ElasticTopology` — the best ("data", "model") mesh for however
+  many ranks are alive, built as a ``DeviceMesh`` over the first ones.
+* :func:`reshard_state` — re-place a restored state tree on a new mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import signal
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -86,3 +87,69 @@ class PreemptionHandler:
 
     def reset(self) -> None:
         self.triggered = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyChoice:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    devices_used: int
+
+
+class ElasticTopology:
+    """Pick the best mesh for however many ranks are currently alive.
+
+    Preference: keep the model axis as requested, shrink/grow data
+    parallelism — losing a host should cost throughput, not the run.
+    """
+
+    def __init__(self, model_parallel: int = 16,
+                 axes: Tuple[str, ...] = ("data", "model")):
+        self.model_parallel = model_parallel
+        self.axes = axes
+
+    def choose(self, n_devices: int) -> TopologyChoice:
+        mp = self.model_parallel
+        while mp > 1 and n_devices % mp:
+            mp //= 2
+        dp = n_devices // mp
+        return TopologyChoice(shape=(dp, mp), axes=("data", "model"),
+                              devices_used=dp * mp)
+
+    def make_mesh(self, n_devices: Optional[int] = None,
+                  device_type: str = "cuda"):
+        """A ``DeviceMesh`` of :meth:`choose`'s shape over ranks
+        0 .. devices_used - 1 of the world (all of it by default)."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        n = dist.get_world_size() if n_devices is None else n_devices
+        choice = self.choose(n)
+        ranks = torch.arange(choice.devices_used).reshape(choice.shape)
+        return DeviceMesh(device_type, ranks, mesh_dim_names=choice.axes)
+
+
+def reshard_state(state, mesh, spec_fn):
+    """Re-place a state tree onto a new mesh.
+
+    ``spec_fn(path, leaf) -> PartitionSpec`` supplies the target layout
+    (path in keystr form); a ``DTensor`` leaf is redistributed to it, a
+    plain tensor distributed from this rank's copy."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.distributed.shardings import ShardingRules
+    from repro_torch.distributed.specs import map_with_path
+    names = tuple(mesh.mesh_dim_names)
+    rules = ShardingRules(mesh_axes=names,
+                          mesh_shape=dict(zip(names, mesh.shape)), mesh=mesh)
+
+    def one(path, leaf):
+        pl = rules.placements(spec_fn(path, leaf))
+        if isinstance(leaf, DTensor):
+            if leaf.device_mesh == mesh:
+                return leaf.redistribute(mesh, pl)
+            # another mesh: through the whole value (every rank holds it)
+            return distribute_tensor(leaf.full_tensor(), mesh, pl)
+        return distribute_tensor(leaf, mesh, pl)
+
+    return map_with_path(one, state)

@@ -30,7 +30,7 @@ _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p, _LL, _LL, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_void_p, _LL, _LL, _LL, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_void_p, _LL, _LL, _LL,
-              ctypes.c_void_p, ctypes.c_void_p, _LL, _LL]
+              ctypes.c_void_p, ctypes.c_void_p, _LL, _LL, ctypes.c_void_p]
              + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 # dtype codes of the C entry points
@@ -83,13 +83,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     softcap: Optional[float] = None,
+                     return_lse: bool = False):
     """q (B, Hq, D) fp32 or bf16 (D a multiple of 16 up to 256, 16-byte
     aligned rows); k/v (B, Hkv, T, D) of q's dtype, or int8 with
     ``k_scale``/``v_scale`` (B, Hkv, T) fp32 dequantized in q's dtype;
     kv_len (B,) int32
-    -> (B, Hq, D) in q's dtype.  Launches the CUDA kernel on the current
-    stream; every call counts in ``decode_attention.launches``."""
+    -> (B, Hq, D) in q's dtype; with ``return_lse`` also each (row,
+    q-head)'s natural log-sum-exp of its scores, (B, Hq) fp32 (-inf for a
+    row with no key), written by the same launch.  Launches the CUDA
+    kernel on the current stream; every call counts in
+    ``decode_attention.launches``."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"q must be (B, Hq, D) and k/v (B, Hkv, T, D), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -128,8 +132,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         check_bf16_operands(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if b == 0 or hq == 0:
-        return out
+        return (out, lse) if return_lse else out
     sst = k_scale.stride() if q8 else (0, 0, 0)
     fn = build.c_function("decode_attention", "decode_attention", _ARGTYPES)
     build.launch(fn, dev.index,
@@ -139,10 +145,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  k_scale.data_ptr() if q8 else 0,
                  v_scale.data_ptr() if q8 else 0, *sst,
                  kv_len.data_ptr(), out.data_ptr(), out.stride(0),
-                 out.stride(1), b, hq, hkv, t, d, 1.0 / math.sqrt(d),
+                 out.stride(1), lse.data_ptr() if return_lse else 0,
+                 b, hq, hkv, t, d, 1.0 / math.sqrt(d),
                  float(softcap or 0.0))
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

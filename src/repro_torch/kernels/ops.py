@@ -3,7 +3,10 @@
 The tensor decides the route, and nothing else does: a CPU tensor runs the
 plain PyTorch version (:mod:`repro_torch.kernels.ref`), a CUDA tensor
 launches the hand-written kernel (or the wrapper raises on what the
-kernel does not take).  There is no fallback and no mode switch.
+kernel does not take).  There is no fallback and no mode switch.  A meta
+tensor runs the plain version too: a shape-only trace (the dry-run's),
+which computes nothing.  A ``DTensor`` raises: the sharded path calls the
+wrappers on local shards (:mod:`repro_torch.distributed.local`).
 
 Each kernel wrapper counts its launches; :func:`launch_counts` reads the
 counts and :func:`reset_launch_counts` zeroes them, so a run can show
@@ -28,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.shardings import is_dtensor
 from repro_torch.kernels import decode_attention as _dense_decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import hete_matmul as _mm
@@ -46,8 +50,23 @@ _PLAIN = {"plain_dense_attention": 0, "plain_ssd_scan": 0}
 def count_plain(name: str, t: torch.Tensor) -> None:
     """Count one call of the plain branch ``name`` (a key of the counts
     :func:`launch_counts` reads) when ``t`` lies on the card."""
-    if _route(t) == "cuda":
+    if t.device.type == "cuda":
         _PLAIN[name] += 1
+
+
+# the per-call observer, None by default: an object whose
+# ``kernel_call(name, fn, ref_fn, route, args, kwargs)`` makes the call
+# (``fn``) and returns its result.  The dry-run's cost counter
+# (repro_torch.analysis.hlo_cost.CostMode) sets itself here while it is on
+_observer = None
+
+
+def set_observer(obs):
+    """Make ``obs`` (or None) the per-call observer; returns the one it
+    replaces, for the caller to restore."""
+    global _observer
+    prev, _observer = _observer, obs
+    return prev
 
 
 _WRAPPERS = {
@@ -64,7 +83,11 @@ _WRAPPERS = {
 
 
 def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
+    if is_dtensor(t):
+        raise TypeError(
+            "a DTensor reached a kernel wrapper: call it on the local "
+            "shards (repro_torch.distributed.local)")
+    if t.device.type in ("cpu", "cuda", "meta"):
         return t.device.type
     raise ValueError(f"no kernel route for device {t.device}")
 
@@ -80,6 +103,20 @@ def _check_no_grad(name: str, *tensors) -> None:
             "call it under torch.no_grad()")
 
 
+def _run(name: str, ref_fn, kern_fn, *args, **kwargs):
+    """One wrapper call: the plain version on a CPU tensor (and on a meta
+    tensor: a shape-only trace), the kernel on a CUDA tensor.  With an
+    observer set (:func:`set_observer`) the call goes through it."""
+    route = _route(args[0])
+    fn = ref_fn
+    if route == "cuda":
+        _check_no_grad(name, *args, *kwargs.values())
+        fn = kern_fn
+    if _observer is None:
+        return fn(*args, **kwargs)
+    return _observer.kernel_call(name, fn, ref_fn, route, args, kwargs)
+
+
 def launch_counts() -> Dict[str, int]:
     return {**{name: fn.launches for name, fn in _WRAPPERS.items()},
             **_PLAIN}
@@ -93,79 +130,58 @@ def reset_launch_counts() -> None:
 
 
 def q8_matmul(x, q, scale):
-    if _route(x) == "cpu":
-        return _ref.q8_matmul(x, q, scale)
-    _check_no_grad("q8_matmul", x, q, scale)
-    return _q8.q8_matmul(x, q, scale)
+    return _run("q8_matmul", _ref.q8_matmul, _q8.q8_matmul, x, q, scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len, *,
                            k_scale=None, v_scale=None, softcap=None):
-    if _route(q) == "cpu":
-        return _ref.paged_decode_attention(
-            q, k_pages, v_pages, block_tables, kv_len,
-            k_scale=k_scale, v_scale=v_scale, softcap=softcap)
-    _check_no_grad("paged_decode_attention", q, k_pages, v_pages, k_scale, v_scale)
-    return _decode.paged_decode_attention(
-        q, k_pages, v_pages, block_tables, kv_len,
-        k_scale=k_scale, v_scale=v_scale, softcap=softcap)
+    return _run("paged_decode_attention", _ref.paged_decode_attention,
+                _decode.paged_decode_attention, q, k_pages, v_pages,
+                block_tables, kv_len, k_scale=k_scale, v_scale=v_scale,
+                softcap=softcap)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, kv_offset, *,
                             k_scale=None, v_scale=None, softcap=None,
                             window=None):
-    if _route(q) == "cpu":
-        return _ref.paged_prefill_attention(
-            q, k_pages, v_pages, block_tables, kv_offset,
-            k_scale=k_scale, v_scale=v_scale, softcap=softcap, window=window)
-    _check_no_grad("paged_prefill_attention", q, k_pages, v_pages, k_scale, v_scale)
-    return _prefill.paged_prefill_attention(
-        q, k_pages, v_pages, block_tables, kv_offset,
-        k_scale=k_scale, v_scale=v_scale, softcap=softcap, window=window)
+    return _run("paged_prefill_attention", _ref.paged_prefill_attention,
+                _prefill.paged_prefill_attention, q, k_pages, v_pages,
+                block_tables, kv_offset, k_scale=k_scale, v_scale=v_scale,
+                softcap=softcap, window=window)
 
 
 def decode_attention(q, k, v, kv_len, *, k_scale=None, v_scale=None,
-                     softcap=None):
-    if _route(q) == "cpu":
-        return _ref.decode_attention(q, k, v, kv_len, k_scale=k_scale,
-                                     v_scale=v_scale, softcap=softcap)
-    _check_no_grad("decode_attention", q, k, v, k_scale, v_scale)
-    return _dense_decode.decode_attention(q, k, v, kv_len, k_scale=k_scale,
-                                          v_scale=v_scale, softcap=softcap)
+                     softcap=None, return_lse=False):
+    """With ``return_lse``, also each (row, q-head)'s log-sum-exp of its
+    scaled (and softcapped) scores, fp32 (B, Hq): -inf for a row with no
+    key — what ranks holding parts of one row's keys combine."""
+    return _run("decode_attention", _ref.decode_attention,
+                _dense_decode.decode_attention, q, k, v, kv_len,
+                k_scale=k_scale, v_scale=v_scale, softcap=softcap,
+                return_lse=return_lse)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
-    if _route(q) == "cpu":
-        return _ref.flash_attention(q, k, v, causal=causal, window=window,
-                                    softcap=softcap)
-    _check_no_grad("flash_attention", q, k, v)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  softcap=softcap)
+    return _run("flash_attention", _ref.flash_attention,
+                _flash.flash_attention, q, k, v, causal=causal,
+                window=window, softcap=softcap)
 
 
 def rmsnorm(x, scale, *, eps=1e-6, plus_one=False):
-    if _route(x) == "cpu":
-        return _ref.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
-    _check_no_grad("rmsnorm", x, scale)
-    return _rms.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
+    return _run("rmsnorm", _ref.rmsnorm, _rms.rmsnorm, x, scale, eps=eps,
+                plus_one=plus_one)
 
 
 def ssd_chunk(x, dt, a, b, c, *, chunk):
-    if _route(x) == "cpu":
-        return _ref.ssd_chunk(x, dt, a, b, c, chunk=chunk)
-    _check_no_grad("ssd_chunk", x, dt, a, b, c)
-    return _ssd.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    return _run("ssd_chunk", _ref.ssd_chunk, _ssd.ssd_chunk, x, dt, a, b, c,
+                chunk=chunk)
 
 
 def matmul(x, w, bias=None, *, activation=None):
-    if _route(x) == "cpu":
-        return _ref.matmul(x, w, bias, activation=activation)
-    _check_no_grad("matmul", x, w, bias)
-    return _mm.matmul(x, w, bias, activation=activation)
+    return _run("matmul", _ref.matmul, _mm.matmul, x, w, bias,
+                activation=activation)
 
 
 def gated_matmul(x, w_gate, w_up, *, activation="silu"):
-    if _route(x) == "cpu":
-        return _ref.gated_matmul(x, w_gate, w_up, activation=activation)
-    _check_no_grad("gated_matmul", x, w_gate, w_up)
-    return _mm.gated_matmul(x, w_gate, w_up, activation=activation)
+    return _run("gated_matmul", _ref.gated_matmul, _mm.gated_matmul, x,
+                w_gate, w_up, activation=activation)

@@ -48,11 +48,13 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
 
 
 def decode_attention(q, k, v, kv_len, *, k_scale=None, v_scale=None,
-                     softcap=None):
+                     softcap=None, return_lse=False):
     """q (B,Hq,D); k/v (B,Hkv,S,D); kv_len (B,).  With ``k_scale`` /
     ``v_scale`` (B,Hkv,S) the cache is int8 and is dequantized in q's
     dtype (:func:`dequantize`).  Positions at or past ``kv_len`` never
-    reach the result, NaN included."""
+    reach the result, NaN included.  ``return_lse`` also gives each
+    (row, q-head)'s log-sum-exp of its scores (B,Hq) fp32, -inf where
+    ``kv_len`` is 0."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -70,7 +72,12 @@ def decode_attention(q, k, v, kv_len, *, k_scale=None, v_scale=None,
     sc = torch.where(mask[:, None, None], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bkgt,bktd->bkgd", p, vf)
-    return o.reshape(b, hq, d).to(q.dtype)
+    o = o.reshape(b, hq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(sc, dim=-1).reshape(b, hq)
+    lse = torch.where(mask.any(dim=-1)[:, None], lse, float("-inf"))
+    return o, lse
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):

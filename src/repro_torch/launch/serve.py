@@ -32,8 +32,10 @@ four streams.  Weights are random, from seed 0.
         --mode batch-offload --paged --requests 4
 
 ``--device`` defaults to ``cuda`` and ``--hw`` to ``h100`` (the port's
-fitted host spec).  ``--dryrun`` (with ``--shape``/``--mesh``) needs
-``launch/dryrun.py``, which the port does not have yet: it raises.
+fitted host spec).  ``--dryrun`` (with ``--shape``/``--mesh``) runs
+:func:`repro_torch.launch.dryrun.run_cell` for ``--arch`` on that cell
+instead, on ``--device`` (``meta`` for a shape-only trace), and returns
+its record.
 """
 
 from __future__ import annotations
@@ -123,12 +125,15 @@ def make_prompts(vocab: int, n: int, length: int,
 
 def serve(args: argparse.Namespace, params: Optional[Dict] = None) -> Dict:
     """Serve ``args.requests`` requests as the flags say and print the
-    run's summary; returns ``{"outputs", "stats"}``.  ``params`` replaces
+    run's summary; returns ``{"outputs", "stats"}`` (with ``--dryrun``,
+    the dry-run cell's record, or exit 1 when the cell failed).  ``params`` replaces
     the random weights (made on ``args.device`` from seed 0 when None)."""
     if args.dryrun:
-        raise NotImplementedError(
-            "--dryrun/--shape/--mesh need launch/dryrun.py, which is not "
-            "ported to repro_torch yet")
+        from repro_torch.launch.dryrun import run_cell
+        rec = run_cell(args.arch, args.shape, args.mesh, device=args.device)
+        if rec["status"] == "error":
+            raise SystemExit(1)
+        return rec
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.hw import HARDWARE

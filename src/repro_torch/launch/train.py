@@ -8,9 +8,11 @@ Trains ``--arch`` (``--reduced`` for its smoke-scale variant) on the
 synthetic corpus of :mod:`repro_torch.data.pipeline` through
 :class:`repro_torch.train.loop.Trainer`, with checkpoints every
 ``--ckpt-every`` steps under ``--ckpt-dir`` (resuming from the newest one
-there).  ``--device`` defaults to ``cuda``.  ``--dryrun`` and ``--mesh``
-need ``launch/dryrun.py``, which the port does not have yet: they exit
-with an error.
+there).  ``--device`` defaults to ``cuda``.  ``--dryrun`` (or ``--mesh``)
+runs :func:`repro_torch.launch.dryrun.run_cell` for ``--arch`` on the
+``train_4k`` cell of that mesh (``single`` by default) instead, on
+``--device`` (``meta`` for a shape-only trace), and exits 1 unless its
+status is ``ok``.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="device to train on (cuda | cpu)")
     ap.add_argument("--dryrun", action="store_true",
-                    help="lower train_4k on a production mesh "
-                         "(needs launch/dryrun.py)")
+                    help="trace rank 0's train_4k step on a production "
+                         "mesh (launch/dryrun.py)")
     ap.add_argument("--mesh", choices=("single", "multi"), default=None)
     return ap
 
@@ -45,9 +47,12 @@ def train(args: argparse.Namespace) -> None:
     """Run the flags' training; prints the config line and the loss from
     the first step to the last."""
     if args.dryrun or args.mesh:
-        raise SystemExit(
-            "--dryrun/--mesh need launch/dryrun.py, which is not ported "
-            "to repro_torch yet")
+        from repro_torch.launch.dryrun import run_cell
+        rec = run_cell(args.arch, "train_4k", args.mesh or "single",
+                       device=args.device)
+        if rec["status"] != "ok":
+            raise SystemExit(1)
+        return
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.pipeline import make_training_data
     from repro_torch.train.loop import TrainConfig, Trainer

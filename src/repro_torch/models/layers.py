@@ -19,6 +19,11 @@ a kernel (:func:`apply_norm`, :func:`gqa_qkv`, the MLA projections,
 :func:`mlp`, :func:`moe`): the kernels have no backward, so training runs
 the JAX package's plain forms on every device, as its ``forward_train``
 does.  :func:`moe_aux_loss` is the training path's load-balancing term.
+
+``rules`` (a :class:`repro_torch.distributed.shardings.ShardingRules`)
+places activations where the JAX package annotates them; ``NO_RULES``
+(the default) changes nothing.  On ``DTensor`` operands every kernel runs
+on the local shards (:mod:`repro_torch.distributed.local`).
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import local as DL
+from repro_torch.distributed.shardings import (NO_RULES, ShardingRules,
+                                               is_dtensor)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
 
@@ -50,9 +58,13 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float,
             plus_one: bool = False, plain: bool = False) -> torch.Tensor:
-    """RMSNorm through the kernel, or its plain form with ``plain``."""
-    fn = R.rmsnorm if plain else K.rmsnorm
-    return fn(x, scale, eps=eps, plus_one=plus_one)
+    """RMSNorm through the kernel (on the local shards of a ``DTensor``),
+    or its plain form with ``plain``."""
+    if plain:
+        return R.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
+    if is_dtensor(x):
+        return DL.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
+    return K.rmsnorm(x, scale, eps=eps, plus_one=plus_one)
 
 
 def apply_norm(cfg, p: Dict, x: torch.Tensor, *,
@@ -74,6 +86,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     half = d // 2
     freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                          device=x.device) / half))
+    if is_dtensor(positions):
+        freq = DL.as_dtensor(freq, positions.device_mesh)
     ang = positions[..., None].float() * freq                  # (..., S, half)
     ang = ang[..., None, :]                                    # (..., S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -97,18 +111,24 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
     """(B, Sq, Skv) additive bias from position/validity constraints."""
     qp = q_pos[..., :, None].long()
     kp = kv_pos[..., None, :].long()
-    ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
-                    dtype=torch.bool, device=qp.device)
+    ok = (kp >= 0) & (qp == qp)            # (B, Sq, Skv), all kv_pos >= 0
     if causal:
-        ok &= kp <= qp
+        ok = ok & (kp <= qp)
     if window is not None:
-        ok &= kp > qp - window
+        ok = ok & (kp > qp - window)
     if kv_len is not None:
         kl = torch.as_tensor(kv_len, device=qp.device).long()
-        ok &= kp < kl[..., None, None]
-    ok &= kp >= 0
-    zero = torch.zeros((), dtype=torch.float32, device=qp.device)
-    return torch.where(ok, zero, NEG_INF)
+        ok = ok & (kp < kl[..., None, None])
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _heads_split(q) -> int:
+    """Over how many ranks a ``DTensor`` q (B, S, H, D) splits its heads."""
+    n = 1
+    for i, p in enumerate(q.placements):
+        if p.is_shard() and p.dim == 2:
+            n *= q.device_mesh.size(i)
+    return n
 
 
 def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,7 +137,15 @@ def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,Sq,Hq,D); k/v as :func:`attention`; bias (B,Sq,Skv)
     -> (B,Sq,Hq,D)."""
     b, sq, hq, d = q.shape
-    hkv = k.shape[2] if kv_format == "bthd" else k.shape[1]
+    hdim = 2 if kv_format == "bthd" else 1
+    hkv = k.shape[hdim]
+    if is_dtensor(q) and hkv != hq and hkv % _heads_split(q):
+        # q's heads are split finer than the kv heads: each kv head
+        # repeated over its group (the same products), so the q heads'
+        # sharding carries over to the keys
+        k = k.repeat_interleave(hq // hkv, dim=hdim)
+        v = v.repeat_interleave(hq // hkv, dim=hdim)
+        hkv = hq
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, d).float()
     kspec = "btkd" if kv_format == "bthd" else "bktd"
@@ -135,7 +163,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_positions: torch.Tensor, kv_positions: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               attn_softcap: Optional[float] = None, kv_len=None,
-              chunk_q: int = 1024, kv_format: str = "bthd") -> torch.Tensor:
+              chunk_q: int = 1024, kv_format: str = "bthd",
+              rules: ShardingRules = NO_RULES) -> torch.Tensor:
     """Masked multi-head attention with GQA, windows and softcap.
 
     q (B,Sq,Hq,D); k/v (B,Skv,Hkv,D) ["bthd"] or (B,Hkv,Skv,D) ["bhtd"]
@@ -152,13 +181,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         bias = _mask_bias(qp, kvp, causal=causal, window=window,
                           kv_len=kv_len)
         return _attend_block(q, k, v, bias, attn_softcap, kv_format)
-    out = torch.empty_like(q)
+    chunks = []
     for s0 in range(0, sq, chunk_q):
         bias = _mask_bias(qp[:, s0:s0 + chunk_q], kvp, causal=causal,
                           window=window, kv_len=kv_len)
-        out[:, s0:s0 + chunk_q] = _attend_block(
-            q[:, s0:s0 + chunk_q], k, v, bias, attn_softcap, kv_format)
-    return out
+        chunks.append(_attend_block(q[:, s0:s0 + chunk_q], k, v, bias,
+                                    attn_softcap, kv_format))
+    return rules.act(torch.cat(chunks, dim=1), "batch", "seq", "heads",
+                     None)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +196,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def gqa_qkv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
-            linear=None, *, plain: bool = False
+            rules: ShardingRules = NO_RULES, linear=None, *,
+            plain: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project to q/k/v (with optional bias, qk-norm, rope).
 
@@ -180,30 +211,38 @@ def gqa_qkv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
         k = linear(x, "wk").reshape(b, s, hkv, hd)
         v = linear(x, "wv").reshape(b, s, hkv, hd)
     else:
-        q = (x @ p["wq"]).reshape(b, s, hq, hd)
-        k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-        v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+        q = DL.split_last(DL.matmul(x, p["wq"]), (hq, hd))
+        k = DL.split_last(DL.matmul(x, p["wk"]), (hkv, hd))
+        v = DL.split_last(DL.matmul(x, p["wv"]), (hkv, hd))
         if cfg.attn_bias:
-            q = q + p["bq"].reshape(hq, hd)
-            k = k + p["bk"].reshape(hkv, hd)
-            v = v + p["bv"].reshape(hkv, hd)
+            q = q + DL.split_last(p["bq"], (hq, hd))
+            k = k + DL.split_last(p["bk"], (hkv, hd))
+            v = v + DL.split_last(p["bv"], (hkv, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], eps=cfg.norm_eps, plain=plain)
         k = rmsnorm(k, p["k_norm"], eps=cfg.norm_eps, plain=plain)
     if cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if s > 1:
+        # decode (s == 1) skips these, as the JAX package does: with a
+        # seq-sharded cache the useful layout follows the cache
+        q = rules.act(q, "batch", "seq", "heads", None)
+        k = rules.act(k, "batch", "seq", "kv_heads", None)
+        v = rules.act(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
-def attn_out(cfg, p: Dict, o: torch.Tensor, linear=None) -> torch.Tensor:
+def attn_out(cfg, p: Dict, o: torch.Tensor, rules: ShardingRules = NO_RULES,
+             linear=None) -> torch.Tensor:
     b, s, hq, hd = o.shape
     if linear is not None:
-        return linear(o.reshape(b, s, hq * hd), "wo")
-    y = o.reshape(b, s, hq * hd) @ p["wo"]
-    if cfg.attn_bias:
-        y = y + p["bo"]
-    return y
+        y = linear(o.reshape(b, s, hq * hd), "wo")
+    else:
+        y = DL.matmul(DL.merge_last(o), p["wo"])
+        if cfg.attn_bias:
+            y = y + p["bo"]
+    return rules.act(y, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +257,7 @@ def mla_project_q(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
     h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     ql = rmsnorm(x @ p["wq_a"], p["q_a_norm"], eps=cfg.norm_eps,
                  plain=plain)
-    q = (ql @ p["wq_b"]).reshape(b, s, h, dn + dr)
+    q = DL.split_last(DL.matmul(ql, p["wq_b"]), (h, dn + dr))
     return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -238,7 +277,8 @@ def mla_latent_kv(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
 def mla_attend(cfg, p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
                latent: torch.Tensor, k_rope: torch.Tensor, *,
                q_positions, kv_positions, kv_len=None,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True,
+               rules: ShardingRules = NO_RULES) -> torch.Tensor:
     """Attention over the compressed cache through the weight-absorption
     identity ``(q_nope @ Wk) . latent == (q_nope @ Wk_absorbed) . latent``:
     scores are computed in the R-dim latent space and values expanded once
@@ -249,8 +289,8 @@ def mla_attend(cfg, p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
     b, sq, h, dn = q_nope.shape
     skv = latent.shape[1]
     r, dv = cfg.kv_lora_rank, cfg.v_head_dim
-    wk = p["wk_b"].reshape(r, h, dn)                    # latent -> k_nope
-    wv = p["wv_b"].reshape(r, h, dv)                    # latent -> v
+    wk = DL.split_last(p["wk_b"], (h, dn))              # latent -> k_nope
+    wv = DL.split_last(p["wv_b"], (h, dv))              # latent -> v
     scale = 1.0 / math.sqrt(dn + cfg.qk_rope_dim)
     bias = _mask_bias(q_positions.expand(b, sq), kv_positions.expand(b, skv),
                       causal=causal, window=None, kv_len=kv_len)
@@ -262,7 +302,8 @@ def mla_attend(cfg, p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
     o_lat = torch.einsum("bhst,btr->bshr", probs.to(latent.dtype).float(),
                          latent.float()).to(latent.dtype)
     o = torch.einsum("bshr,rhd->bshd", o_lat, wv)
-    return o.reshape(b, sq, h * dv) @ p["wo"]
+    return rules.act(DL.matmul(DL.merge_last(o), p["wo"]), "batch", "seq",
+                     "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -282,15 +323,24 @@ def mlp_in(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     sum and one cast, where the JAX package's jnp dots round each product
     to the model dtype before the activation (the same numbers in fp32)."""
     kind = cfg.mlp_kind
-    x2 = x.reshape(-1, x.shape[-1])
-    if kind.startswith("gated"):
-        h = K.gated_matmul(x2, p["w_gate"], p["w_up"],
-                           activation="silu" if kind == "gated_silu"
-                           else "gelu")
+    gated = kind.startswith("gated")
+    bias = None
+    if gated:
+        act = "silu" if kind == "gated_silu" else "gelu"
     else:
         bias = p.get("b_in") if cfg.attn_bias else None
-        h = K.matmul(x2, p["w_in"], bias,
-                     activation=kind if kind in ("relu2", "gelu") else "relu")
+        act = kind if kind in ("relu2", "gelu") else "relu"
+    if is_dtensor(x):
+        if gated:
+            return DL.mlp_in(x, p["w_gate"], p["w_up"], activation=act,
+                             gated=True)
+        return DL.mlp_in(x, p["w_in"], bias=bias, activation=act,
+                         gated=False)
+    x2 = x.reshape(-1, x.shape[-1])
+    if gated:
+        h = K.gated_matmul(x2, p["w_gate"], p["w_up"], activation=act)
+    else:
+        h = K.matmul(x2, p["w_in"], bias, activation=act)
     return h.reshape(*x.shape[:-1], h.shape[-1])
 
 
@@ -306,8 +356,8 @@ def _resident_linear(cfg, p: Dict):
     return linear
 
 
-def mlp(cfg, p: Dict, x: torch.Tensor, linear=None, *,
-        plain: bool = False) -> torch.Tensor:
+def mlp(cfg, p: Dict, x: torch.Tensor, rules: ShardingRules = NO_RULES,
+        linear=None, *, plain: bool = False) -> torch.Tensor:
     """The MLP block.  Where ``p`` holds the first stage's weights (the
     stacked whole model's layer, or the per-layer dict of a backend that
     holds its weights whole on the device) that stage runs fused
@@ -333,12 +383,14 @@ def mlp(cfg, p: Dict, x: torch.Tensor, linear=None, *,
             h = _gelu(h)
         else:
             h = torch.relu(h)
+    h = rules.act(h, "batch", "seq", "ff")
     if linear is not None:
-        return linear(h, "w_down")
-    y = h @ p["w_down"]
-    if cfg.attn_bias and "b_down" in p:
-        y = y + p["b_down"]
-    return y
+        y = linear(h, "w_down")
+    else:
+        y = DL.matmul(h, p["w_down"])
+        if cfg.attn_bias and "b_down" in p:
+            y = y + p["b_down"]
+    return rules.act(y, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +414,8 @@ def moe_route(cfg, p: Dict, x: torch.Tensor, *, capacity: int):
     return idx, gate, slot, slot < capacity
 
 
-def _experts(cfg, p: Dict, xin: torch.Tensor) -> torch.Tensor:
+def _experts(cfg, p: Dict, xin: torch.Tensor,
+             rules: ShardingRules = NO_RULES) -> torch.Tensor:
     """Every expert's MLP over its buffer: xin (E, C, d) -> (E, C, d), the
     products in the model dtype (plain PyTorch: the JAX package's expert
     einsums run outside any Pallas kernel)."""
@@ -372,10 +425,12 @@ def _experts(cfg, p: Dict, xin: torch.Tensor) -> torch.Tensor:
         h = act(torch.bmm(xin, p["we_gate"])) * torch.bmm(xin, p["we_up"])
     else:
         h = torch.relu(torch.bmm(xin, p["we_in"]))
+    h = rules.act(h, "experts", None, None)
     return torch.bmm(h, p["we_down"])
 
 
-def _dispatch(cfg, p: Dict, xg: torch.Tensor, capacity: int) -> torch.Tensor:
+def _dispatch(cfg, p: Dict, xg: torch.Tensor, capacity: int,
+              rules: ShardingRules = NO_RULES) -> torch.Tensor:
     """Route the tokens of xg (G, n, d) into per-(group, expert) buffers of
     ``capacity`` rows, run the experts and combine: y (G, n, d), each kept
     token's expert output times its gate (rounded to the model dtype), a
@@ -385,6 +440,9 @@ def _dispatch(cfg, p: Dict, xg: torch.Tensor, capacity: int) -> torch.Tensor:
     g, n, d = xg.shape
     e = cfg.n_experts
     idx, gate, slot, keep = moe_route(cfg, p, xg, capacity=capacity)
+    if is_dtensor(xg):
+        return _dispatch_onehot(cfg, p, xg, idx, gate, slot, keep, capacity,
+                                rules)
     rows = g * e * capacity
     grp = torch.arange(g, device=xg.device)[:, None]
     flat = torch.where(keep, (grp * e + idx) * capacity + slot,
@@ -393,7 +451,9 @@ def _dispatch(cfg, p: Dict, xg: torch.Tensor, capacity: int) -> torch.Tensor:
     buf[flat.reshape(-1)] = xg.reshape(-1, d)
     xin = buf[:rows].reshape(g, e, capacity, d).transpose(0, 1) \
         .reshape(e, g * capacity, d)
-    xout = _experts(cfg, p, xin).reshape(e, g, capacity, d).transpose(0, 1)
+    xin = rules.act(xin, "experts", None, "embed")
+    xout = rules.act(_experts(cfg, p, xin, rules), "experts", None, "embed")
+    xout = xout.reshape(e, g, capacity, d).transpose(0, 1)
     out = torch.cat([xout.reshape(rows, d),
                      torch.zeros((1, d), dtype=xout.dtype,
                                  device=xout.device)])
@@ -401,8 +461,35 @@ def _dispatch(cfg, p: Dict, xg: torch.Tensor, capacity: int) -> torch.Tensor:
     return gate.to(xg.dtype)[..., None] * y
 
 
-def moe(cfg, p: Dict, x: torch.Tensor, *, plain: bool = False
-        ) -> torch.Tensor:
+def _dispatch_onehot(cfg, p: Dict, xg, idx, gate, slot, keep,
+                     capacity: int, rules: ShardingRules) -> torch.Tensor:
+    """:func:`_dispatch` over ``DTensor``s, by the JAX package's one-hot
+    dispatch / combine einsums (a 0/1 mask (G, n, E, C)): each kept
+    token's row is selected exactly, and the einsums shard over groups and
+    experts where the scatter could not."""
+    g, n, d = xg.shape
+    e = cfg.n_experts
+    mask = (F.one_hot(idx, e)[..., None]
+            * F.one_hot(slot.clamp(0, capacity - 1), capacity)[..., None, :]
+            * keep[..., None, None]).to(xg.dtype)           # (G, n, E, C)
+    xin = torch.einsum("gnec,gnd->egcd", mask, xg).reshape(
+        e, g * capacity, d)
+    xin = rules.act(xin, "experts", None, "embed")
+    xout = rules.act(_experts(cfg, p, xin, rules), "experts", None, "embed")
+    y = torch.einsum("gnec,egcd->gnd", mask,
+                     xout.reshape(e, g, capacity, d))
+    return gate.to(xg.dtype)[..., None] * y
+
+
+def _moe_decode(cfg, p: Dict, x: torch.Tensor,
+                rules: ShardingRules = NO_RULES) -> torch.Tensor:
+    """Single-token routing over x (B, 1, d): dropless, capacity = B."""
+    b = x.shape[0]
+    return _dispatch(cfg, p, x[:, 0][None], b, rules)[0][:, None]
+
+
+def moe(cfg, p: Dict, x: torch.Tensor, rules: ShardingRules = NO_RULES, *,
+        plain: bool = False) -> torch.Tensor:
     """Top-1 routed experts with an optional always-on shared expert.
 
     Prefill (S > 1) routes in groups of ``moe_group_size`` tokens, each
@@ -413,30 +500,29 @@ def moe(cfg, p: Dict, x: torch.Tensor, *, plain: bool = False
     through the ``gated_matmul`` kernel on the card, unless ``plain``)."""
     b, s, d = x.shape
     if s == 1:
-        y = _dispatch(cfg, p, x[:, 0][None], b)[0][:, None]
+        y = _moe_decode(cfg, p, x, rules)
     else:
         tokens = b * s
         n_groups = max(tokens // min(cfg.moe_group_size, tokens), 1)
         gs = tokens // n_groups
         cap = max(1, int(math.ceil(gs * cfg.capacity_factor * cfg.top_k
                                    / cfg.n_experts)))
-        y = _dispatch(cfg, p, x.reshape(n_groups, gs, d), cap
-                      ).reshape(b, s, d)
+        xg = rules.act(x.reshape(n_groups, gs, d), "expert_group", None,
+                       "embed")
+        y = _dispatch(cfg, p, xg, cap, rules).reshape(b, s, d)
     if cfg.shared_expert:
         y = y + mlp(cfg, {"w_gate": p["ws_gate"], "w_up": p["ws_up"],
-                          "w_down": p["ws_down"]}, x, plain=plain)
-    return y
+                          "w_down": p["ws_down"]}, x, rules, plain=plain)
+    return rules.act(y, "batch", "seq", "embed")
 
 
 def moe_aux_loss(cfg, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Switch-style load-balancing loss over x (B, S, d): E times the sum
     over experts of (share of tokens routed there) x (mean router
     probability), the training path's aux term."""
-    d = x.shape[-1]
-    logits = x.reshape(-1, d) @ p["router"].to(x.dtype)
-    probs = torch.softmax(logits.float(), dim=-1)
-    idx = torch.argmax(probs, dim=-1)
     e = cfg.n_experts
-    frac_tokens = torch.mean(F.one_hot(idx, e).float(), dim=0)
-    frac_probs = torch.mean(probs, dim=0)
+    probs = torch.softmax((x @ p["router"].to(x.dtype)).float(), dim=-1)
+    idx = torch.argmax(probs, dim=-1)
+    frac_tokens = torch.mean(F.one_hot(idx, e).float(), dim=(0, 1))
+    frac_probs = torch.mean(probs, dim=(0, 1))
     return e * torch.sum(frac_tokens * frac_probs)

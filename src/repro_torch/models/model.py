@@ -64,18 +64,31 @@ the page pools are device tensors that the layer writes into
 functionally.  The returned cache dict holds the same tensors.  No cache
 write or route decision of a decode step reads a device value on the
 host.
+
+``rules`` (:class:`repro_torch.distributed.shardings.ShardingRules`) is
+the JAX package's sharding hook: with ``NO_RULES`` (the default) nothing
+changes; with rules for a mesh, over parameters, caches and batches placed
+as ``DTensor``s by :mod:`repro_torch.distributed.specs`, every activation
+is placed where the JAX package annotates it, the plain ops propagate the
+shardings and issue the collectives, and every kernel runs on the local
+shards (:mod:`repro_torch.distributed.local`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed import local as DL
+from repro_torch.distributed.shardings import (NO_RULES, ShardingRules,
+                                               is_dtensor)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
 from repro_torch.models import layers as L
@@ -144,10 +157,13 @@ def init_params(cfg: ModelConfig,
     """Random params for any family the whole model runs, drawn from
     ``generator`` (a ``torch.Generator`` on ``device``, or an int seed).
     Same tree layout as the JAX package's ``init_params``; the numbers
-    differ (the two frameworks' generators do)."""
+    differ (the two frameworks' generators do).  ``device="meta"`` gives
+    the tree's shapes and dtypes, nothing allocated."""
     _check_whole_model(cfg)
     dev = resolve_device(device)
-    if isinstance(generator, int):
+    if dev.type == "meta":
+        generator = None
+    elif isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     dt = torch_dtype(cfg)
 
@@ -347,30 +363,43 @@ def tree_to(tree, device):
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+def embed_tokens(cfg, params, tokens: torch.Tensor,
+                 rules: ShardingRules = NO_RULES) -> torch.Tensor:
+    emb = params["embed"]
+    if is_dtensor(emb) and not (torch.is_grad_enabled()
+                                and emb.requires_grad):
+        # a vocab-sharded table: each rank looks up its rows, one sum (a
+        # differentiated lookup indexes the gathered table instead: the
+        # masked sum has no backward there)
+        x = F.embedding(tokens.long(), emb)
+    else:
+        x = emb[tokens.long()]
     if cfg.emb_scale:
         # sqrt(d) in the model dtype, as the JAX package rounds it
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    return rules.act(x, "batch", "seq", "embed")
 
 
-def embed_inputs(cfg, params, batch: Dict) -> torch.Tensor:
+def embed_inputs(cfg, params, batch: Dict,
+                 rules: ShardingRules = NO_RULES) -> torch.Tensor:
     """The trunk's input (B, S, d): ``batch["embeds"]`` cast to the model
     dtype where the config takes embeddings (the VLM's patch embeddings)
     and the batch holds them, else the token embeddings of
     ``batch["tokens"]``."""
     if cfg.embeds_input and "embeds" in batch:
-        return batch["embeds"].to(torch_dtype(cfg))
-    return embed_tokens(cfg, params, batch["tokens"])
+        return rules.act(batch["embeds"].to(torch_dtype(cfg)), "batch",
+                         "seq", "embed")
+    return embed_tokens(cfg, params, batch["tokens"], rules)
 
 
-def lm_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg, params, x: torch.Tensor,
+              rules: ShardingRules = NO_RULES) -> torch.Tensor:
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T             # OPT ties the head to embed
-    logits = x @ head
-    return L.softcap(logits.float(), cfg.logit_softcap)
+    logits = DL.matmul(x, head)
+    logits = L.softcap(logits.float(), cfg.logit_softcap)
+    return rules.act(logits, "batch", "seq", "vocab")
 
 
 def _add_learned_pos(cfg, params, x, positions):
@@ -403,7 +432,10 @@ def _update_kv(buf: torch.Tensor, new: torch.Tensor,
     position axis ``dim`` (1: (B, T, H, ...); 2: (B, H, T, ...)), in
     place.  ``cur_len`` is a scalar (clamped like
     ``lax.dynamic_update_slice``) or a (B,) per-slot vector (positions past
-    the buffer are dropped)."""
+    the buffer are dropped).  A ``DTensor`` buffer is written on each
+    rank's shard (:func:`repro_torch.distributed.local.update_kv`)."""
+    if is_dtensor(buf):
+        return DL.update_kv(buf, new, cur_len, dim)
     b, s = new.shape[:2]
     t = buf.shape[dim]
     new = new.to(buf.dtype)
@@ -522,7 +554,7 @@ def _positions_from(cur_len: torch.Tensor, b: int, s: int) -> torch.Tensor:
 def _apply_attn_layer(cfg, p, x, positions, *, kind: str, kv_cache,
                       cur_len, linear=None, norm_fn=None, attend_fn=None,
                       block_tables=None, paged_attend_fn=None,
-                      route: str):
+                      route: str, rules: ShardingRules = NO_RULES):
     """Pre-norm attention + residual over a per-layer cache.  Returns
     (x, new_kv_cache).
 
@@ -534,7 +566,7 @@ def _apply_attn_layer(cfg, p, x, positions, *, kind: str, kv_cache,
     window = cfg.window if kind == "local" else None
     norm = norm_fn or (lambda pp, h: L.apply_norm(cfg, pp, h))
     h = norm(p["ln1"], x)
-    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, linear=linear)
+    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, rules, linear=linear)
     if block_tables is not None:
         if len(kv_cache) == 4:          # q8 pools: int8 pages + scales
             k_pg, v_pg, ks_pg, vs_pg = kv_cache
@@ -558,7 +590,7 @@ def _apply_attn_layer(cfg, p, x, positions, *, kind: str, kv_cache,
         out = attend(q, k_buf, v_buf, positions, cur_len + k.shape[1],
                      window, route)
         new_cache = (k_buf, v_buf)
-    out = L.attn_out(cfg, p["attn"], out, linear=linear)
+    out = L.attn_out(cfg, p["attn"], out, rules, linear=linear)
     if cfg.post_norm:
         out = norm(p["ln1_post"], out)
     return x + out, new_cache
@@ -577,14 +609,19 @@ def attention_route(cur_len: torch.Tensor, s: int) -> str:
 
     Decode in a windowed layer also stays plain (:func:`_dense_attend`).
     The rule reads shapes and lengths only: a kernel that fails to build
-    or launch raises rather than falling back."""
+    or launch raises rather than falling back.  On the meta device (a
+    shape-only trace) a prefill is one into an empty cache, as the
+    dry-run's inputs are."""
     if s == 1:
         return "decode"
+    if cur_len.device.type == "meta":
+        return "prefill"
     return "prefill" if bool((cur_len == 0).all()) else "plain"
 
 
 def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
-                  *, layout: str = "bthd", k_scale=None, v_scale=None):
+                  *, layout: str = "bthd", k_scale=None, v_scale=None,
+                  fresh=None):
     """Attention of q (B, s, Hq, D) over a dense cache along ``route``.
 
     ``layout`` "bthd": k/v (B, T, Hkv, D) (the backend's per-layer
@@ -592,25 +629,37 @@ def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
     ``k_scale``/``v_scale`` (B, Hkv, T) mark an int8 cache, which every
     route dequantizes in the model dtype, as the JAX package's stacked
     path does.  The kernels read either layout through strides; nothing is
-    copied into the other one."""
+    copied into the other one.
+
+    On ``DTensor``s the kernels run on the local shards
+    (:mod:`repro_torch.distributed.local`); a prefill there attends over
+    ``fresh`` — the (k, v) (B, s, Hkv, D) just written, equal to the
+    cache's first s positions of an fp cache — rather than slicing a cache
+    that may be sharded along its sequence."""
     b, s = q.shape[:2]
+    sharded = is_dtensor(q)
     kh = k_buf.transpose(1, 2) if layout == "bthd" else k_buf
     vh = v_buf.transpose(1, 2) if layout == "bthd" else v_buf
     dt = q.dtype
     if route == "decode" and window is None:
         lens = torch.as_tensor(kv_len, device=q.device).to(torch.int32) \
             .expand(b).contiguous()
-        out = K.decode_attention(q[:, 0], kh, vh, lens, k_scale=k_scale,
-                                 v_scale=v_scale, softcap=cfg.attn_softcap)
+        dec = DL.decode_attention if sharded else K.decode_attention
+        out = dec(q[:, 0], kh, vh, lens, k_scale=k_scale, v_scale=v_scale,
+                  softcap=cfg.attn_softcap)
         return out[:, None]
     if route == "prefill":
-        kh, vh = kh[:, :, :s], vh[:, :, :s]
+        if sharded and fresh is not None and k_scale is None:
+            kh, vh = (t.to(dt).transpose(1, 2) for t in fresh)
+        else:
+            kh, vh = kh[:, :, :s], vh[:, :, :s]
         if k_scale is not None:
             # no int8 form of the kernel: dequantize the s positions
             kh = R.dequantize(kh, k_scale[:, :, :s], dt)
             vh = R.dequantize(vh, v_scale[:, :, :s], dt)
-        out = K.flash_attention(q.transpose(1, 2), kh, vh, causal=True,
-                                window=window, softcap=cfg.attn_softcap)
+        flash = DL.flash_attention if sharded else K.flash_attention
+        out = flash(q.transpose(1, 2), kh, vh, causal=True, window=window,
+                    softcap=cfg.attn_softcap)
         return out.transpose(1, 2)
     if k_scale is not None:
         kh, vh = R.dequantize(kh, k_scale, dt), R.dequantize(vh, v_scale, dt)
@@ -622,7 +671,8 @@ def _dense_attend(cfg, q, k_buf, v_buf, q_positions, kv_len, window, route,
                        kv_format="bhtd")
 
 
-def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None, *,
+def _apply_ffn(cfg, p, x, kind: str, rules: ShardingRules = NO_RULES,
+               linear=None, norm_fn=None, *,
                plain: bool = False, aux: Optional[torch.Tensor] = None):
     """Pre-norm FFN + residual.  ``plain`` runs the plain forms (the
     training path); with ``aux`` (a scalar) returns ``(x, aux)``, a MoE
@@ -630,19 +680,19 @@ def _apply_ffn(cfg, p, x, kind: str, linear=None, norm_fn=None, *,
     norm = norm_fn or (lambda pp, h: L.apply_norm(cfg, pp, h, plain=plain))
     h = norm(p["ln2"], x)
     if kind == "moe":
-        y = L.moe(cfg, p["moe"], h, plain=plain)
+        y = L.moe(cfg, p["moe"], h, rules, plain=plain)
         if aux is not None:
             aux = aux + L.moe_aux_loss(cfg, p["moe"], h)
     else:
-        y = L.mlp(cfg, p["mlp"], h, linear=linear, plain=plain)
+        y = L.mlp(cfg, p["mlp"], h, rules, linear=linear, plain=plain)
     if cfg.post_norm:
         y = norm(p["ln2_post"], y)
     return (x + y) if aux is None else (x + y, aux)
 
 
 def decoder_layer(cfg, p, x, positions, *, kv_cache, cur_len, linear,
-                  kind: str = "dense", ops: Optional[Dict] = None,
-                  block_tables=None, route: str):
+                  kind: str = "dense", rules: ShardingRules = NO_RULES,
+                  ops: Optional[Dict] = None, block_tables=None, route: str):
     """One full decoder layer (attention + FFN), backend-parameterized.
     Returns (x, new_kv_cache); see :func:`_apply_attn_layer`."""
     ops = ops or {}
@@ -652,8 +702,9 @@ def decoder_layer(cfg, p, x, positions, *, kv_cache, cur_len, linear,
                                   attend_fn=ops.get("attend"),
                                   block_tables=block_tables,
                                   paged_attend_fn=ops.get("paged_attend"),
-                                  route=route)
-    x = _apply_ffn(cfg, p, x, kind, linear=linear, norm_fn=ops.get("norm"))
+                                  route=route, rules=rules)
+    x = _apply_ffn(cfg, p, x, kind, rules, linear=linear,
+                   norm_fn=ops.get("norm"))
     return x, new_kv
 
 
@@ -886,7 +937,8 @@ def _stack_write_q8(stack, scale_stack, new, li, cur_len):
 
 
 def _apply_attn_layer_stacked(cfg, p, x, positions, *, kind: str, stacks,
-                              li: int, cur_len, route: str):
+                              li: int, cur_len, route: str,
+                              rules: ShardingRules = NO_RULES):
     """Pre-norm attention + residual against layer ``li`` of the stacked
     cache: the new rows are written in place and the layer's slice is
     attended along ``route`` (:func:`attention_route`).  ``stacks`` is
@@ -905,11 +957,11 @@ def _apply_attn_layer_stacked(cfg, p, x, positions, *, kind: str, stacks,
         out = L.mla_attend(cfg, p["attn"], q_nope, q_rope, lat_st[li],
                            kr_st[li], q_positions=positions,
                            kv_positions=kvpos[None],
-                           kv_len=cur_len + latent.shape[1])
+                           kv_len=cur_len + latent.shape[1], rules=rules)
         if cfg.post_norm:
             out = L.apply_norm(cfg, p["ln1_post"], out)
         return x + out
-    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions)
+    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, rules)
     if len(stacks) == 4:
         k_st, v_st, ks_st, vs_st = stacks
         _stack_write_q8(k_st, ks_st, k, li, cur_len)
@@ -922,15 +974,15 @@ def _apply_attn_layer_stacked(cfg, p, x, positions, *, kind: str, stacks,
         scales = {}
     out = _dense_attend(cfg, q, k_st[li], v_st[li], positions,
                         cur_len + k.shape[1], window, route, layout="bhtd",
-                        **scales)
-    out = L.attn_out(cfg, p["attn"], out)
+                        fresh=(k, v), **scales)
+    out = L.attn_out(cfg, p["attn"], out, rules)
     if cfg.post_norm:
         out = L.apply_norm(cfg, p["ln1_post"], out)
     return x + out
 
 
 def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
-                       route: str):
+                       route: str, rules: ShardingRules = NO_RULES):
     """The decoder stack as a loop over super-blocks and their pattern
     positions (the JAX package scans it), updating the stacked cache in
     place: the pattern position j of super-block g is layer g * period +
@@ -951,13 +1003,16 @@ def _transformer_trunk(cfg, params, x, positions, *, cache, cur_len,
             x = _apply_attn_layer_stacked(cfg, p_blk[f"pos{j}"], x,
                                           positions, kind=kinds[j],
                                           stacks=stacks, li=g,
-                                          cur_len=cur_len, route=route)
-            x = _apply_ffn(cfg, p_blk[f"pos{j}"], x, kinds[j])
+                                          cur_len=cur_len, route=route,
+                                          rules=rules)
+            x = _apply_ffn(cfg, p_blk[f"pos{j}"], x, kinds[j], rules)
+            x = rules.act(x, "batch", "seq", "embed")
     return x
 
 
 def _shared_block(cfg, params, x, emb0, positions, *, site: int, cache,
-                  cur_len, route: Optional[str]):
+                  cur_len, route: Optional[str],
+                  rules: ShardingRules = NO_RULES):
     """The hybrid's shared transformer block at site ``site``: pre-norm
     attention and MLP over concat([x, emb0]) (2 d wide), the site's LoRA
     added to q, its K/V written into the site's slice of the shared cache
@@ -968,7 +1023,7 @@ def _shared_block(cfg, params, x, emb0, positions, *, site: int, cache,
     p = params["shared"]
     h2 = torch.cat([x, emb0], dim=-1)
     h = L.apply_norm(cfg, p["ln1"], h2, plain=plain)
-    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, plain=plain)
+    q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, rules, plain=plain)
     if "shared_lora" in params:
         b, s, _ = h.shape
         la = params["shared_lora"]["a"][site]
@@ -986,11 +1041,11 @@ def _shared_block(cfg, params, x, emb0, positions, *, site: int, cache,
         _update_kv(v_buf, v, cur_len, dim=2)
         out = _dense_attend(cfg, q, k_buf, v_buf, positions,
                             cur_len + k.shape[1], None, route,
-                            layout="bhtd")
+                            layout="bhtd", fresh=(k, v))
     b, s, hq, hd = out.shape
     h2 = h2 + out.reshape(b, s, hq * hd) @ p["attn"]["wo"]
     h2 = h2 + L.mlp(cfg, p["mlp"],
-                    L.apply_norm(cfg, p["ln2"], h2, plain=plain),
+                    L.apply_norm(cfg, p["ln2"], h2, plain=plain), rules,
                     plain=plain)
     return x + h2 @ p["proj"]
 
@@ -1010,16 +1065,19 @@ def _attend_all(cfg, q, k, v, *, plain: bool = False, lens=None):
         return L.attention(q, k, v, q_positions=qpos, kv_positions=kvpos,
                            causal=False, attn_softcap=cfg.attn_softcap)
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    sharded = is_dtensor(q)
     if lens is not None:
-        out = K.decode_attention(q[:, 0], kh, vh, lens,
-                                 softcap=cfg.attn_softcap)
+        dec = DL.decode_attention if sharded else K.decode_attention
+        out = dec(q[:, 0], kh, vh, lens, softcap=cfg.attn_softcap)
         return out[:, None]
-    out = K.flash_attention(q.transpose(1, 2), kh, vh, causal=False,
-                            softcap=cfg.attn_softcap)
+    flash = DL.flash_attention if sharded else K.flash_attention
+    out = flash(q.transpose(1, 2), kh, vh, causal=False,
+                softcap=cfg.attn_softcap)
     return out.transpose(1, 2)
 
 
-def _encode(cfg, params, enc_embeds, *, plain: bool = False):
+def _encode(cfg, params, enc_embeds, rules: ShardingRules = NO_RULES, *,
+            plain: bool = False):
     """The encoder over frame embeddings (B, S_enc, d): the learned
     ``enc_pos`` added, then per layer pre-norm non-causal self-attention
     (:func:`_attend_all`) and the MLP, each with its residual, and the
@@ -1032,14 +1090,16 @@ def _encode(cfg, params, enc_embeds, *, plain: bool = False):
     for li in range(cfg.encoder_layers):
         p = _pick(params["enc_blocks"], li)
         h = L.apply_norm(cfg, p["ln1"], x, plain=plain)
-        q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, plain=plain)
+        q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, rules,
+                            plain=plain)
         x = x + L.attn_out(cfg, p["attn"],
-                           _attend_all(cfg, q, k, v, plain=plain))
-        x = _apply_ffn(cfg, p, x, "dense", plain=plain)
+                           _attend_all(cfg, q, k, v, plain=plain), rules)
+        x = _apply_ffn(cfg, p, x, "dense", rules, plain=plain)
     return L.apply_norm(cfg, params["enc_final_norm"], x, plain=plain)
 
 
-def _encdec_decoder(cfg, params, x, positions, enc, *, cache, cur_len,
+def _encdec_decoder(cfg, params, x, positions, enc,
+                    rules: ShardingRules = NO_RULES, *, cache, cur_len,
                     route: Optional[str] = None, remat: bool = False):
     """The encoder-decoder's decoder: per layer, self-attention over the
     stacked cache (its "k0"/"v0", int8 with scales where the config asks)
@@ -1068,24 +1128,26 @@ def _encdec_decoder(cfg, params, x, positions, enc, *, cache, cur_len,
 
     def layer(x, li, p, pc):
         if plain:
-            x = _attn_layer_train(cfg, p, x, positions, "dense")
+            x = _attn_layer_train(cfg, p, x, positions, "dense", rules)
         else:
             x = _apply_attn_layer_stacked(
                 cfg, p, x, positions, kind="dense",
                 stacks=tuple(cache[k] for k in keys), li=li,
-                cur_len=cur_len, route=route)
+                cur_len=cur_len, route=route, rules=rules)
         hx = L.apply_norm(cfg, pc["ln"], x, plain=plain)
-        q, ck, cv = L.gqa_qkv(cfg, pc["attn"], hx, positions, plain=plain)
+        q, ck, cv = L.gqa_qkv(cfg, pc["attn"], hx, positions, rules,
+                              plain=plain)
         if enc is None:
             ck, cv = cache["cross_k"][li], cache["cross_v"][li]
         else:
-            _, ck, cv = L.gqa_qkv(cfg, pc["attn"], enc, encpos, plain=plain)
+            _, ck, cv = L.gqa_qkv(cfg, pc["attn"], enc, encpos, rules,
+                                  plain=plain)
             if not plain:
                 cache["cross_k"][li].copy_(ck)
                 cache["cross_v"][li].copy_(cv)
         out = _attend_all(cfg, q, ck, cv, plain=plain, lens=lens)
-        x = x + L.attn_out(cfg, pc["attn"], out)
-        return _apply_ffn(cfg, p, x, "dense", plain=plain)
+        x = x + L.attn_out(cfg, pc["attn"], out, rules)
+        return _apply_ffn(cfg, p, x, "dense", rules, plain=plain)
 
     if remat:
         layer = _checkpointed(layer)
@@ -1106,7 +1168,8 @@ def _checkpointed(fn):
 
 
 def _mamba_trunk(cfg, params, x, *, cache, positions=None, cur_len=None,
-                 route: Optional[str] = None, remat: bool = False):
+                 route: Optional[str] = None, remat: bool = False,
+                 rules: ShardingRules = NO_RULES):
     """The SSM / hybrid trunk as a loop over its groups and their layers
     (the JAX package scans it): pre-norm Mamba2 block + residual, each
     layer's recurrent and convolution states updated in the cache in
@@ -1122,16 +1185,16 @@ def _mamba_trunk(cfg, params, x, *, cache, positions=None, cur_len=None,
     plain = cache is None
     emb0 = x
     shared = dict(params=params, emb0=emb0, positions=positions,
-                  cache=cache, cur_len=cur_len, route=route)
+                  cache=cache, cur_len=cur_len, route=route, rules=rules)
 
     def mamba_one(x, p, sfx, idx):
         h = L.apply_norm(cfg, p["ln"], x, plain=plain)
         if plain:
-            return x + S.mamba_block(cfg, p, h, plain=True)[0]
+            return x + S.mamba_block(cfg, p, h, plain=True, rules=rules)[0]
         ssm, cx, cbc = (cache[k + sfx][idx] for k in ("ssm", "conv_x",
                                                       "conv_bc"))
         y, s2, (cx2, cbc2) = S.mamba_block(cfg, p, h, ssm_state=ssm,
-                                           conv_state=(cx, cbc))
+                                           conv_state=(cx, cbc), rules=rules)
         ssm.copy_(s2)
         cx.copy_(cx2)
         cbc.copy_(cbc2)
@@ -1159,7 +1222,47 @@ def _mamba_trunk(cfg, params, x, *, cache, positions=None, cur_len=None,
     return x
 
 
+@contextlib.contextmanager
+def sharded(rules: ShardingRules):
+    """The context a step runs in: under active rules, plain tensors (the
+    positions, masks and constants a step makes) mix with ``DTensor``s as
+    replicated values (``implicit_replication``, restored to what it was
+    on exit, so the contexts nest)."""
+    if not rules.active:
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+    d = DTensor._op_dispatcher
+    prev = d._allow_implicit_replication
+    d._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        d._allow_implicit_replication = prev
+
+
+def sharded_backward(loss: torch.Tensor) -> None:
+    """Let the backward of ``loss`` (a ``DTensor``) mix plain tensors in as
+    replicated values, as :func:`sharded` lets its forward: the backward
+    runs on autograd's thread for the device, whose flag the forward's
+    context does not reach, so a hook on ``loss`` (the first thing that
+    thread runs) sets it there and a callback at the end of the pass
+    clears it."""
+    from torch.distributed.tensor import DTensor
+
+    def off():
+        DTensor._op_dispatcher._allow_implicit_replication = False
+
+    def on(grad):
+        DTensor._op_dispatcher._allow_implicit_replication = True
+        torch.autograd.Variable._execution_engine.queue_callback(off)
+        return grad
+
+    loss.register_hook(on)
+
+
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
+            rules: ShardingRules = NO_RULES,
             all_logits: bool = False) -> Tuple[Dict, torch.Tensor]:
     """Process ``batch["tokens"]`` (B, S) — or the VLM's ``"embeds"``
     (B, S, d) (:func:`embed_inputs`) — at ``cache["len"]``, writing the
@@ -1169,7 +1272,12 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
     them the cached cross K/V are read.  Returns (cache, logits): (B, V)
     for the last position, or (B, S, V) with ``all_logits``."""
     _check_whole_model(cfg)
-    x = embed_inputs(cfg, params, batch)
+    with sharded(rules):
+        return _prefill(cfg, params, batch, cache, rules, all_logits)
+
+
+def _prefill(cfg, params, batch, cache, rules, all_logits):
+    x = embed_inputs(cfg, params, batch, rules)
     b, s = x.shape[:2]
     cur_len = cache["len"]
     positions = _positions_from(cur_len, b, s)
@@ -1177,38 +1285,42 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, cache: Dict,
     if cfg.family == "encdec":
         enc = None
         if "enc_embeds" in batch:
-            enc = _encode(cfg, params, batch["enc_embeds"])
-        x = _encdec_decoder(cfg, params, x, positions, enc, cache=cache,
-                            cur_len=cur_len,
+            enc = _encode(cfg, params, batch["enc_embeds"], rules)
+        x = _encdec_decoder(cfg, params, x, positions, enc, rules,
+                            cache=cache, cur_len=cur_len,
                             route=attention_route(cur_len, s))
     elif cfg.family == "ssm":
-        x = _mamba_trunk(cfg, params, x, cache=cache)
+        x = _mamba_trunk(cfg, params, x, cache=cache, rules=rules)
     elif cfg.family == "hybrid":
         x = _mamba_trunk(cfg, params, x, cache=cache, positions=positions,
-                         cur_len=cur_len, route=attention_route(cur_len, s))
+                         cur_len=cur_len, route=attention_route(cur_len, s),
+                         rules=rules)
     else:
         x = _transformer_trunk(cfg, params, x, positions, cache=cache,
                                cur_len=cur_len,
-                               route=attention_route(cur_len, s))
+                               route=attention_route(cur_len, s),
+                               rules=rules)
     new_cache = dict(cache)
     new_cache["len"] = cur_len + s
     x = L.apply_norm(cfg, params["final_norm"],
                      x if all_logits else x[:, -1:])
-    logits = lm_logits(cfg, params, x)
+    logits = lm_logits(cfg, params, x, rules)
     return new_cache, (logits if all_logits else logits[:, 0])
 
 
 def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
-                cache: Dict) -> Tuple[Dict, torch.Tensor]:
+                cache: Dict, rules: ShardingRules = NO_RULES
+                ) -> Tuple[Dict, torch.Tensor]:
     """One decode step: token (B,) -> (cache, logits (B, V))."""
-    return prefill(cfg, params, {"tokens": token[:, None]}, cache)
+    return prefill(cfg, params, {"tokens": token[:, None]}, cache, rules)
 
 
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
 
-def _attn_layer_train(cfg, p, x, positions, kind: str):
+def _attn_layer_train(cfg, p, x, positions, kind: str,
+                      rules: ShardingRules = NO_RULES):
     """Pre-norm attention + residual within the sequence (no cache), on the
     plain forms: causal GQA with Gemma-2's window on a local layer and its
     softcap, or MLA over the latents of the sequence itself."""
@@ -1219,20 +1331,22 @@ def _attn_layer_train(cfg, p, x, positions, kind: str):
         latent, k_rope = L.mla_latent_kv(cfg, p["attn"], h, positions,
                                          plain=True)
         out = L.mla_attend(cfg, p["attn"], q_nope, q_rope, latent, k_rope,
-                           q_positions=positions, kv_positions=positions)
+                           q_positions=positions, kv_positions=positions,
+                           rules=rules)
     else:
-        q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, plain=True)
+        q, k, v = L.gqa_qkv(cfg, p["attn"], h, positions, rules, plain=True)
         out = L.attention(q, k, v, q_positions=positions,
                           kv_positions=positions, causal=True,
                           window=cfg.window if kind == "local" else None,
-                          attn_softcap=cfg.attn_softcap)
-        out = L.attn_out(cfg, p["attn"], out)
+                          attn_softcap=cfg.attn_softcap, rules=rules)
+        out = L.attn_out(cfg, p["attn"], out, rules)
     if cfg.post_norm:
         out = L.apply_norm(cfg, p["ln1_post"], out, plain=True)
     return x + out
 
 
-def _transformer_trunk_train(cfg, params, x, positions):
+def _transformer_trunk_train(cfg, params, x, positions,
+                             rules: ShardingRules = NO_RULES):
     """The decoder stack for training: super-block g's pattern positions
     in order, each super-block checkpointed where ``cfg.remat`` asks.
     Returns (x, aux), aux the sum of the MoE layers' load-balancing
@@ -1243,8 +1357,10 @@ def _transformer_trunk_train(cfg, params, x, positions):
     def block(x, aux, p_blk):
         for j in range(period):
             p = p_blk[f"pos{j}"]
-            x = _attn_layer_train(cfg, p, x, positions, kinds[j])
-            x, aux = _apply_ffn(cfg, p, x, kinds[j], plain=True, aux=aux)
+            x = _attn_layer_train(cfg, p, x, positions, kinds[j], rules)
+            x, aux = _apply_ffn(cfg, p, x, kinds[j], rules, plain=True,
+                                aux=aux)
+            x = rules.act(x, "batch", "seq", "embed")
         return x, aux
 
     if cfg.remat:
@@ -1256,7 +1372,7 @@ def _transformer_trunk_train(cfg, params, x, positions):
 
 
 def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
-                  return_aux: bool = False):
+                  rules: ShardingRules = NO_RULES, return_aux: bool = False):
     """Full causal forward over ``batch["tokens"]`` (B, S) — the VLM's
     ``"embeds"`` (B, S, d) in their place, the encoder-decoder's
     ``"enc_embeds"`` (B, encoder_seq, d) beside them — -> logits (B, S,
@@ -1269,22 +1385,30 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
     VLM, the encoder-decoder (cross K/V recomputed per layer), SSM and
     hybrid trunks."""
     _check_whole_model(cfg)
-    x = embed_inputs(cfg, params, batch)
+    with sharded(rules):
+        return _forward_train(cfg, params, batch, rules, return_aux)
+
+
+def _forward_train(cfg, params, batch, rules, return_aux):
+    x = embed_inputs(cfg, params, batch, rules)
     b, s = x.shape[:2]
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
     positions = _positions_from(zero, b, s)
+    if is_dtensor(x):
+        # replicated, so the rope tables the backward reads are DTensors
+        positions = DL.as_dtensor(positions, x.device_mesh)
     x = _add_learned_pos(cfg, params, x, positions)
     if cfg.family == "encdec":
-        enc = _encode(cfg, params, batch["enc_embeds"], plain=True)
-        x = _encdec_decoder(cfg, params, x, positions, enc, cache=None,
-                            cur_len=None, remat=cfg.remat)
+        enc = _encode(cfg, params, batch["enc_embeds"], rules, plain=True)
+        x = _encdec_decoder(cfg, params, x, positions, enc, rules,
+                            cache=None, cur_len=None, remat=cfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     elif cfg.family in ("ssm", "hybrid"):
         x = _mamba_trunk(cfg, params, x, cache=None, positions=positions,
-                         remat=cfg.remat)
+                         remat=cfg.remat, rules=rules)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        x, aux = _transformer_trunk_train(cfg, params, x, positions)
+        x, aux = _transformer_trunk_train(cfg, params, x, positions, rules)
     x = L.apply_norm(cfg, params["final_norm"], x, plain=True)
-    logits = lm_logits(cfg, params, x)
+    logits = lm_logits(cfg, params, x, rules)
     return (logits, aux) if return_aux else logits

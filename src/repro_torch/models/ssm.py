@@ -39,6 +39,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import local as DL
+from repro_torch.distributed.shardings import (NO_RULES, ShardingRules,
+                                               is_dtensor)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
 
@@ -66,7 +69,7 @@ def ssd_recurrent(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     h (B,H,P,N) fp32."""
     bs, ln, h, p = x.shape
     n = b.shape[3]
-    hs = torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device) \
+    hs = x.new_zeros((bs, h, p, n), dtype=torch.float32) \
         if h0 is None else h0
     bh, ch = heads_of_groups(b, h), heads_of_groups(c, h)
     ys = []
@@ -98,9 +101,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if ln % chunk:
         raise ValueError(f"seq {ln} not divisible by chunk {chunk}")
     nc = ln // chunk
-    hs = torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device) \
+    hs = x.new_zeros((bs, h, p, n), dtype=torch.float32) \
         if h0 is None else h0
-    intra = R.ssd_chunk if plain else K.ssd_chunk
+    intra = R.ssd_chunk if plain else \
+        DL.ssd_chunk if is_dtensor(x) else K.ssd_chunk
     y_intra, state_c, cum = intra(x, dt, a, heads_of_groups(b, h),
                                   heads_of_groups(c, h), chunk=chunk)
     cum = cum.reshape(bs, nc, chunk, h)
@@ -142,8 +146,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     where the state carries the last K-1 inputs."""
     k = w.shape[0]
     if state is None:
-        state = torch.zeros((xbc.shape[0], k - 1, xbc.shape[2]),
-                            dtype=xbc.dtype, device=xbc.device)
+        state = xbc.new_zeros((xbc.shape[0], k - 1, xbc.shape[2]))
     xpad = torch.cat([state, xbc], dim=1)
     new_state = xpad[:, -(k - 1):, :] if k > 1 else state
     ln = xbc.shape[1]
@@ -156,7 +159,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def mamba_block(cfg, p: Dict, x: torch.Tensor, *,
                 ssm_state: Optional[torch.Tensor] = None,
                 conv_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                plain: bool = False):
+                plain: bool = False, rules: ShardingRules = NO_RULES):
     """Full Mamba2 block over a sequence.  x (B,L,d_model).
 
     Returns (y, new_ssm_state, (new_conv_x, new_conv_bc)).  Decode (L == 1
@@ -168,15 +171,18 @@ def mamba_block(cfg, p: Dict, x: torch.Tensor, *,
     h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     g = cfg.ssm_groups
 
-    z = x @ p["w_z"]
-    xr = x @ p["w_x"]
-    bc = x @ p["w_bc"]
-    dt = x @ p["w_dt"]
+    z = DL.matmul(x, p["w_z"])
+    xr = DL.matmul(x, p["w_x"])
+    bc = DL.matmul(x, p["w_bc"])
+    dt = DL.matmul(x, p["w_dt"])
+    z = rules.act(z, "batch", None, "ff")
+    xr = rules.act(xr, "batch", None, "ff")
     # the fused [x; B; C] depthwise conv split into x / BC parts is exact
     cs_x, cs_bc = conv_state if conv_state is not None else (None, None)
     xr, new_conv_x = _causal_conv(xr, p["conv_x_w"], p["conv_x_b"], cs_x)
     bc, new_conv_bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"], cs_bc)
-    xs = xr.reshape(bs, ln, h, pdim)
+    xs = rules.act(DL.split_last(xr, (h, pdim)), "batch", None, "ssm_heads",
+                   None)
     b = bc[..., :g * n].reshape(bs, ln, g, n)
     c = bc[..., g * n:].reshape(bs, ln, g, n)
 
@@ -197,6 +203,12 @@ def mamba_block(cfg, p: Dict, x: torch.Tensor, *,
         y, new_state = ssd_recurrent(xs, dt, a, b, c, p["D"], h0=ssm_state)
 
     y = y.reshape(bs, ln, cfg.d_inner)
-    rms = R.rmsnorm if plain else K.rmsnorm
-    y = rms(y * F.silu(z), p["gnorm"], eps=cfg.norm_eps)
-    return y @ p["out_proj"], new_state, (new_conv_x, new_conv_bc)
+    y = y * F.silu(z)
+    if plain:
+        y = R.rmsnorm(y, p["gnorm"], eps=cfg.norm_eps)
+    elif is_dtensor(y):
+        y = DL.rmsnorm(y, p["gnorm"], eps=cfg.norm_eps)
+    else:
+        y = K.rmsnorm(y, p["gnorm"], eps=cfg.norm_eps)
+    return rules.act(DL.matmul(y, p["out_proj"]), "batch", None, "embed"), \
+        new_state, (new_conv_x, new_conv_bc)

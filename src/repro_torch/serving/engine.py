@@ -41,6 +41,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.distributed.shardings import (NO_RULES, ShardingRules,
+                                               is_dtensor)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.sampling import (SamplerConfig, SamplingParams,
@@ -68,12 +70,18 @@ class Generator:
     (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 rules: ShardingRules = NO_RULES,
                  sampler: SamplerConfig = SamplerConfig(),
                  backend=None):
         if backend is None and params is None:
             raise ValueError("Generator needs params or a backend")
+        if backend is not None and rules is not NO_RULES:
+            raise ValueError(
+                "sharding rules are owned by the backend; construct the "
+                "backend with its own sharding instead of passing rules")
         self.cfg = cfg
         self.params = params
+        self.rules = rules
         self.backend = backend
         self.sample = make_sampler(sampler)
 
@@ -143,7 +151,8 @@ class Generator:
 
         t0 = time.perf_counter()
         if be is None:
-            cache, logits = M.prefill(cfg, self.params, feed, cache)
+            cache, logits = M.prefill(cfg, self.params, feed, cache,
+                                      self.rules)
         else:
             cache, logits = be.prefill(feed, cache)
         tok = sample(logits, 0)
@@ -153,7 +162,8 @@ class Generator:
         out = [tok]
         for i in range(1, max_new_tokens):
             if be is None:
-                cache, logits = M.decode_step(cfg, self.params, tok, cache)
+                cache, logits = M.decode_step(cfg, self.params, tok, cache,
+                                              self.rules)
             else:
                 cache, logits = be.decode(tok, cache)
             tok = sample(logits, i)
@@ -174,20 +184,35 @@ class Generator:
 # serve_step / prefill_step entry points
 # ---------------------------------------------------------------------------
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, rules: ShardingRules = NO_RULES):
     """One decode step: (params, token (B,), cache) -> (cache, next (B,)),
-    greedy, with nothing read back to the host."""
+    greedy, with nothing read back to the host.  Under ``rules`` over
+    ``DTensor``s the argmax runs over the vocab-sharded logits (a
+    reduction across ``model``)."""
 
     def serve_step(params, token, cache):
-        cache, logits = M.decode_step(cfg, params, token, cache)
-        return cache, greedy(logits)
+        cache, logits = M.decode_step(cfg, params, token, cache, rules)
+        return cache, _greedy(logits, rules)
 
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, rules: ShardingRules = NO_RULES):
     def prefill_step(params, batch, cache):
-        cache, logits = M.prefill(cfg, params, batch, cache)
-        return cache, greedy(logits)
+        cache, logits = M.prefill(cfg, params, batch, cache, rules)
+        return cache, _greedy(logits, rules)
 
     return prefill_step
+
+
+def _greedy(logits: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """:func:`greedy` over logits placed by ``rules``: the vocab shards
+    gathered (each rank's rows whole), the argmax taken locally and the
+    tokens placed on the batch axes."""
+    if not rules.active or not is_dtensor(logits):
+        return greedy(logits)
+    from torch.distributed.tensor import Replicate
+    rows = [p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in logits.placements]
+    return rules.act(greedy(logits.redistribute(logits.device_mesh, rows)),
+                     "batch")

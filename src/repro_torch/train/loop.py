@@ -11,6 +11,11 @@ with the microbatch), then the optimizer (global-norm clipping inside).
 The ``Trainer`` adds checkpoint/restart, preemption handling, straggler
 monitoring and metrics, and resumes from the newest checkpoint of its
 directory on construction.
+
+``rules`` places the forward's activations (and the accumulating step's
+microbatches) as the JAX package's do; over params, optimizer state and
+batch placed as ``DTensor``s (:mod:`repro_torch.distributed.specs`) the
+step runs sharded.  ``NO_RULES`` (the default) changes nothing.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.shardings import NO_RULES, ShardingRules
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import (OptimizerConfig, lr_schedule,
@@ -44,16 +50,21 @@ class TrainConfig:
 
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            rules: ShardingRules = NO_RULES,
             aux_weight: float = 0.01,
             z_weight: float = 0.0) -> Tuple[torch.Tensor, Dict]:
     """Causal LM cross entropy over the batch (labels = next-token ids),
     fp32 logsumexp minus the gold logit, averaged.  Returns (loss,
     {"nll", "aux"})."""
-    logits, aux = M.forward_train(cfg, params, batch, return_aux=True)
+    logits, aux = M.forward_train(cfg, params, batch, rules,
+                                  return_aux=True)
     labels = batch["labels"].long()
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    logz = rules.act(torch.logsumexp(logits, dim=-1), "batch", "seq")
+    # the gold logit of vocab-sharded logits: each rank's masked pick,
+    # summed over the vocab shards here
+    gold = rules.act(torch.gather(logits, -1, labels[..., None]),
+                     "batch", "seq", None)[..., 0]
     loss = torch.mean(logz - gold)
     metrics = {"nll": loss, "aux": aux}
     if aux_weight and cfg.n_experts:
@@ -64,6 +75,7 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
 
 
 def loss_and_grads(cfg: ModelConfig, params: Dict, batch: Dict,
+                   rules: ShardingRules = NO_RULES,
                    aux_weight: float = 0.01, z_weight: float = 0.0):
     """(loss, metrics, grads): ``grads`` is a tree like ``params`` whose
     leaves are ``torch.autograd.grad``'s — None for a leaf the loss does
@@ -71,9 +83,11 @@ def loss_and_grads(cfg: ModelConfig, params: Dict, batch: Dict,
     detached views that require grad)."""
     leaves, rebuild = _flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    with torch.enable_grad():
-        loss, metrics = loss_fn(cfg, rebuild(live), batch, aux_weight,
-                                z_weight)
+    with torch.enable_grad(), M.sharded(rules):
+        loss, metrics = loss_fn(cfg, rebuild(live), batch, rules,
+                                aux_weight, z_weight)
+        if rules.active:
+            M.sharded_backward(loss)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, rebuild(list(grads))
@@ -96,19 +110,23 @@ def _batch_on(batch: Dict, device) -> Dict:
             for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    rules: ShardingRules = NO_RULES):
     """(state, batch) -> (state, metrics) with grad accumulation.
 
     ``state`` = {"params", "opt", "step"}.  ``batch`` leaves have leading
     dim ``global_batch``; microbatch i is rows [i B/a, (i+1) B/a), run in
     order, gradients summed in ``accum_dtype`` and averaged, one optimizer
     update applied (in place: the returned state holds the same tensors).
-    As in the JAX package, the accumulating step reports ``aux`` as 0."""
+    As in the JAX package, the accumulating step reports ``aux`` as 0.
+    Under active ``rules`` the batch is viewed as (a, B/a, ...) with the
+    microbatch rows placed on the batch axes, as the JAX package re-pins
+    them, so every rank computes its own rows of each microbatch."""
     opt_init, opt_update = make_optimizer(tcfg.optimizer)
 
     def grads_of(params, mb):
         loss, metrics, grads = loss_and_grads(
-            cfg, params, mb, tcfg.aux_loss_weight, tcfg.z_loss_weight)
+            cfg, params, mb, rules, tcfg.aux_loss_weight, tcfg.z_loss_weight)
         grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None
                          else g, grads, params)
         return grads, loss, metrics
@@ -122,9 +140,21 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         else:
             adt = _DTYPES[tcfg.accum_dtype]
             rows = next(iter(batch.values())).shape[0] // a
+            if rules.active:
+                # gathered whole first: a batch dim split over two mesh
+                # axes cannot be reshaped in place
+                micro = {k: rules.act(
+                    rules.act(v, *([None] * v.dim())).reshape(
+                        (a, rows) + v.shape[1:]),
+                    None, "batch", *([None] * (v.dim() - 1)))
+                    for k, v in batch.items()}
             g_sum, loss = None, 0.0
             for i in range(a):
-                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                if rules.active:
+                    mb = {k: v[i] for k, v in micro.items()}
+                else:
+                    mb = {k: v[i * rows:(i + 1) * rows]
+                          for k, v in batch.items()}
                 g, l, _ = grads_of(params, mb)
                 if g_sum is None:
                     g_sum = tree_map(lambda x: x.to(adt), g)
@@ -138,6 +168,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             metrics = {"nll": loss,
                        "aux": torch.zeros((), dtype=torch.float32,
                                           device=loss.device)}
+        if rules.active:
+            # each gradient reduced to its parameter's placements (the
+            # data-parallel all-reduce), once, after the accumulation
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
+                                                         p.placements),
+                             grads, params)
         lr = lr_schedule(state["step"], base=tcfg.optimizer.lr,
                          warmup=tcfg.warmup, total=tcfg.total_steps)
         new_params, new_opt = opt_update(grads, state["opt"], params, lr)
@@ -166,6 +202,7 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0, *,
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
+                 rules: ShardingRules = NO_RULES,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 50,
                  keep: int = 3,
@@ -177,7 +214,7 @@ class Trainer:
             PreemptionHandler, StragglerDetector, retry)
 
         self.cfg, self.tcfg = cfg, tcfg
-        self._step, _ = make_train_step(cfg, tcfg)
+        self._step, _ = make_train_step(cfg, tcfg, rules)
         self.state = init_state(cfg, tcfg, seed, device=device)
         self.ckpt = (CheckpointManager(checkpoint_dir, keep=keep,
                                        async_save=async_checkpoint)

@@ -95,8 +95,7 @@ def test_unported_features_raise(setup):
         assert llm.last_executor == "batcher"
         assert [len(o.tokens) for o in outs] == [3, 3]
     # speculative decoding and text I/O are served now, token-identical
-    # to the plain run; what is still unported (the launcher's --dryrun,
-    # which needs launch/dryrun.py) raises
+    # to the plain run; the launcher's --dryrun traces its dry-run cell
     with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32,
              spec=SpecConfig(NgramDrafter(), k=2),
              tokenizer=ByteTokenizer(eos_id=None)) as llm:
@@ -105,9 +104,9 @@ def test_unported_features_raise(setup):
         assert [o.tokens for o in spec_outs] == [o.tokens for o in outs]
         assert spec_outs[0].text == ByteTokenizer().decode(outs[0].tokens)
         assert "spec" in llm.stats()
-    with pytest.raises(NotImplementedError, match="dryrun"):
-        serve.serve(serve.build_parser().parse_args(
-            ["--arch", cfg.name, "--device", "cpu", "--dryrun"]))
+    rec = serve.serve(serve.build_parser().parse_args(
+        ["--arch", "tiny", "--device", "meta", "--dryrun"]))
+    assert rec["status"] == "ok", rec.get("traceback")
     # tracing and trace-driven recalibration are served now
     with LLM(cfg, tp, device="cpu", max_slots=2, max_len=32,
              trace=True) as llm:

@@ -1765,3 +1765,181 @@ def test_matmul_bf16_long_k_folds_accumulator(cuda, m):
     want = ref.matmul(x, w, activation="relu2")
     _assert_within(got, want, ref.matmul_limit(x, w, want,
                                                activation="relu2"))
+
+
+# ---------------------------------------------------------------------------
+# The sharded path's kernel sites (repro_torch.distributed.local)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def mesh1(cuda):
+    """A (1, 1) ("data", "model") mesh over an NCCL world of one rank."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dt(t, mesh, *placements):
+    from torch.distributed.tensor import DTensor, Replicate
+    pl = list(placements) + [Replicate()] * (mesh.ndim - len(placements))
+    return DTensor.from_local(t, mesh, pl, run_check=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_kernel_sites_bit_equal(mesh1, dtype):
+    """Every kernel site of the sharded path, called on DTensors of a
+    world-1 mesh (batch on "data", heads / ff on "model"), gives the bits
+    of the plain call of the same kernel on the same tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import local as DL
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(11)
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    x = rnd(4, 8, 256)
+    w = rnd(256)
+    got = DL.rmsnorm(_dt(x, mesh1, Shard(0)), w, eps=1e-6).to_local()
+    assert torch.equal(got, ops.rmsnorm(x, w, eps=1e-6))
+
+    wg, wu, wi, bi = rnd(256, 512), rnd(256, 512), rnd(256, 512), rnd(512)
+    got = DL.mlp_in(_dt(x, mesh1, Shard(0)), _dt(wg, mesh1, Replicate(),
+                                                 Shard(1)),
+                    _dt(wu, mesh1, Replicate(), Shard(1)),
+                    activation="silu", gated=True).to_local()
+    want = ops.gated_matmul(x.reshape(-1, 256), wg, wu, activation="silu")
+    assert torch.equal(got.reshape(-1, 512), want)
+    got = DL.mlp_in(_dt(x, mesh1, Shard(0)), _dt(wi, mesh1, Replicate(),
+                                                 Shard(1)),
+                    bias=_dt(bi, mesh1, Replicate(), Shard(0)),
+                    activation="relu2", gated=False).to_local()
+    want = ops.matmul(x.reshape(-1, 256), wi, bi, activation="relu2")
+    assert torch.equal(got.reshape(-1, 512), want)
+
+    q, k, v = rnd(4, 8, 128), rnd(4, 2, 300, 128), rnd(4, 2, 300, 128)
+    lens = torch.tensor([300, 200, 17, 1], dtype=torch.int32, device=dev)
+    for kp in (Shard(1), Shard(2)):          # heads, or the sequence
+        got = DL.decode_attention(_dt(q, mesh1, Shard(0), Shard(1)),
+                                  _dt(k, mesh1, Shard(0), kp),
+                                  _dt(v, mesh1, Shard(0), kp),
+                                  lens).to_local()
+        # on a sequence-sharded cache one rank holds every key, and the
+        # combine of one member weighs its output by exp(0) = 1
+        assert torch.equal(got, ops.decode_attention(q, k, v, lens))
+
+    qf, kf, vf = rnd(2, 8, 64, 128), rnd(2, 2, 64, 128), rnd(2, 2, 64, 128)
+    got = DL.flash_attention(_dt(qf, mesh1, Shard(0), Shard(1)),
+                             _dt(kf, mesh1, Shard(0), Shard(1)),
+                             _dt(vf, mesh1, Shard(0), Shard(1))).to_local()
+    assert torch.equal(got, ops.flash_attention(qf, kf, vf))
+
+    xs = rnd(2, 64, 4, 64)
+    dt = torch.rand(2, 64, 4, generator=g, device=dev) * 0.1
+    a = -torch.rand(4, generator=g, device=dev)
+    bs = torch.randn(2, 64, 4, 16, generator=g, device=dev).to(dtype)
+    cs = torch.randn(2, 64, 4, 16, generator=g, device=dev).to(dtype)
+    got = DL.ssd_chunk(_dt(xs, mesh1, Shard(0), Shard(2)),
+                       _dt(dt, mesh1, Shard(0), Shard(2)), a,
+                       _dt(bs, mesh1, Shard(0), Shard(2)),
+                       _dt(cs, mesh1, Shard(0), Shard(2)), chunk=32)
+    want = ops.ssd_chunk(xs, dt, a, bs, cs, chunk=32)
+    for gg, ww in zip(got, want):
+        assert torch.equal(gg.to_local(), ww)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.float32, 40),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 192)])
+def test_decode_attention_lse(cuda, dtype, d):
+    """The kernel's log-sum-exp (return_lse) against its plain version's:
+    -inf on the same rows (no key), elsewhere within 1e-3; the output the
+    same bits as a call without it."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(6, 8, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(6, 2, 700, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(6, 2, 700, d, generator=g, device="cuda").to(dtype)
+    lens = torch.tensor([700, 699, 333, 64, 1, 0], dtype=torch.int32,
+                        device="cuda")
+    o, lse = ops.decode_attention(q, k, v, lens, softcap=30.0,
+                                  return_lse=True)
+    assert torch.equal(o, ops.decode_attention(q, k, v, lens, softcap=30.0))
+    _, want = ref.decode_attention(q, k, v, lens, softcap=30.0,
+                                   return_lse=True)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert not bool(fin[-1].any())
+    assert float((lse[fin] - want[fin]).abs().max()) <= 1e-3
+
+
+def test_sequence_split_decode_combine(cuda):
+    """Two halves of the keys, each through the kernel with its
+    log-sum-exp, combined as the sharded decode combines ranks, against
+    the whole cache: within the whole call's own distance from the plain
+    version, doubled."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn(4, 8, 128, generator=g, device="cuda")
+    k = torch.randn(4, 2, 512, 128, generator=g, device="cuda")
+    v = torch.randn(4, 2, 512, 128, generator=g, device="cuda")
+    lens = torch.tensor([512, 300, 256, 7], dtype=torch.int32, device="cuda")
+    parts = []
+    for lo in (0, 256):
+        ll = (lens - lo).clamp(0, 256).to(torch.int32)
+        parts.append(ops.decode_attention(q, k[:, :, lo:lo + 256],
+                                          v[:, :, lo:lo + 256], ll,
+                                          return_lse=True))
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.where(torch.isinf(p[1]), 0.0, torch.exp(p[1] - m))
+         for p in parts]
+    got = (parts[0][0] * w[0][..., None] + parts[1][0] * w[1][..., None]) \
+        / (w[0] + w[1])[..., None]
+    whole = ops.decode_attention(q, k, v, lens)
+    want = ref.decode_attention(q, k, v, lens)
+    lim = 2 * float((whole - want).abs().max()) + 1e-6
+    assert float((got - want).abs().max()) <= lim
+
+
+def test_dryrun_cell_on_card(cuda):
+    """``run_cell`` with device cuda on rank 0 of a fake (16, 16) world:
+    tiny x decode_32k executes; its argument bytes equal the analytic
+    params plus cache, and the kernels launched on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+    code = ("import json; from repro_torch.launch import dryrun as DR; "
+            "r = DR.run_cell('tiny', 'decode_32k', 'single', "
+            "device='cuda', verbose=False); "
+            "print(json.dumps({k: r.get(k) for k in ('status', 'memory', "
+            "'launches', 'step_ms', 'traceback')}))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=root,
+                         env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(root, "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok", rec["traceback"]
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == mem["analytic"]["params"] \
+        + mem["analytic"]["cache"]
+    assert mem["measured_peak_bytes"] >= mem["argument_bytes"]
+    assert rec["launches"].get("decode_attention", 0) > 0
+    assert rec["step_ms"] > 0

@@ -128,13 +128,26 @@ def test_model_drafter_and_priority_policy(tiny_params, capsys):
 def test_defaults_and_unported_dryrun(tiny_params):
     args = tserve.build_parser().parse_args([])
     assert args.device == "cuda" and args.hw == "h100"
-    with pytest.raises(NotImplementedError, match="launch/dryrun.py"):
-        _port(["--dryrun"], tiny_params)
+    rec = _port(["--dryrun"], tiny_params)        # rank 0 of (16, 16)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert (rec["shape"], rec["mesh"], rec["device"]) == (
+        "decode_32k", "single", "cpu")
+    assert rec["memory"]["argument_bytes"] == (
+        rec["memory"]["analytic"]["params"]
+        + rec["memory"]["analytic"]["cache"])
     if not torch.cuda.is_available():
         # no card: the default device refuses instead of running on the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.serve(tserve.build_parser().parse_args(
                 ["--arch", "tiny"]), params=tiny_params)
+
+
+def test_dryrun_of_a_failed_cell_exits_1(capsys):
+    with pytest.raises(SystemExit) as e:
+        tserve.main(["--arch", "tiny", "--device", "cpu", "--dryrun",
+                     "--shape", "no_such_shape"])
+    assert e.value.code == 1
+    assert "[ERROR] tiny x no_such_shape x single" in capsys.readouterr().out
 
 
 def test_module_entry_point():
